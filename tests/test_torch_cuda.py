@@ -1,0 +1,71 @@
+"""The Hopper kernels against their plain versions, on the card.
+
+Every test here needs a CUDA device (the kernels have no CPU mode) and
+skips without one.  The file imports neither JAX nor the JAX package, so
+it also runs where only the port is installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+Counts are integers: the tolerance is exact equality.
+"""
+
+import importlib.util
+import pathlib
+
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _smoke():
+    """``chip_smoke.py`` at the repo root: it holds the one table of seeded
+    kernel layouts (unaligned capacities, invalid slots, hot keys)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kernels_match_plain_versions(card, seed):
+    for name, kern, plain in _smoke().kernel_cases(torch, ops, seed):
+        got, want = kern(), plain()
+        assert got.dtype == want.dtype, name
+        assert torch.equal(got, want), name
+
+
+def test_all_pairs_cyclic_raises_on_cuda(card):
+    x = torch.zeros((1, 1, 1, 1, 8), dtype=torch.int32, device=card)
+    v = torch.ones_like(x, dtype=torch.bool)
+    s = torch.zeros((1, 1, 1, 8), dtype=torch.int32, device=card)
+    sv = torch.ones_like(s, dtype=torch.bool)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.fused_count3_cyclic(x, x, v, s, s, sv, s, s, sv,
+                                pair_index=False)
+
+
+def test_wrappers_check_their_inputs(card):
+    from repro_torch.kernels import cuda
+    rb = torch.zeros((1, 2, 8), dtype=torch.int32, device=card)
+    sb = torch.zeros((1, 1, 2, 8), dtype=torch.int32, device=card)
+    tc = torch.zeros((1, 8), dtype=torch.int32, device=card)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.fused_count3_linear(rb.long(), sb, sb, tc)
+    with pytest.raises(ValueError, match="shape"):
+        cuda.fused_count3_linear(rb, sb, sb[..., :4].contiguous(), tc)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda.fused_count3_linear(rb, sb, sb.transpose(2, 3).contiguous()
+                                 .transpose(2, 3), tc)
+    with pytest.raises(ValueError, match="cpu"):
+        cuda.fused_count3_linear(rb, sb, sb, tc.cpu())

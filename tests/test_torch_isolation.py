@@ -1,0 +1,78 @@
+"""The port stands alone: no JAX and nothing of the JAX package.
+
+A static scan of every file under ``src/repro_torch/`` and of
+``chip_smoke.py`` for imports of ``jax`` or ``repro``; a subprocess that
+imports the whole port and finds no ``jax`` module loaded; and the
+no-silent-CPU rule of the entry points.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _imported_roots(path: pathlib.Path) -> set[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+              == "import_module" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            roots.add(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+def _port_files():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    return files
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.convert, repro_torch.core\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels.cuda\n"
+        "import repro_torch.analysis.verify_plan, repro_torch.analysis.widths\n"
+        "import repro_torch.analysis.arena_sanitizer, repro_torch.perfmodel\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_entry_points_need_the_card_unless_asked_for_cpu():
+    from repro_torch.convert import relation_from_numpy
+    from repro_torch.core.relation import Relation
+    if torch.cuda.is_available():
+        pytest.skip("this box has a CUDA device: the default is the card")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Relation.from_arrays(a=[1, 2, 3])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        relation_from_numpy({"a": [1, 2, 3]})
+    rel = Relation.from_arrays(a=[1, 2, 3], device="cpu")
+    assert rel.device == torch.device("cpu")

@@ -1,0 +1,159 @@
+"""Port vs JAX package: the four fused partition-sweep ops.
+
+The port's plain versions (what a CPU tensor takes) are held against the
+reference's jnp path (``use_kernel=False``) and against its Pallas kernels
+in interpret mode, on seeded layouts with invalid (sentinel-masked) slots,
+hot keys and capacities that are not multiples of 8, 32 or 128.  Counts
+are integers: the tolerance is exact equality.  The CUDA kernels are
+compared with the same plain versions on the card by ``chip_smoke.py``
+and by ``tests/test_torch_cuda.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import bucket_join
+from repro.kernels import ops as jops
+from repro_torch.kernels import ops
+
+
+def _grid(rng, shape, d, hot=False):
+    keys = rng.integers(0, d, size=shape).astype(np.int32)
+    if hot:
+        keys[rng.random(shape) < 0.3] = 3
+    valid = rng.random(shape) < 0.8
+    return keys, valid
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+# (hp, gp, u, Cr, Cs, Ct): unaligned capacities on purpose
+LINEAR_SHAPES = [(2, 3, 4, 13, 5, 37), (1, 2, 3, 130, 7, 129)]
+
+
+@pytest.mark.parametrize("shape", LINEAR_SHAPES)
+@pytest.mark.parametrize("hot", [False, True])
+def test_fused_linear_and_per_r_match_reference(shape, hot):
+    hp, gp, u, cr, cs, ct = shape
+    rng = np.random.default_rng(sum(shape) + hot)
+    d = 11
+    rb, rv = _grid(rng, (hp, u, cr), d, hot)
+    sb, sv = _grid(rng, (hp, gp, u, cs), d, hot)
+    sc, _ = _grid(rng, (hp, gp, u, cs), d, hot)
+    tc, tv = _grid(rng, (gp, ct), d, hot)
+    args = (rb, rv, sb, sc, sv, tc, tv)
+    got = ops.fused_count3_linear(*_t(*args)).numpy()
+    want = np.asarray(jops.fused_count3_linear(*_j(*args)))
+    np.testing.assert_array_equal(got, want)
+    got_r = ops.fused_per_r_counts(*_t(*args)).numpy()
+    want_r = np.asarray(jops.fused_per_r_counts(*_j(*args)))
+    np.testing.assert_array_equal(got_r, want_r)
+    # and against the Pallas kernels in interpret mode, on the same
+    # sentinel-masked, 128-lane-padded operands the reference passes them
+    m = {k: np.asarray(jops._mask(jnp.asarray(x), jnp.asarray(v), k))
+         for k, (x, v) in {"r": (rb, rv), "t": (tc, tv)}.items()}
+    msb = np.asarray(jops._mask(jnp.asarray(sb), jnp.asarray(sv), "s"))
+    msc = np.asarray(jops._mask(jnp.asarray(sc), jnp.asarray(sv), "s"))
+    pad = [jops._pad_lanes(jnp.asarray(x), side)
+           for x, side in ((m["r"], "r"), (msb, "s"), (msc, "s"),
+                           (m["t"], "t"))]
+    kern = np.asarray(bucket_join.fused_count3_linear(*pad, interpret=True))
+    np.testing.assert_array_equal(got, kern)
+    kern_r = np.asarray(bucket_join.fused_per_r_counts(*pad, interpret=True))
+    np.testing.assert_array_equal(got_r, kern_r[..., :cr])
+
+
+# (uh, ug, chunks, Cr, Cs, Ct)
+STAR_SHAPES = [(2, 3, 1, 21, 9, 17), (3, 2, 2, 5, 33, 130)]
+
+
+@pytest.mark.parametrize("shape", STAR_SHAPES)
+@pytest.mark.parametrize("hot", [False, True])
+def test_fused_star_matches_reference(shape, hot):
+    uh, ug, ch, cr, cs, ct = shape
+    rng = np.random.default_rng(100 + sum(shape) + hot)
+    d = 9
+    rb, rv = _grid(rng, (uh, cr), d, hot)
+    sb, sv = _grid(rng, (ch, uh, ug, cs), d, hot)
+    sc, _ = _grid(rng, (ch, uh, ug, cs), d, hot)
+    tc, tv = _grid(rng, (ug, ct), d, hot)
+    args = (rb, rv, sb, sc, sv, tc, tv)
+    got = ops.fused_count3_star(*_t(*args)).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.fused_count3_star(*_j(*args))))
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.fused_count3_star(*_j(*args), use_kernel=True)))
+
+
+# (hp, gp, uh, ug, fp, Cr, Cs, Ct)
+CYCLIC_SHAPES = [(1, 2, 2, 3, 2, 7, 11, 13), (2, 1, 3, 2, 3, 10, 6, 129)]
+
+
+@pytest.mark.parametrize("shape", CYCLIC_SHAPES)
+@pytest.mark.parametrize("hot", [False, True])
+def test_fused_cyclic_pairidx_matches_reference(shape, hot):
+    hp, gp, uh, ug, fp, cr, cs, ct = shape
+    rng = np.random.default_rng(200 + sum(shape) + hot)
+    d = 5
+    ra, rv = _grid(rng, (hp, gp, uh, ug, cr), d, hot)
+    rb, _ = _grid(rng, (hp, gp, uh, ug, cr), d, hot)
+    sb, sv = _grid(rng, (gp, fp, ug, cs), d, hot)
+    sc, _ = _grid(rng, (gp, fp, ug, cs), d, hot)
+    tc, tv = _grid(rng, (hp, fp, uh, ct), d, hot)
+    ta, _ = _grid(rng, (hp, fp, uh, ct), d, hot)
+    args = (ra, rb, rv, sb, sc, sv, tc, ta, tv)
+    got = ops.fused_count3_cyclic(*_t(*args)).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.fused_count3_cyclic(*_j(*args))))
+    # interpret-mode Pallas pair-index kernel
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.fused_count3_cyclic(*_j(*args),
+                                                 use_kernel=True)))
+    # the all-pairs form computes the same counts
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.fused_count3_cyclic(*_j(*args),
+                                                 pair_index=False)))
+
+
+def test_lex_sort_pairs_matches_reference():
+    rng = np.random.default_rng(8)
+    tc = rng.integers(-50, 50, size=(3, 4, 37)).astype(np.int32)
+    ta = rng.integers(-(2**31), 2**31 - 1, size=(3, 4, 37),
+                      dtype=np.int64).astype(np.int32)
+    ta[0, 0, :5] = [-(2**31), 2**31 - 1, 0, -1, 1]
+    tv = rng.random((3, 4, 37)) < 0.7
+    got = ops.sorted_pair_index(*_t(tc, ta, tv))
+    want = jops.sorted_pair_index(*_j(tc, ta, tv))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_bucket_multiplicity_matches_reference():
+    rng = np.random.default_rng(4)
+    table = rng.integers(0, 7, size=(5, 23)).astype(np.int32)
+    probes = rng.integers(0, 9, size=(5, 31)).astype(np.int32)
+    np.testing.assert_array_equal(
+        ops._bucket_multiplicity(*_t(table, probes)).numpy(),
+        np.asarray(jops._bucket_multiplicity(*_j(table, probes))))
+
+
+def test_cpu_tensors_never_touch_the_cuda_module(monkeypatch):
+    """A CPU tensor takes the plain version only: the dispatch rule is the
+    device, with no flag and no import of the kernel module."""
+    import sys
+    monkeypatch.delitem(sys.modules, "repro_torch.kernels.cuda",
+                        raising=False)
+    rng = np.random.default_rng(1)
+    rb, rv = _grid(rng, (1, 2, 8), 4)
+    sb, sv = _grid(rng, (1, 1, 2, 8), 4)
+    tc, tv = _grid(rng, (1, 8), 4)
+    ops.fused_count3_linear(*_t(rb, rv, sb, sb, sv, tc, tv))
+    assert "repro_torch.kernels.cuda" not in sys.modules
