@@ -8,20 +8,31 @@ result line):
 
   1. device  — requires CUDA and a compute capability 9.0 card; prints the
      card's name and power limit from nvidia-smi;
-  2. build   — compiles the four Hopper kernels from ``src/repro_torch/
-     kernels/csrc`` (one nvcc each, in parallel) and prints the seconds;
+  2. build   — compiles the nine Hopper kernels from ``src/repro_torch/
+     kernels/csrc`` (one nvcc per source, all in parallel) and prints the
+     seconds;
   3. kernels — each kernel against its plain PyTorch version on the card,
-     exactly, on seeded layouts with unaligned capacities, invalid slots and
-     hot keys;
+     exactly, on seeded layouts with unaligned capacities, invalid slots,
+     hot keys, shared (broadcast) bucket rows and 1 x 1 edge cases;
   4. main path — six queries through ``JoinSession(m_budget=16384)
      .execute``, each checked against an oracle independent of the port
      (numpy histograms, a float64 trace(A^3) on the card, a numpy
-     weight-backflow), with ``overflowed == False``.  The kernels' launch
-     counters are zeroed just before and read just after;
-  5. timings — each query's cold and warm execute times; each kernel at the
-     first-round layouts of the main path, against its plain version
-     (exact) and its bound.  Prints one ``kernels`` JSON line;
-  6. the last line: ``{"ok": true, "device": {...}}``.
+     weight-backflow), with ``overflowed == False``.  The launch counters
+     are zeroed just before and read just after: each of the four fused
+     kernels must have launched;
+  5. baselines — the paper's baselines on the same data, each against its
+     oracle with ``overflowed == False``, cold and warm (median of 3):
+     B1 the linear scan driver with whole-query retry on Q1's graph, B2 the
+     star scan on Q2's, B3 the per-R scan on Q6's, B4 the all-pairs cyclic
+     forms (scan with retry, fused, and the pair-index scan) on a graph of
+     1e5 edges over 350 users (Q3's N/d) and on Q3's graph, B5 the cascade
+     of binary joins on Q6 and Q2, B6 the bucketed binary join on Q1.  The
+     counters are zeroed before the phase: each of the five baseline
+     kernels must have launched in it;
+  6. timings — each kernel at its layout (the main path's first round;
+     the baselines' first step), against its plain version (exact) and its
+     bound.  Prints one ``kernels`` JSON line with all nine kernels;
+  7. the last line: ``{"ok": true, "device": {...}}``.
 
 Sizes are cut from the paper's (Fig 4: N = 2e8 friends edges, a 1e9-row
 fact table) to N = 4e6 edges over 14,000 users (the paper's N/d of about
@@ -32,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -150,6 +162,68 @@ def kernel_cases(torch, ops, seed):
         cases.append(("fused_count3_cyclic_pairidx",
                       lambda a=args: ops.fused_count3_cyclic(*a),
                       lambda m=m: ops._fused_cyclic_pairidx_ref(*m)))
+        cases.append(("fused_count3_cyclic",
+                      lambda a=args: ops.fused_count3_cyclic(
+                          *a, pair_index=False),
+                      lambda m=m: ops._fused_cyclic_pairidx_ref(*m)))
+    return cases + bucket_cases(torch, ops, gen)
+
+
+def bucket_cases(torch, ops, gen):
+    """The bucket-row kernels of the baselines, on [*batch, C] rows whose
+    size-1 batch dimensions share one row (as the scan drivers pass them)
+    and on plain [B, C] rows."""
+    cases = []
+    # (ka batch, kb batch, Ca, Cb, key range, hot)
+    for ba, bb, ca, cb, d, hot in [((7,), (7,), 37, 130, 11, True),
+                                   ((300,), (300,), 259, 61, 400, False),
+                                   ((3, 4), (3, 1), 50, 33, 9, True),
+                                   ((1,), (1,), 1, 1, 2, False)]:
+        ka, va = _grid(torch, gen, (*ba, ca), d, hot)
+        kb, vb = _grid(torch, gen, (*bb, cb), d, hot)
+        m = _masked(ops, [(ka, va, "a"), (kb, vb, "b")])
+        cases.append(("bucket_pair_count",
+                      lambda a=(ka, va, kb, vb): ops.bucket_pair_count(*a),
+                      lambda m=m: ops._bucket_pair_ref(*m)))
+    # (R batch, S batch, T batch, Cr, Cs, Ct, key range, hot): the linear
+    # driver's (g, h) grid, the star driver's (h, g) grid, plain rows, 1 x 1
+    for br, bs, bt, cr, cs, ct, d, hot in [
+            ((1, 7), (5, 7), (5, 1), 37, 19, 9001, 13, True),
+            ((1, 4), (3, 4), (3, 1), 2100, 300, 130, 7, False),
+            ((3, 1), (3, 5), (1, 5), 4999, 3001, 8193, 11, True),
+            ((50,), (50,), (50,), 301, 77, 5, 5, True),
+            ((1,), (1,), (1,), 3, 1, 1, 2, False)]:
+        rb, rv = _grid(torch, gen, (*br, cr), d, hot)
+        sb, sv = _grid(torch, gen, (*bs, cs), d, hot)
+        sc, _ = _grid(torch, gen, (*bs, cs), d, hot)
+        tc, tv = _grid(torch, gen, (*bt, ct), d, hot)
+        args = (rb, rv, sb, sc, sv, tc, tv)
+        m = _masked(ops, [(rb, rv, "r"), (sb, sv, "s"), (sc, sv, "s"),
+                          (tc, tv, "t")])
+        cases.append(("bucket_count3_linear",
+                      lambda a=args: ops.bucket_count3_linear(*a),
+                      lambda m=m: ops._bucket_linear_ref(*m)))
+        cases.append(("bucket_per_r_counts",
+                      lambda a=args: ops.bucket_per_r_counts(*a),
+                      lambda m=m: ops._bucket_per_r_ref(*m)))
+    # the cyclic driver's (f, a, b) grid: R [uh, ug], S shared along a,
+    # T shared along b; plain rows; 1 x 1
+    for br, bs, bt, cr, cs, ct, d, hot in [
+            ((3, 2), (2, 1, 2), (2, 3, 1), 150, 1100, 700, 9, True),
+            ((20,), (20,), (20,), 33, 41, 57, 6, False),
+            ((1,), (1,), (1,), 5, 3, 2, 2, False)]:
+        ra, rv = _grid(torch, gen, (*br, cr), d, hot)
+        rb, _ = _grid(torch, gen, (*br, cr), d, hot)
+        sb, sv = _grid(torch, gen, (*bs, cs), d, hot)
+        sc, _ = _grid(torch, gen, (*bs, cs), d, hot)
+        tc, tv = _grid(torch, gen, (*bt, ct), d, hot)
+        ta, _ = _grid(torch, gen, (*bt, ct), d, hot)
+        args = (ra, rb, rv, sb, sc, sv, tc, ta, tv)
+        m = _masked(ops, [(ra, rv, "r"), (rb, rv, "r"), (sb, sv, "s"),
+                          (sc, sv, "s"), (tc, tv, "t"), (ta, tv, "t")])
+        cases.append(("bucket_count3_cyclic",
+                      lambda a=args: ops.bucket_count3_cyclic(*a),
+                      lambda m=m: ops._bucket_cyclic_ref(*m)))
     return cases
 
 
@@ -360,11 +434,11 @@ def main_path(torch, data):
                 f"{res.strategy}:\n{res.plan.describe()}")
     launches = dict(cuda.LAUNCHES)
     log(f"[main] kernel launches on the main path: {json.dumps(launches)}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in cuda.FUSED_KERNELS:
+        if launches[name] <= 0:
             fail(f"{name} was never launched on the main path")
     queries = {"Q1": lin, "Q2": star, "Q3": tri, "Q6": per_r}
-    return rows, launches, results, queries
+    return rows, launches, results, queries, want, key_sums
 
 
 # --------------------------------------------------------------------------
@@ -404,44 +478,59 @@ def first_round_layout(results, queries, label, strategy):
     return plan, (lay["r"], lay["s"], lay["t"]), cols
 
 
+def n_live(torch, ops, x, side, dims):
+    return (x != ops._SENT[side]).to(torch.int64).sum(dims)
+
+
+def search_steps(torch, n):
+    """Binary-search steps over sorted rows of n live entries."""
+    return torch.ceil(torch.log2(n.to(torch.float64) + 1)).to(torch.int64)
+
+
+def record_kernel(torch, lines, errs, launches, name, shape_note, kern,
+                  plain, out_bytes, steps, line=True):
+    """Hold one kernel against its plain version at a layout, time both,
+    and put its entry (with its bound) in the ``kernels`` line."""
+    from repro_torch.kernels import cuda
+    got = kern()
+    want = plain()
+    compare(torch, name, got, want, errs)
+    ms = time_ms(torch, kern)
+    plain_ms = time_ms(torch, plain, reps=3)
+    t_bytes = out_bytes / HBM_BYTES_PER_S
+    t_ops = steps / INT32_OPS_PER_S
+    src, replaces = cuda.SOURCES[name]
+    entry = {"name": name, "route": "cuda", "source": src,
+             "replaces": replaces, "launches": launches[name],
+             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": 1e3 * max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": None, "shape": shape_note,
+             "search_steps": steps, "bytes": out_bytes}
+    log(f"[kernel] {json.dumps(entry)}")
+    if line:
+        lines.append(entry)
+
+
 def kernel_phase(torch, ops, errs, launches, results, queries):
-    """Each kernel at its main-path layout, against its plain version and
-    its bound.  The bound is the larger of two times: the bytes of the
+    """Each fused kernel at its main-path layout, against its plain version
+    and its bound.  The bound is the larger of two times: the bytes of the
     function's inputs (each read once) and output (written once) over the
     HBM rate, and the search steps the sorted-bucket formulation needs on
     this run's data over the 32-bit issue rate: two binary searches
     (ceil(log2(n + 1)) steps each, n the live entries of the row) per live
     probing slot and probed row, plus, for cyclic, two steps per matching
     (s, r) pair."""
-    from repro_torch.kernels import cuda
     lines = []
 
-    def n_live(x, side, dims):
-        return (x != ops._SENT[side]).to(torch.int64).sum(dims)
+    def live(x, side, dims):
+        return n_live(torch, ops, x, side, dims)
 
     def _steps(n):
-        """Binary-search steps over sorted rows of n live entries."""
-        return torch.ceil(torch.log2(n.to(torch.float64) + 1)).to(torch.int64)
+        return search_steps(torch, n)
 
-    def record(name, shape_note, kern, plain, out_bytes, steps, line=True):
-        got = kern()
-        want = plain()
-        compare(torch, name, got, want, errs)
-        ms = time_ms(torch, kern)
-        plain_ms = time_ms(torch, plain, reps=3)
-        t_bytes = out_bytes / HBM_BYTES_PER_S
-        t_ops = steps / INT32_OPS_PER_S
-        src, replaces = cuda.SOURCES[name]
-        entry = {"name": name, "route": "cuda", "source": src,
-                 "replaces": replaces, "launches": launches[name],
-                 "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": 1e3 * max(t_bytes, t_ops),
-                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                 "library_ms": None, "shape": shape_note,
-                 "search_steps": steps, "bytes": out_bytes}
-        log(f"[kernel] {json.dumps(entry)}")
-        if line:
-            lines.append(entry)
+    def record(*a, **kw):
+        record_kernel(torch, lines, errs, launches, *a, **kw)
 
     def linear_layout(label, strategy):
         _, (rg, sg, tg), cols = first_round_layout(results, queries, label,
@@ -454,10 +543,10 @@ def kernel_phase(torch, ops, errs, launches, results, queries):
         hp, u, cr = rb.shape
         _, gp, _, cs = sb.shape
         ct = tc.shape[1]
-        n_s = n_live(m[1], "s", -1)                       # [hp, gp, u]
-        n_r = n_live(m[0], "r", -1)                       # [hp, u]
+        n_s = live(m[1], "s", -1)                       # [hp, gp, u]
+        n_r = live(m[0], "r", -1)                       # [hp, u]
         lg_r = _steps(n_r)
-        lg_t = _steps(n_live(m[3], "t", -1))              # [gp]
+        lg_t = _steps(live(m[3], "t", -1))              # [gp]
         t_steps = int((n_s * 2 * lg_t[None, :, None]).sum())
         r_steps = int((n_s * 2 * lg_r[:, None, :]).sum())
         note = (f"{label} round 1: hp={hp} gp={gp} u={u} Cr={cr} Cs={cs} "
@@ -501,9 +590,9 @@ def kernel_phase(torch, ops, errs, launches, results, queries):
     uh, cr = rb.shape
     ch, _, ug, cs = sb.shape
     ct = tc.shape[1]
-    n_s = n_live(m[1], "s", -1).sum(0)                    # [uh, ug]
-    lg_r = _steps(n_live(m[0], "r", -1))                  # [uh]
-    lg_t = _steps(n_live(m[3], "t", -1))                  # [ug]
+    n_s = live(m[1], "s", -1).sum(0)                    # [uh, ug]
+    lg_r = _steps(live(m[0], "r", -1))                  # [uh]
+    lg_t = _steps(live(m[3], "t", -1))                  # [ug]
     steps = int((n_s * 2 * (lg_r[:, None] + lg_t[None, :])).sum())
     record("fused_count3_star",
            f"Q2 round 1: uh={uh} ug={ug} chunks={ch} Cr={cr} Cs={cs} Ct={ct}",
@@ -532,9 +621,9 @@ def kernel_phase(torch, ops, errs, launches, results, queries):
     top = int(max(rkeys.max(), skeys.max())) + 1
     pairs = int((torch.bincount(rkeys, minlength=top)
                  * torch.bincount(skeys, minlength=top)).sum())
-    n_s = n_live(m[2], "s", -1)                           # [gp, fp, ug]
-    lg_r = _steps(n_live(m[0], "r", -1))                  # [hp, gp, uh, ug]
-    lg_t = _steps(n_live(m[4], "t", -1))                  # [hp, fp, uh]
+    n_s = live(m[2], "s", -1)                           # [gp, fp, ug]
+    lg_r = _steps(live(m[0], "r", -1))                  # [hp, gp, uh, ug]
+    lg_t = _steps(live(m[4], "t", -1))                  # [hp, fp, uh]
     r_visit = int((lg_r * n_s.sum(1)[None, :, None, :]).sum())
     t_visit = int((lg_t * n_s.sum((0, 2))[None, :, None]).sum())
     steps = 2 * (r_visit + t_visit) + 2 * pairs
@@ -544,6 +633,358 @@ def kernel_phase(torch, ops, errs, launches, results, queries):
            lambda: ops.fused_count3_cyclic(*args),
            lambda: ops._fused_cyclic_pairidx_ref(*m),
            nbytes(*m) + hp * gp * uh * ug * 4, steps)
+    return lines
+
+
+# --------------------------------------------------------------------------
+# phase 5: the paper's baselines on the same data
+# --------------------------------------------------------------------------
+
+BASELINE_WARM = 3
+# B4's graph: Q3's N/d of about 286 at a size the all-pairs forms finish
+B4_USERS, B4_EDGES = 350, 100_000
+LIN = dict(rb="dst", sb="src", sc="dst", tc="src")       # f1.dst = f2.src, ...
+CYC = dict(ra="src", rb="dst", sb="src", sc="dst", tc="src", ta="dst")
+STAR = dict(rb="b", sb="b", sc="c", tc="c")
+
+
+def retries(plan0, final):
+    """Whole-query retries from ``plan0`` to ``final`` (each doubles every
+    capacity)."""
+    from repro_torch.core import recovery
+    n, p = 0, plan0
+    while tuple(p) != tuple(final):
+        p, n = recovery.grown(p, 2.0), n + 1
+        if n > 8:
+            fail(f"plan {final} is not a growth of {plan0}")
+    return n
+
+
+def run_baseline(torch, label, fn, want, fused_warm_s=None):
+    """Run ``fn`` cold and BASELINE_WARM times warm.  ``fn`` returns a dict
+    with at least ``count``; the count must equal ``want`` and nothing may
+    have overflowed.  Prints one ``[baseline]`` line."""
+    from repro_torch.kernels import cuda
+    before = dict(cuda.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    row = fn()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = {k: cuda.LAUNCHES[k] - before[k] for k in cuda.KERNELS
+                if cuda.LAUNCHES[k] != before[k]}
+    if row.pop("overflowed"):
+        fail(f"{label}: overflowed")
+    if row["count"] != want:
+        fail(f"{label}: count {row['count']} != oracle {want}")
+    warm = []
+    for _ in range(BASELINE_WARM):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = fn()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        if again["count"] != want:
+            fail(f"{label}: a warm run disagrees with the cold one")
+    row = {"baseline": label, "count": row.pop("count"), "oracle": want,
+           **row, "launches": launches, "cold_s": cold,
+           "warm_median_s": statistics.median(warm), "warm_s": warm}
+    if fused_warm_s is not None:
+        row["fused_execute_warm_s"] = fused_warm_s
+    log(f"[baseline] {json.dumps(row)}")
+    return row
+
+
+def fused_count_s(torch, query, want):
+    """Median warm seconds of the fused COUNT execute of ``query``."""
+    from repro_torch.core.session import JoinSession
+    sess = JoinSession(m_budget=M_BUDGET)
+    times = []
+    for _ in range(1 + BASELINE_WARM):
+        res, t = timed_execute(torch, sess, query, strategy="3way")
+        if int(res.count) != want or bool(res.overflowed):
+            fail(f"fused COUNT execute gave {int(res.count)}, oracle {want}")
+        times.append(t)
+    return statistics.median(times[1:])
+
+
+def baseline_phase(torch, data, main_rows, queries, want, key_sums, seed):
+    """B1-B6: the scan drivers with their whole-query retry, the all-pairs
+    cyclic forms and the binary baselines, each against an oracle
+    independent of the port.  The launch counters are zeroed before the
+    phase; every baseline kernel must have launched in it."""
+    from repro_torch.convert import relation_from_numpy
+    from repro_torch.core import (binary_join, cyclic3, engine, linear3,
+                                  partition, reference, star3)
+    from repro_torch.kernels import cuda
+
+    fused = {(r["query"], r["strategy_arg"]): r["warm_median_s"]
+             for r in main_rows}
+    F = queries["Q1"].relations["f1"]
+    st = queries["Q2"].relations
+    F6 = queries["Q6"].relations["f1"]
+    rows, layouts = [], {}
+    cuda.reset_launch_counts()
+
+    # B1: linear scan with whole-query retry on Q1's F
+    n1 = len(data["F"]["src"])
+    plan0 = linear3.default_plan(n1, n1, n1, m_budget=M_BUDGET)
+
+    def b1():
+        res, plan = reference.linear3_count_auto(F, F, F, plan0, **LIN)
+        layouts["linear"] = plan
+        return {"count": int(res.count), "overflowed": bool(res.overflowed),
+                "tuples_read": int(res.tuples_read),
+                "retries": retries(plan0, plan), "plan": list(plan)}
+
+    rows.append(run_baseline(torch, "B1 linear3_count_auto on Q1", b1,
+                             want["Q1"], fused["Q1", "3way"]))
+
+    # B2: star scan on Q2's data
+    plan0 = star3.default_plan(*(len(data["star"][k][c])
+                                 for k, c in (("r", "b"), ("s", "b"),
+                                              ("t", "c"))))
+
+    def b2():
+        res, plan = reference.star3_count_auto(st["r"], st["s"], st["t"],
+                                               plan0, **STAR)
+        return {"count": int(res.count), "overflowed": bool(res.overflowed),
+                "tuples_read": int(res.tuples_read),
+                "retries": retries(plan0, plan), "plan": list(plan)}
+
+    rows.append(run_baseline(torch, "B2 star3_count_auto on Q2", b2,
+                             want["Q2"], fused["Q2", "3way"]))
+
+    # B3: per-R scan on Q6's F6, per-key sums against the numpy oracle
+    n6 = len(data["F6"]["src"])
+    plan0 = linear3.default_plan(n6, n6, n6, m_budget=M_BUDGET)
+
+    def b3():
+        (keys, counts, valid), plan = reference.linear3_per_r_counts_auto(
+            F6, F6, F6, plan0, key_col="src", **LIN)
+        layouts["per_r"] = plan
+        sums = torch.zeros(len(key_sums), dtype=torch.int64, device="cuda")
+        sums.index_add_(0, keys[valid].long(), counts[valid])
+        if not np.array_equal(sums.cpu().numpy(), key_sums):
+            fail("B3: per-key sums differ from the numpy oracle")
+        return {"count": int(counts[valid].sum()), "overflowed": False,
+                "retries": retries(plan0, plan), "plan": list(plan)}
+
+    rows.append(run_baseline(torch, "B3 linear3_per_r_counts_auto on Q6",
+                             b3, want["Q6"], fused["Q6", "default"]))
+
+    # B4: the all-pairs cyclic forms on a graph cut from Q3's (N/d kept)
+    rng = np.random.default_rng(seed + 1)
+    d4, n4 = B4_USERS, B4_EDGES
+    G = {"src": rng.integers(0, d4, n4).astype(np.int32),
+         "dst": rng.integers(0, d4, n4).astype(np.int32)}
+    E = relation_from_numpy(G)
+    tri4 = triangle_oracle(torch, G, d4)
+    for label, rel, n, oracle, fused_s in [
+            ("B4", E, n4, tri4, None),
+            ("B4q3", F, n1, want["Q3"], fused["Q3", "default"])]:
+        plan0 = cyclic3.default_plan(n, n, n, m_budget=M_BUDGET)
+        final = {}
+
+        def scan(rel=rel, plan0=plan0, final=final, label=label):
+            res, plan = reference.cyclic3_count_auto(
+                rel, rel, rel, plan0, pair_index=False, **CYC)
+            final["plan"] = plan
+            layouts[label] = (rel, plan)
+            return {"count": int(res.count),
+                    "overflowed": bool(res.overflowed),
+                    "tuples_read": int(res.tuples_read),
+                    "retries": retries(plan0, plan), "plan": list(plan)}
+
+        rows.append(run_baseline(
+            torch, f"{label} cyclic3_count_auto(pair_index=False)", scan,
+            oracle, fused_s))
+
+        def fused_all_pairs(rel=rel, final=final):
+            res = engine.cyclic3_count_fused(rel, rel, rel, final["plan"],
+                                             pair_index=False, **CYC)
+            return {"count": int(res.count),
+                    "overflowed": bool(res.overflowed),
+                    "tuples_read": int(res.tuples_read)}
+
+        rows.append(run_baseline(
+            torch, f"{label} engine.cyclic3_count_fused(pair_index=False)",
+            fused_all_pairs, oracle))
+        if label == "B4":
+            def pair_index_scan(rel=rel, final=final):
+                res = cyclic3.cyclic3_count(rel, rel, rel, final["plan"],
+                                            pair_index=True, **CYC)
+                return {"count": int(res.count),
+                        "overflowed": bool(res.overflowed),
+                        "tuples_read": int(res.tuples_read)}
+
+            rows.append(run_baseline(
+                torch, "B4 cyclic3_count(pair_index=True)", pair_index_scan,
+                oracle))
+
+    # B5: the cascade, intermediate sized exactly.  The main path runs Q6
+    # per R; its fused COUNT is timed here for the comparison.
+    q6_count_s = fused_count_s(torch, queries["Q6"], want["Q6"])
+    for label, (r, s, t), cols, oracle, fused_s in [
+            ("B5 cascaded_binary_count on Q6", (F6, F6, F6), LIN,
+             want["Q6"], q6_count_s),
+            ("B5 cascaded_binary_count on Q2", (st["r"], st["s"], st["t"]),
+             STAR, want["Q2"], fused["Q2", "3way"])]:
+        cap = binary_join.exact_join_count(r, cols["rb"], s, cols["sb"])
+
+        def cascade(r=r, s=s, t=t, cols=cols, cap=cap, label=label):
+            res = binary_join.cascaded_binary_count(r, s, t, cap, **cols)
+            if res.intermediate_total != cap:
+                fail(f"{label}: intermediate_total {res.intermediate_total}"
+                     f" != exact pair count {cap}")
+            return {"count": int(res.count),
+                    "overflowed": bool(res.intermediate_overflowed),
+                    "intermediate_total": res.intermediate_total}
+
+        rows.append(run_baseline(torch, label, cascade, oracle, fused_s))
+
+    # B6: bucketed binary join F.dst ⋈ F.src
+    n_buckets = 4096
+    cap = partition.suggest_capacity(n1, n_buckets, 2.5)
+    while bool(binary_join.bucketed_join_count(F, "dst", F, "src", n_buckets,
+                                               cap, cap)[1]):
+        cap *= 2
+    layouts["pair"] = (n_buckets, cap)
+    d1 = data["d"]["F"]
+    indeg = np.bincount(data["F"]["dst"], minlength=d1).astype(np.int64)
+    outdeg = np.bincount(data["F"]["src"], minlength=d1).astype(np.int64)
+
+    def b6():
+        count, ovf = binary_join.bucketed_join_count(F, "dst", F, "src",
+                                                     n_buckets, cap, cap)
+        return {"count": int(count), "overflowed": bool(ovf),
+                "n_buckets": n_buckets, "cap": cap}
+
+    rows.append(run_baseline(torch, "B6 bucketed_join_count on Q1", b6,
+                             int(np.sum(indeg * outdeg))))
+
+    launches = dict(cuda.LAUNCHES)
+    log(f"[baseline] kernel launches in the phase: {json.dumps(launches)}")
+    for name in cuda.BASELINE_KERNELS:
+        if launches[name] <= 0:
+            fail(f"{name} was never launched in the baseline phase")
+    layouts["relations"] = {"F": F, "F6": F6}
+    return rows, launches, layouts
+
+
+def baseline_kernel_phase(torch, ops, errs, launches, layouts):
+    """Each baseline kernel at the layout of its phase (the first step's
+    layout for the scan kernels, at the plan that did not overflow),
+    against its plain version and its bound (as in ``kernel_phase``; the
+    all-pairs cyclic kernels add, per live R slot, the steps of its merge
+    over the S run with b = r.b and the T run with a = r.a)."""
+    from repro_torch.core import cyclic3, linear3, partition
+    lines = []
+
+    def live(x, side):
+        return n_live(torch, ops, x, side, -1)
+
+    def steps(x, side):
+        return search_steps(torch, live(x, side))
+
+    def record(*a, **kw):
+        record_kernel(torch, lines, errs, launches, *a, **kw)
+
+    rels = layouts["relations"]
+    # the scan kernels at the first H partition of B1 and B3
+    for name, key, rel, kern, plain in [
+            ("bucket_count3_linear", "linear", rels["F"],
+             ops.bucket_count3_linear, ops._bucket_linear_ref),
+            ("bucket_per_r_counts", "per_r", rels["F6"],
+             ops.bucket_per_r_counts, ops._bucket_per_r_ref)]:
+        plan = layouts[key]
+        rg, sg, tg = linear3.layouts(rel, rel, rel, plan, **LIN)
+        args = linear3._partition_rows(rg, sg, tg, 0, **LIN)
+        rb, rv, sb, sc, sv, tc, tv = args
+        m = _masked(ops, [(rb, rv, "r"), (sb, sv, "s"), (sc, sv, "s"),
+                          (tc, tv, "t")])
+        n_s = live(m[1], "s")                              # [gp, u]
+        lg_r, lg_t = steps(m[0], "r"), steps(m[3], "t")    # [1, u], [gp, 1]
+        gp, u = n_s.shape
+        if name == "bucket_count3_linear":
+            n_steps = int((n_s * 2 * (lg_r + lg_t)).sum())
+            out_b = gp * u * 4
+        else:   # + one search per R slot of every bucket to gather
+            n_steps = int((n_s * (2 * lg_t + lg_r)).sum()
+                          + gp * (live(m[0], "r") * lg_r).sum())
+            out_b = gp * u * plan.r_cap * 4
+        record(name, f"first H partition of the final plan {list(plan)}",
+               lambda k=kern, a=args: k(*a), lambda p=plain, m=m: p(*m),
+               nbytes(*m) + out_b, n_steps)
+
+    # the all-pairs cyclic kernels at B4's final plan (the fused sweep also
+    # at Q3's graph, printed, not in the kernels line)
+    def merge_steps(ra, rb, sb, ta, batch):
+        """Per R-slot visit: two searches of its S row and two of its T row,
+        then one step per entry of its S run (b = r.b) and T run
+        (a = r.a)."""
+        visits = live(rb, "r").expand(batch).reshape(-1)
+        lg = steps(sb, "s").expand(batch) + steps(ta, "t").expand(batch)
+        runs = (ops._multiplicity(sb, rb, batch).to(torch.int64).sum()
+                + ops._multiplicity(ta, ra, batch).to(torch.int64).sum())
+        return int((visits * 2 * lg.reshape(-1)).sum() + runs)
+
+    for label in ("B4", "B4q3"):
+        rel, plan = layouts[label]
+        rg, sg, tg = cyclic3.layouts(rel, rel, rel, plan, **CYC)
+        raw = [rg.columns[CYC["ra"]], rg.columns[CYC["rb"]], rg.valid,
+               sg.columns[CYC["sb"]], sg.columns[CYC["sc"]], sg.valid,
+               tg.columns[CYC["tc"]], tg.columns[CYC["ta"]], tg.valid]
+        ra, rb, sb, sc, tc, ta = _masked(ops, [
+            (raw[0], raw[2], "r"), (raw[1], raw[2], "r"),
+            (raw[3], raw[5], "s"), (raw[4], raw[5], "s"),
+            (raw[6], raw[8], "t"), (raw[7], raw[8], "t")])
+        if label == "B4":
+            # bucket-row: the first (H, G) cell on its (f, a, b) grid
+            cell = [ra[0, 0], rb[0, 0], sb[0][:, None], sc[0][:, None],
+                    tc[0][..., None, :], ta[0][..., None, :]]
+            batch = ops.batch_shape(*cell)
+            masks = [raw[2][0, 0], raw[5][0][:, None],
+                     raw[8][0][..., None, :]]
+            record("bucket_count3_cyclic",
+                   f"first (H, G) cell of the final plan {list(plan)}",
+                   lambda: ops.bucket_count3_cyclic(
+                       raw[0][0, 0], raw[1][0, 0], masks[0],
+                       raw[3][0][:, None], raw[4][0][:, None], masks[1],
+                       raw[6][0][..., None, :], raw[7][0][..., None, :],
+                       masks[2]),
+                   lambda: ops._bucket_cyclic_ref(*cell),
+                   nbytes(*cell) + math.prod(batch) * 4,
+                   merge_steps(cell[0], cell[1], cell[2], cell[5], batch))
+        # fused: the whole sweep, S rows (j, f, b), T rows (i, f, a) per f
+        hp, gp, uh, ug, _ = ra.shape
+        fused_steps = sum(
+            merge_steps(ra, rb, sb[:, f][None, :, None],
+                        ta[:, f][:, None, :, None], (hp, gp, uh, ug))
+            for f in range(plan.f_parts))
+        record("fused_count3_cyclic", f"{label} at the final plan "
+               f"{list(plan)}",
+               lambda raw=raw: ops.fused_count3_cyclic(*raw, pair_index=False),
+               lambda m=(ra, rb, sb, sc, tc, ta):
+                   ops._fused_cyclic_pairidx_ref(*m),
+               nbytes(ra, rb, sb, sc, tc, ta) + hp * gp * uh * ug * 4,
+               fused_steps, line=label == "B4")
+        del raw, ra, rb, sb, sc, tc, ta, rg, sg, tg
+
+    # the pair count at B6's layout
+    n_buckets, cap = layouts["pair"]
+    F = rels["F"]
+    b = partition.bucketize(F, "dst", n_buckets, cap, fn="h")
+    p = partition.bucketize(F, "src", n_buckets, cap, fn="h")
+    ka, kb = _masked(ops, [(b.columns["dst"], b.valid, "a"),
+                           (p.columns["src"], p.valid, "b")])
+    record("bucket_pair_count",
+           f"B6: {n_buckets} buckets x {cap} slots a side",
+           lambda: ops.bucket_pair_count(b.columns["dst"], b.valid,
+                                         p.columns["src"], p.valid),
+           lambda: ops._bucket_pair_ref(ka, kb),
+           nbytes(ka, kb) + n_buckets * 4,
+           int((live(ka, "a") * 2 * steps(kb, "b")).sum()))
     return lines
 
 
@@ -585,11 +1026,17 @@ def main() -> int:
     t0 = time.perf_counter()
     data = make_data(args.seed)
     log(f"[data] generated in {time.perf_counter() - t0:.1f}s")
-    rows, launches, results, queries = main_path(torch, data)
+    rows, launches, results, queries, want, key_sums = main_path(torch,
+                                                                  data)
+    t0 = time.perf_counter()
+    b_rows, b_launches, b_layouts = baseline_phase(
+        torch, data, rows, queries, want, key_sums, args.seed)
+    log(f"[baseline] phase took {time.perf_counter() - t0:.1f}s")
     del data
 
     lines = kernel_phase(torch, ops, errs, launches, results, queries)
-    log(json.dumps({"queries": rows}))
+    lines += baseline_kernel_phase(torch, ops, errs, b_launches, b_layouts)
+    log(json.dumps({"queries": rows, "baselines": b_rows}))
     print(card, flush=True)
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {

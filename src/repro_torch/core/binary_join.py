@@ -8,9 +8,14 @@ exact total, all on the device) and ``gather_staged`` (prefix-sum offsets
 + gather-materialize into a log-bucketed capacity), with the two-scalar
 total as the one host sync between them.
 
+The paper's binary baselines sit beside them: ``cascaded_binary_count``
+(the first join materialized into a bounded intermediate, the second
+aggregated, paper §6.3) and ``bucketed_join_count`` (both sides hashed into
+a ``[n_buckets, capacity]`` PMU grid and joined bucket by bucket with the
+``bucket_pair_count`` kernel).
+
 Counts are int64 sums (the reference needed two int32 limbs because x64 is
-off in JAX).  (The bucketed path, ``bucketed_join_count``, reaches the
-``pair_count`` kernel and is not ported yet.)
+off in JAX, and its cascade total is int32).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 
 from repro_torch.core import partition
 from repro_torch.core.relation import SENTINEL, Relation
+from repro_torch.kernels import ops as kops
 
 
 def match_ranges(sorted_keys: torch.Tensor, probe_keys: torch.Tensor):
@@ -155,3 +161,54 @@ def gather_staged(staged: StagedJoin, probe: Relation, out_capacity: int,
     ``out_capacity`` slots (which must cover the staged total)."""
     return _gather(staged.sorted_build, staged.lo, staged.cnt, probe,
                    out_capacity, build_prefix, probe_prefix)
+
+
+# --------------------------------------------------------------------------
+# the binary baselines
+# --------------------------------------------------------------------------
+
+class CascadeResult(NamedTuple):
+    count: torch.Tensor            # () int64 total 3-way join cardinality
+    intermediate_total: int        # true (unclipped) |R ⋈ S|
+    intermediate_overflowed: bool  # |R ⋈ S| exceeded the intermediate buffer
+
+
+def cascaded_binary_count(r: Relation, s: Relation, t: Relation,
+                          intermediate_capacity: int,
+                          rb: str = "b", sb: str = "b", sc: str = "c",
+                          tc: str = "c") -> CascadeResult:
+    """COUNT(R(AB) ⋈ S(BC) ⋈ T(CD)) as two cascaded binary joins with a
+    bounded, materialized intermediate (the paper's baseline plan)."""
+    inter = join_materialize(r, rb, s, sb, intermediate_capacity,
+                             build_prefix="r_", probe_prefix="s_")
+    # second join: aggregate only (the final output is never materialized)
+    w = probe_weight_sum(t, tc, torch.ones_like(t.col(tc)),
+                         inter.rel.col("s_" + sc), inter.rel.valid)
+    return CascadeResult(w.sum(), inter.total, inter.overflowed)
+
+
+def cascaded_binary_per_r_counts(r: Relation, s: Relation, t: Relation,
+                                 rb: str = "b", sb: str = "b", sc: str = "c",
+                                 tc: str = "c") -> torch.Tensor:
+    """Per-R-row 3-way join counts (int64) via weight backflow, nothing
+    materialized: w_s = |{t : t.c == s.c}|, count_r = Σ_{s.b == r.b} w_s."""
+    w_s = probe_weight_sum(t, tc, torch.ones_like(t.col(tc)), s.col(sc),
+                           s.valid)
+    return probe_weight_sum(s, sb, w_s, r.col(rb), r.valid)
+
+
+def bucketed_join_count(build: Relation, build_key: str,
+                        probe: Relation, probe_key: str,
+                        n_buckets: int, build_cap: int, probe_cap: int):
+    """Hash-partition both sides and count matches per bucket pair.
+
+    Returns (count () int64, overflowed () bool).  Matching keys hash
+    identically, so bucket-local compares lose nothing, and keys of two
+    buckets never match — exact unless a bucket overflows, which is
+    reported.
+    """
+    b = partition.bucketize(build, build_key, n_buckets, build_cap, fn="h")
+    p = partition.bucketize(probe, probe_key, n_buckets, probe_cap, fn="h")
+    counts = kops.bucket_pair_count(b.columns[build_key], b.valid,
+                                    p.columns[probe_key], p.valid)
+    return counts.to(torch.int64).sum(), b.overflowed | p.overflowed

@@ -12,9 +12,11 @@ Partitioning scheme (Fig 3):
 Cost: |R| + H·|S| + G·|T|, minimized at H* = √(|R||T| / (M|S|)) giving
 |R| + 2√(|R||S||T|/M)  (§5.2).
 
-This module holds the plan and result types and the plan sizing; the fused
-engine (``core.engine``) executes the plan.  (The bucket-row scan driver of
-the reference is not ported yet.)
+``cyclic3_count`` is the bucket-row baseline: one launch per (H(A), G(B))
+cell, with the f(C) stream as the kernel's batch; the S row (j, f, b) is
+shared down the grid's columns and the T row (i, f, a) across its rows
+(size-1 batch dimensions, never copied per PMU).  The fused engine
+(``core.engine``) runs the whole sweep in one launch per round.
 """
 
 from __future__ import annotations
@@ -22,7 +24,11 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import torch
+
 from repro_torch.core import partition
+from repro_torch.core.relation import Relation
+from repro_torch.kernels import ops as kops
 
 
 class Cyclic3Plan(NamedTuple):
@@ -57,3 +63,63 @@ def default_plan(n_r: int, n_s: int, n_t: int, *, m_budget: int,
     s_cap = partition.suggest_capacity(n_s, g_parts * f_parts * ug, slack)
     t_cap = partition.suggest_capacity(n_t, h_parts * f_parts * uh, slack)
     return Cyclic3Plan(h_parts, g_parts, uh, ug, f_parts, r_cap, s_cap, t_cap)
+
+
+def layouts(r: Relation, s: Relation, t: Relation, plan: Cyclic3Plan, *,
+            salt: int = 0, ra: str = "a", rb: str = "b", sb: str = "b",
+            sc: str = "c", tc: str = "c", ta: str = "a"):
+    """The Fig 3 data reorganization: R → [hp,gp,uh,ug,cap],
+    S → [gp,fp,ug,cap], T → [hp,fp,uh,cap] (``salt`` re-randomizes every
+    hash level)."""
+    hp, gp, uh, ug, fp = (plan.h_parts, plan.g_parts, plan.uh, plan.ug,
+                          plan.f_parts)
+    r_ids, r_nb = partition.composite_ids(
+        r, [(ra, hp, "H"), (rb, gp, "G"), (ra, uh, "h"), (rb, ug, "g")], salt)
+    rg = partition.bucketize_by_ids(r, r_ids, r_nb, plan.r_cap,
+                                    (hp, gp, uh, ug))
+    s_ids, s_nb = partition.composite_ids(
+        s, [(sb, gp, "G"), (sc, fp, "f"), (sb, ug, "g")], salt)
+    sg = partition.bucketize_by_ids(s, s_ids, s_nb, plan.s_cap, (gp, fp, ug))
+    t_ids, t_nb = partition.composite_ids(
+        t, [(ta, hp, "H"), (tc, fp, "f"), (ta, uh, "h")], salt)
+    tg = partition.bucketize_by_ids(t, t_ids, t_nb, plan.t_cap, (hp, fp, uh))
+    return rg, sg, tg
+
+
+def cyclic3_count(r: Relation, s: Relation, t: Relation,
+                  plan: Cyclic3Plan, *, pair_index: bool = True,
+                  ra: str = "a", rb: str = "b", sb: str = "b", sc: str = "c",
+                  tc: str = "c", ta: str = "a") -> Cyclic3Result:
+    """Bucket-row triangle count, one call per (H(A), G(B)) cell on its
+    (f, a, b) grid.
+
+    ``pair_index=True`` (default) lex-sorts each T bucket row into a
+    (c, a)-pair index once and probes it per cell in plain torch
+    (``bucket_count3_cyclic_pairidx``), as the reference does.
+    ``pair_index=False`` is the all-pairs form, the ``count3_cyclic``
+    kernel on the card.
+    """
+    rg, sg, tg = layouts(r, s, t, plan, ra=ra, rb=rb, sb=sb, sc=sc, tc=tc,
+                         ta=ta)
+    if pair_index:
+        t_c, t_a = kops.sorted_pair_index(tg.columns[tc], tg.columns[ta],
+                                          tg.valid)
+    else:
+        t_c, t_a = tg.columns[tc], tg.columns[ta]
+    # S row (j, f, b) shared along a; T row (i, f, a) shared along b
+    s_b, s_c, s_v = (x[:, :, None] for x in (sg.columns[sb], sg.columns[sc],
+                                             sg.valid))    # [gp,fp,1,ug,Cs]
+    t_c, t_a, t_v = (x[..., None, :] for x in (t_c, t_a, tg.valid))
+    total = torch.zeros((), dtype=torch.int64, device=r.device)
+    for i in range(plan.h_parts):
+        for j in range(plan.g_parts):
+            cell = (rg.columns[ra][i, j], rg.columns[rb][i, j],
+                    rg.valid[i, j], s_b[j], s_c[j], s_v[j])  # R [uh,ug,Cr]
+            if pair_index:
+                c = kops.bucket_count3_cyclic_pairidx(*cell, t_c[i], t_a[i])
+            else:
+                c = kops.bucket_count3_cyclic(*cell, t_c[i], t_a[i], t_v[i])
+            total += c.to(torch.int64).sum()                # c [fp, uh, ug]
+    overflow = rg.overflowed | sg.overflowed | tg.overflowed
+    tuples = r.n + plan.h_parts * s.n + plan.g_parts * t.n
+    return Cyclic3Result(total, overflow, tuples)

@@ -22,9 +22,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import cyclic3, linear3, partition, recovery, star3
+from repro_torch.core import cyclic3, linear3, recovery, star3
+from repro_torch.core.cyclic3 import layouts as cyclic3_layouts
+from repro_torch.core.linear3 import layouts as linear3_layouts
 from repro_torch.core.recovery import EngineResult, PerRResult  # noqa: F401  (re-export)
 from repro_torch.core.relation import Relation
+from repro_torch.core.star3 import layouts as star3_layouts
 from repro_torch.kernels import ops as kops
 
 
@@ -46,65 +49,6 @@ def traffic64(terms) -> torch.Tensor:
         n = torch.as_tensor(n, dtype=torch.int64)
         total = total.to(n.device) + k * n
     return total
-
-
-# ==========================================================================
-# salted layouts (Fig 2 / Fig 3 data reorganization, re-randomizable)
-# ==========================================================================
-
-def linear3_layouts(r: Relation, s: Relation, t: Relation,
-                    plan: linear3.Linear3Plan, *, salt: int = 0,
-                    rb: str = "b", sb: str = "b", sc: str = "c",
-                    tc: str = "c"):
-    """R → [hp,u,cap], S → [hp,gp,u,cap], T → [gp,cap] (salted)."""
-    hp, u, gp = plan.h_parts, plan.u, plan.g_parts
-    r_ids, r_nb = partition.composite_ids(
-        r, [(rb, hp, "H"), (rb, u, "h")], salt)
-    rg = partition.bucketize_by_ids(r, r_ids, r_nb, plan.r_cap, (hp, u))
-    s_ids, s_nb = partition.composite_ids(
-        s, [(sb, hp, "H"), (sc, gp, "g"), (sb, u, "h")], salt)
-    sg = partition.bucketize_by_ids(s, s_ids, s_nb, plan.s_cap, (hp, gp, u))
-    tg = partition.bucketize(t, tc, gp, plan.t_cap, fn="g", salt=salt)
-    return rg, sg, tg
-
-
-def cyclic3_layouts(r: Relation, s: Relation, t: Relation,
-                    plan: cyclic3.Cyclic3Plan, *, salt: int = 0,
-                    ra: str = "a", rb: str = "b", sb: str = "b",
-                    sc: str = "c", tc: str = "c", ta: str = "a"):
-    """R → [hp,gp,uh,ug,cap], S → [gp,fp,ug,cap], T → [hp,fp,uh,cap]."""
-    hp, gp, uh, ug, fp = (plan.h_parts, plan.g_parts, plan.uh, plan.ug,
-                          plan.f_parts)
-    r_ids, r_nb = partition.composite_ids(
-        r, [(ra, hp, "H"), (rb, gp, "G"), (ra, uh, "h"), (rb, ug, "g")], salt)
-    rg = partition.bucketize_by_ids(r, r_ids, r_nb, plan.r_cap,
-                                    (hp, gp, uh, ug))
-    s_ids, s_nb = partition.composite_ids(
-        s, [(sb, gp, "G"), (sc, fp, "f"), (sb, ug, "g")], salt)
-    sg = partition.bucketize_by_ids(s, s_ids, s_nb, plan.s_cap, (gp, fp, ug))
-    t_ids, t_nb = partition.composite_ids(
-        t, [(ta, hp, "H"), (tc, fp, "f"), (ta, uh, "h")], salt)
-    tg = partition.bucketize_by_ids(t, t_ids, t_nb, plan.t_cap, (hp, fp, uh))
-    return rg, sg, tg
-
-
-def star3_layouts(r: Relation, s: Relation, t: Relation,
-                  plan: star3.Star3Plan, *, salt: int = 0, rb: str = "b",
-                  sb: str = "b", sc: str = "c", tc: str = "c"):
-    """R → [uh,cap], S → [ch,uh,ug,cap], T → [ug,cap] (salted)."""
-    uh, ug, ch = plan.uh, plan.ug, plan.chunks
-    rg = partition.bucketize(r, rb, uh, plan.r_cap, fn="h", salt=salt)
-    tg = partition.bucketize(t, tc, ug, plan.t_cap, fn="g", salt=salt)
-    pos = torch.arange(s.capacity, dtype=torch.int64, device=s.device)
-    chunk_ids = torch.where(s.valid, (pos * ch) // s.capacity,
-                            torch.zeros_like(pos))
-    hb = partition.bucket_ids_for(s, sb, uh, "h", salt)
-    gc = partition.bucket_ids_for(s, sc, ug, "g", salt)
-    flat = torch.where(s.valid, (chunk_ids * uh + hb) * ug + gc,
-                       torch.full_like(chunk_ids, ch * uh * ug))
-    sg = partition.bucketize_by_ids(s, flat.to(torch.int32), ch * uh * ug,
-                                    plan.s_cap, (ch, uh, ug))
-    return rg, sg, tg
 
 
 # ==========================================================================

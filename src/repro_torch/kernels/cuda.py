@@ -16,9 +16,16 @@ plain version: a build or launch failure raises.
 
 The operands arrive sentinel-masked (``ops._mask``), so a slot holding its
 side's sentinel is dead and equals no key.  The wrappers sort each bucket
-row that the kernels binary-search (R and T rows; the cyclic sweep's
-packed (b, a) and (c, a) keys), and hand the cyclic kernel each S bucket's
-live length (one past its last live slot), so it skips dead tails.
+row that the kernels binary-search (R and T rows; the pair-index sweep's
+packed (b, a) and (c, a) keys; the all-pairs sweeps' packed (b, c) and
+(a, c) keys), and hand the pair-index kernel each S bucket's live length
+(one past its last live slot), so it skips dead tails.
+
+The bucket-row wrappers (``bucket_*``) take ``[*batch, C]`` rows whose
+batch shapes broadcast: an operand of size 1 along a batch dimension is
+one row shared along it, passed to the kernel once with a zero row
+stride (or without that dimension's bit in its span mask) and sorted once
+per launch, never copied per bucket.
 """
 
 from __future__ import annotations
@@ -46,11 +53,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I = ctypes.c_void_p, ctypes.c_longlong
 _C = ctypes.c_int
+_A = ctypes.POINTER(ctypes.c_longlong)   # a host array of int64
 
 # source stem -> (exported function, argtypes).  Pointer and stream
 # arguments are c_void_p and sizes c_longlong, so ctypes passes no pointer
 # as a 32-bit int.
 _SWEEP_ARGS = [_P, _P, _P, _P, _C, _I, _I, _I, _I, _I, _I, _P, _C, _P]
+_MERGE_ARGS = [_P, _P, _P, _P, _C, _C, _A, _A, _A, _A, _A, _I, _I, _I, _P,
+               _C, _P]
 _LIBS = {
     "fused_linear": ("rj_fused_linear", _SWEEP_ARGS),
     "fused_star": ("rj_fused_star", _SWEEP_ARGS),
@@ -60,11 +70,26 @@ _LIBS = {
     "fused_cyclic_pairidx": ("rj_fused_cyclic_pairidx",
                              [_P, _P, _P, _P, _P, _C, _I, _I, _I, _I, _I, _I,
                               _I, _I, _P, _C, _P]),
+    "fused_cyclic": ("rj_fused_cyclic", _MERGE_ARGS),
+    "pair_count": ("rj_pair_count", [_P, _P, _C, _I, _I, _I, _P, _C, _P]),
+    "bucket_linear": ("rj_bucket_linear",
+                      [_P, _P, _P, _P, _C, _I, _I, _I, _I, _I, _I, _C, _C,
+                       _P, _C, _P]),
+    "bucket_per_r": ("rj_bucket_per_r",
+                     [_P, _P, _P, _P, _P, _C, _I, _I, _I, _I, _I, _I, _C, _C,
+                      _P, _P, _C, _P]),
+    "bucket_cyclic": ("rj_bucket_cyclic", _MERGE_ARGS),
 }
 
-# kernel name -> launches through its wrapper (main-path evidence)
-KERNELS = ("fused_count3_linear", "fused_count3_star",
-           "fused_count3_cyclic_pairidx", "fused_per_r_counts")
+# kernel name -> launches through its wrapper (main-path evidence).  The
+# fused sweeps carry the session's path; the bucket-row kernels and the
+# all-pairs cyclic sweep carry the paper's baselines.
+FUSED_KERNELS = ("fused_count3_linear", "fused_count3_star",
+                 "fused_count3_cyclic_pairidx", "fused_per_r_counts")
+BASELINE_KERNELS = ("bucket_pair_count", "bucket_count3_linear",
+                    "bucket_per_r_counts", "bucket_count3_cyclic",
+                    "fused_count3_cyclic")
+KERNELS = FUSED_KERNELS + BASELINE_KERNELS
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 # kernel name -> (source in the repo, TPU kernel it replaces)
@@ -78,6 +103,16 @@ SOURCES = {
         "src/repro/kernels/bucket_join.py:377"),
     "fused_per_r_counts": ("src/repro_torch/kernels/csrc/fused_per_r.cu",
                            "src/repro/kernels/bucket_join.py:275"),
+    "bucket_pair_count": ("src/repro_torch/kernels/csrc/pair_count.cu",
+                          "src/repro/kernels/bucket_join.py:55"),
+    "bucket_count3_linear": ("src/repro_torch/kernels/csrc/bucket_linear.cu",
+                             "src/repro/kernels/bucket_join.py:87"),
+    "bucket_per_r_counts": ("src/repro_torch/kernels/csrc/bucket_per_r.cu",
+                            "src/repro/kernels/bucket_join.py:124"),
+    "bucket_count3_cyclic": ("src/repro_torch/kernels/csrc/bucket_cyclic.cu",
+                             "src/repro/kernels/bucket_join.py:164"),
+    "fused_count3_cyclic": ("src/repro_torch/kernels/csrc/fused_cyclic.cu",
+                            "src/repro/kernels/bucket_join.py:317"),
 }
 
 _lock = threading.Lock()
@@ -161,7 +196,7 @@ def _check(op: str, dtype: torch.dtype, device: torch.device, **arrays):
     """Each argument must be a contiguous CUDA tensor of ``dtype`` on
     ``device`` with its expected shape: ``name=(tensor, shape)``."""
     for name, (x, shape) in arrays.items():
-        want_dtype = dtype if name != "tkey" else torch.int64
+        want_dtype = dtype if not name.endswith("key") else torch.int64
         if x.device != device or x.device.type != "cuda":
             raise ValueError(f"{op}: {name} is on {x.device}, expected {device}")
         if x.dtype != want_dtype:
@@ -278,4 +313,164 @@ def fused_count3_cyclic_pairidx(ra, rb, sb, sc, tkey) -> torch.Tensor:
     _launch("fused_count3_cyclic_pairidx", "fused_cyclic_pairidx", dev,
             _ptr(rkey), _ptr(sb), _ptr(sc), _ptr(tkey), _ptr(s_len),
             _SENT["s"], hp, gp, uh, ug, fp, cr, cs, ct, _ptr(out))
+    return out
+
+
+# --------------------------------------------------------------------------
+# the all-pairs cyclic sweep and the bucket-row kernels of the baselines
+# --------------------------------------------------------------------------
+
+def _i64s(vals) -> ctypes.Array:
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _launch_merge(op: str, stem: str, ra, rb, sb, sc, tc, ta, dims, r, s, t,
+                  o, out) -> None:
+    """Sort each distinct S row by (b, c) and T row by (a, c) and launch
+    the merge-join body of ``cyclic_allpairs.cuh`` over the batch ``dims``
+    with the given row strides per dimension."""
+    skey = sorted_pair_keys(sb, sc).contiguous()
+    tkey = sorted_pair_keys(ta, tc).contiguous()
+    _launch(op, stem, ra.device, _ptr(ra), _ptr(rb), _ptr(skey), _ptr(tkey),
+            _SENT["r"], len(dims), _i64s(dims), _i64s(r), _i64s(s),
+            _i64s(t), _i64s(o), ra.shape[-1], sb.shape[-1], tc.shape[-1],
+            _ptr(out))
+
+
+def fused_count3_cyclic(ra, rb, sb, sc, tc, ta) -> torch.Tensor:
+    """The all-pairs form of the triangle sweep: ra/rb [hp,gp,uh,ug,Cr],
+    sb/sc [gp,fp,ug,Cs], tc/ta [hp,fp,uh,Ct] int32 (sentinel-masked) ->
+    [hp,gp,uh,ug] int32."""
+    hp, gp, uh, ug, cr = ra.shape
+    _, fp, _, cs = sb.shape
+    ct = tc.shape[-1]
+    dev = ra.device
+    _check("fused_count3_cyclic", torch.int32, dev,
+           ra=(ra, (hp, gp, uh, ug, cr)), rb=(rb, (hp, gp, uh, ug, cr)),
+           sb=(sb, (gp, fp, ug, cs)), sc=(sc, (gp, fp, ug, cs)),
+           tc=(tc, (hp, fp, uh, ct)), ta=(ta, (hp, fp, uh, ct)))
+    out = torch.zeros((hp, gp, uh, ug), dtype=torch.int32, device=dev)
+    # batch (i, j, a, b, f): R rows and output cells (i, j, a, b), S rows
+    # (j, f, b), T rows (i, f, a); the sum over f is in the atomics
+    cells = (gp * uh * ug, uh * ug, ug, 1, 0)
+    _launch_merge("fused_count3_cyclic", "fused_cyclic", ra, rb, sb, sc, tc,
+                  ta, (hp, gp, uh, ug, fp), cells, (0, fp * ug, 0, 1, ug),
+                  (fp * uh, 0, 1, 0, uh), cells, out)
+    return out
+
+
+def _padded_batch(op: str, nd: int, *rows) -> tuple[tuple, tuple]:
+    """The common batch shape of bucket-row operands ``[*batch, C]``, as it
+    is and left-padded with 1s to ``nd`` dimensions."""
+    batch = tuple(torch.broadcast_shapes(*(x.shape[:-1] for x in rows)))
+    if len(batch) > nd:
+        raise ValueError(f"{op}: at most {nd} batch dimensions, got "
+                         f"{batch}")
+    return batch, (1,) * (nd - len(batch)) + batch
+
+
+def _shape_nd(x: torch.Tensor, nd: int) -> tuple:
+    return (1,) * (nd - (x.dim() - 1)) + tuple(x.shape[:-1])
+
+
+def _span_mask(x: torch.Tensor, nd: int) -> int:
+    """Bit d set iff ``x`` spans batch dimension d (elsewhere it has size
+    1: one row shared along that dimension)."""
+    return sum(1 << d for d, n in enumerate(_shape_nd(x, nd)) if n != 1)
+
+
+def _row_strides(shp: tuple) -> list:
+    """Row stride of contiguous rows of batch shape ``shp`` per batch
+    dimension, 0 along a dimension of size 1."""
+    nd = len(shp)
+    out, step = [0] * nd, 1
+    for d in range(nd - 1, -1, -1):
+        if shp[d] != 1:
+            out[d] = step
+            step *= shp[d]
+    return out
+
+
+def _full_rows(x: torch.Tensor, batch: tuple) -> torch.Tensor:
+    """``x`` broadcast to every bucket of ``batch``, contiguous (a copy
+    only where it shared rows)."""
+    return x.expand(*batch, x.shape[-1]).contiguous()
+
+
+def _check_rows(op: str, dev: torch.device, **rows) -> None:
+    _check(op, torch.int32, dev, **{k: (x, x.shape) for k, x in rows.items()})
+
+
+def bucket_pair_count(ka, kb) -> torch.Tensor:
+    """ka [*batch, Ca], kb [*batch, Cb] int32 (sentinel-masked) -> [*batch]
+    int32."""
+    op = "bucket_pair_count"
+    batch = tuple(torch.broadcast_shapes(ka.shape[:-1], kb.shape[:-1]))
+    ka, kb = _full_rows(ka, batch), _full_rows(kb, batch)
+    dev = ka.device
+    _check_rows(op, dev, ka=ka, kb=kb)
+    out = torch.zeros(batch, dtype=torch.int32, device=dev)
+    _launch(op, "pair_count", dev, _ptr(ka), _ptr(_sorted_rows(kb)),
+            _SENT["a"], out.numel(), ka.shape[-1], kb.shape[-1], _ptr(out))
+    return out
+
+
+def _linear_rows(op: str, rb, sb, sc, tc):
+    """Shared set-up of the bucket-row linear and per-R kernels: the batch
+    padded to three dimensions [P, Q, W], S spanning all of it, the R and
+    T span masks and their sorted rows."""
+    batch, dims = _padded_batch(op, 3, rb, sb, sc, tc)
+    sb, sc = _full_rows(sb, batch), _full_rows(sc, batch)
+    _check_rows(op, rb.device, rb=rb, sb=sb, sc=sc, tc=tc)
+    if sb.shape != sc.shape:
+        raise ValueError(f"{op}: sb {tuple(sb.shape)} and sc "
+                         f"{tuple(sc.shape)} differ")
+    return (batch, dims, sb, sc, _span_mask(rb, 3), _span_mask(tc, 3),
+            _sorted_rows(rb), _sorted_rows(tc))
+
+
+def bucket_count3_linear(rb, sb, sc, tc) -> torch.Tensor:
+    """rb [*batch, Cr], sb/sc [*batch, Cs], tc [*batch, Ct] int32
+    (sentinel-masked; at most three batch dimensions) -> [*batch] int32."""
+    op = "bucket_count3_linear"
+    batch, dims, sb, sc, r_mask, t_mask, r_sorted, t_sorted = _linear_rows(
+        op, rb, sb, sc, tc)
+    out = torch.zeros(batch, dtype=torch.int32, device=rb.device)
+    _launch(op, "bucket_linear", rb.device, _ptr(r_sorted), _ptr(sb),
+            _ptr(sc), _ptr(t_sorted), _SENT["s"], *dims, rb.shape[-1],
+            sb.shape[-1], tc.shape[-1], r_mask, t_mask, _ptr(out))
+    return out
+
+
+def bucket_per_r_counts(rb, sb, sc, tc) -> torch.Tensor:
+    """Same operands as ``bucket_count3_linear`` -> [*batch, Cr] int32."""
+    op = "bucket_per_r_counts"
+    batch, dims, sb, sc, r_mask, t_mask, r_sorted, t_sorted = _linear_rows(
+        op, rb, sb, sc, tc)
+    cr = rb.shape[-1]
+    out = torch.empty((*batch, cr), dtype=torch.int32, device=rb.device)
+    acc = torch.zeros((*batch, cr), dtype=torch.int32, device=rb.device)
+    _launch(op, "bucket_per_r", rb.device, _ptr(rb), _ptr(r_sorted),
+            _ptr(sb), _ptr(sc), _ptr(t_sorted), _SENT["s"], *dims, cr,
+            sb.shape[-1], tc.shape[-1], r_mask, t_mask, _ptr(acc),
+            _ptr(out))
+    return out
+
+
+def bucket_count3_cyclic(ra, rb, sb, sc, tc, ta) -> torch.Tensor:
+    """ra/rb [*batch, Cr], sb/sc [*batch, Cs], tc/ta [*batch, Ct] int32
+    (sentinel-masked; at most five batch dimensions; size-1 dimensions
+    share one row) -> [*batch] int32."""
+    op = "bucket_count3_cyclic"
+    rows = dict(ra=ra, rb=rb, sb=sb, sc=sc, tc=tc, ta=ta)
+    batch, dims = _padded_batch(op, 5, *rows.values())
+    _check_rows(op, ra.device, **rows)
+    for a, b in (("ra", "rb"), ("sb", "sc"), ("tc", "ta")):
+        if rows[a].shape != rows[b].shape:
+            raise ValueError(f"{op}: {a} {tuple(rows[a].shape)} and {b} "
+                             f"{tuple(rows[b].shape)} differ")
+    out = torch.zeros(batch, dtype=torch.int32, device=ra.device)
+    _launch_merge(op, "bucket_cyclic", ra, rb, sb, sc, tc, ta, dims,
+                  *(_row_strides(_shape_nd(x, 5)) for x in (ra, sb, tc)),
+                  _row_strides(dims), out)
     return out

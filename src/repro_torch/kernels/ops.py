@@ -1,5 +1,18 @@
-"""The fused partition-sweep ops of the engine's hot path, and their plain
-versions.
+"""The kernel ops of the join engine, and their plain versions.
+
+Two families:
+
+  * the fused partition-sweep ops (``fused_*``) of the engine's hot path:
+    one call covers a whole coarse partition sweep;
+  * the bucket-row ops (``bucket_*``) of the scan-driver baselines
+    (``core.linear3``, ``core.star3``, ``core.cyclic3``,
+    ``core.binary_join.bucketed_join_count``): per bucket row, one count
+    (or one count per R slot).  Their operands are ``[*batch, C]`` bucket
+    rows whose batch shapes broadcast against each other as torch shapes
+    do: a size-1 batch dimension shares one bucket row across that
+    dimension without copying it (the T bucket that Algorithm 1 broadcasts
+    to every PMU, the S and T rows the cyclic grid broadcasts down columns
+    and across rows).  ``[B, C]`` operands are the reference's contract.
 
 Each public op masks invalid slots with per-side sentinels (so an invalid
 slot can never equal anything on another side) and then dispatches on the
@@ -9,7 +22,10 @@ device of its tensors:
     (``kernels.cuda``); a kernel that fails to build or launch raises —
     there is no fallback,
   * a CPU tensor takes the plain PyTorch version beside it in this module
-    (``_fused_linear_ref`` and its siblings).
+    (``_fused_linear_ref``, ``_bucket_linear_ref`` and their siblings).
+
+``bucket_count3_cyclic_pairidx`` is plain torch on every device, as the
+reference computes it outside any Pallas kernel.
 
 The reference padded every capacity to 128 lanes for the TPU; the CUDA
 kernels take any capacity, so nothing is padded here (padding with
@@ -20,6 +36,8 @@ keys ≥ -2^30.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -68,22 +86,42 @@ def _sum_int32(x: torch.Tensor, dims) -> torch.Tensor:
     return torch.sum(x.to(torch.int64), dim=dims).to(torch.int32)
 
 
+def batch_shape(*rows: torch.Tensor) -> tuple:
+    """The broadcast batch shape of bucket-row operands ``[*batch, C]``."""
+    return tuple(torch.broadcast_shapes(*(x.shape[:-1] for x in rows)))
+
+
+def _flat_rows(x: torch.Tensor, batch: tuple) -> torch.Tensor:
+    """``x [*b, C]`` broadcast to ``batch`` as ``[prod(batch), C]`` (copies
+    shared rows)."""
+    return x.expand(*batch, x.shape[-1]).reshape(-1, x.shape[-1])
+
+
+def _row_index(x: torch.Tensor, batch: tuple) -> torch.Tensor:
+    """For each bucket of ``batch`` (flattened), the index of its row among
+    the rows of ``x [*b, C]`` (a shared row serves many buckets)."""
+    n = x.shape[:-1].numel()
+    idx = torch.arange(n, device=x.device).reshape(x.shape[:-1])
+    return idx.expand(batch).reshape(-1)
+
+
 # --------------------------------------------------------------------------
 # plain versions
 # --------------------------------------------------------------------------
 
-def _bucket_multiplicity(table: torch.Tensor, probes: torch.Tensor):
-    """Per-probe occurrence counts within aligned bucket rows.
-
-    table: [B, Ct] sentinel-masked keys; probes: [B, Cp].  Returns [B, Cp]
-    int32 — for each probe, how many equal keys its OWN bucket row holds
-    (sorted rows + two batched binary searches per probe).
-    """
-    srt = torch.sort(table, dim=-1).values
-    probes = probes.contiguous()
-    lo = torch.searchsorted(srt, probes, side="left")
-    hi = torch.searchsorted(srt, probes, side="right")
-    return (hi - lo).to(torch.int32)
+def _multiplicity(table, probes, batch: tuple) -> torch.Tensor:
+    """Per probe, how many equal keys its own bucket row of ``table``
+    holds: table [*b, Ct] (rows may be shared along size-1 batch
+    dimensions: sorted once, never copied), probes [*batch, Cp] ->
+    [prod(batch), Cp] int32.  One sort of the (row, key) pairs and two
+    binary searches per probe."""
+    ct = table.shape[-1]
+    t_row = torch.arange(table.numel(), device=table.device) // ct
+    srt = torch.sort(pair_keys(t_row, table.reshape(-1))).values
+    q = pair_keys(_row_index(table, batch)[:, None],
+                  _flat_rows(probes, batch))
+    return (torch.searchsorted(srt, q, side="right")
+            - torch.searchsorted(srt, q, side="left")).to(torch.int32)
 
 
 def _fused_linear_ref(rb, sb, sc, tc):
@@ -96,9 +134,9 @@ def _fused_linear_ref(rb, sb, sc, tc):
     hp, u, cr = rb.shape
     _, gp, _, cs = sb.shape
     s_by_r = sb.permute(0, 2, 1, 3).reshape(hp * u, gp * cs)
-    wr = _bucket_multiplicity(rb.reshape(hp * u, cr), s_by_r)
+    wr = _multiplicity(rb.reshape(hp * u, cr), s_by_r, (hp * u,))
     s_by_t = sc.permute(1, 0, 2, 3).reshape(gp, hp * u * cs)
-    wt = _bucket_multiplicity(tc, s_by_t)
+    wt = _multiplicity(tc, s_by_t, (gp,))
     wt = wt.reshape(gp, hp, u, cs).permute(1, 2, 0, 3).reshape(
         hp * u, gp * cs)
     return _sum_int32(wr * wt, -1).reshape(hp, u)
@@ -115,17 +153,52 @@ def _fused_per_r_ref(rb, sb, sc, tc):
     hp, u, cr = rb.shape
     _, gp, _, cs = sb.shape
     s_by_t = sc.permute(1, 0, 2, 3).reshape(gp, hp * u * cs)
-    wt = _bucket_multiplicity(tc, s_by_t).reshape(gp, hp, u, cs)
-    wt = wt.permute(1, 2, 0, 3).reshape(hp * u, gp * cs).to(torch.int64)
+    wt = _multiplicity(tc, s_by_t, (gp,)).reshape(gp, hp, u, cs)
+    wt = wt.permute(1, 2, 0, 3).reshape(hp * u, gp * cs)
     keys = sb.permute(0, 2, 1, 3).reshape(hp * u, gp * cs)
+    return _per_r_sums(keys, wt, rb.reshape(hp * u, cr)).reshape(hp, u, cr)
+
+
+def _per_r_sums(keys: torch.Tensor, wt: torch.Tensor,
+                probes: torch.Tensor) -> torch.Tensor:
+    """Per probe (R slot) of row i: the sum of ``wt`` over the slots of
+    ``keys`` row i that equal it.  keys/wt [B, Cs], probes [B, Cr] ->
+    [B, Cr] int32 (sorted keys, a prefix sum of their weights and two
+    binary searches per probe)."""
     skeys, order = torch.sort(keys, dim=-1, stable=True)
-    cw = torch.nn.functional.pad(
-        torch.cumsum(torch.gather(wt, 1, order), dim=1), (1, 0))
-    probes = rb.reshape(hp * u, cr).contiguous()
+    cw = torch.nn.functional.pad(torch.cumsum(
+        torch.gather(wt.to(torch.int64), 1, order), dim=1), (1, 0))
+    probes = probes.contiguous()
     lo = torch.searchsorted(skeys, probes, side="left")
     hi = torch.searchsorted(skeys, probes, side="right")
     out = torch.gather(cw, 1, hi) - torch.gather(cw, 1, lo)
-    return out.to(torch.int32).reshape(hp, u, cr)
+    return out.to(torch.int32)
+
+
+def _bucket_pair_ref(ka, kb):
+    """ka [*batch, Ca], kb [*batch, Cb] -> [*batch] int32: per bucket row,
+    the number of equal (a, b) key pairs."""
+    batch = batch_shape(ka, kb)
+    return _sum_int32(_multiplicity(kb, ka, batch), -1).reshape(batch)
+
+
+def _bucket_linear_ref(rb, sb, sc, tc):
+    """rb [*batch, Cr], sb/sc [*batch, Cs], tc [*batch, Ct] -> [*batch]
+    int32: per bucket row, Σ_s #{r : r.b = s.b} · #{t : t.c = s.c}."""
+    batch = batch_shape(rb, sb, sc, tc)
+    wr = _multiplicity(rb, sb, batch)
+    wt = _multiplicity(tc, sc, batch)
+    return _sum_int32(wr * wt, -1).reshape(batch)
+
+
+def _bucket_per_r_ref(rb, sb, sc, tc):
+    """Same operands as ``_bucket_linear_ref`` -> [*batch, Cr] int32: per R
+    slot, Σ over the S slots of its bucket row with s.b = r.b of
+    #{t : t.c = s.c}."""
+    batch = batch_shape(rb, sb, sc, tc)
+    wt = _multiplicity(tc, sc, batch)
+    out = _per_r_sums(_flat_rows(sb, batch), wt, _flat_rows(rb, batch))
+    return out.reshape(*batch, rb.shape[-1])
 
 
 def pair_keys(tc: torch.Tensor, ta: torch.Tensor) -> torch.Tensor:
@@ -172,59 +245,108 @@ def _row_bisect(flat: torch.Tensor, base: torch.Tensor, n: int,
     return lo
 
 
+def _cyclic_sort_join(ra, rb, r_srow, r_trow, r_cell, sb, sc, tkey,
+                      n_cells: int) -> torch.Tensor:
+    """The plain triangle count as a sort join.
+
+    ra/rb [n_r]: R slots; r_srow/r_trow/r_cell [n_r] int64: the S row, T
+    row and output cell of each R slot; sb/sc [n_srows, Cs]: S rows;
+    tkey [n_trows, Ct]: sorted (c, a) pair keys of the T rows.  Returns
+    [n_cells] int64: per cell, Σ over its R slots r and the S slots s of
+    r's S row with s.b = r.b of #{t in r's T row : (t.c, t.a) = (s.c, r.a)}.
+
+    The S slots are sorted by (row, b); every R slot finds its equal-b S
+    slots with two binary searches; the matching (s, r) pairs are
+    expanded in chunks that bound memory, and each pair's T count is the
+    distance between two binary searches of its T row.
+    """
+    dev = ra.device
+    cs, ct = sb.shape[-1], tkey.shape[-1]
+    acc = torch.zeros(n_cells, dtype=torch.int64, device=dev)
+    if ra.numel() == 0 or cs == 0 or ct == 0:
+        return acc
+    s_row = torch.arange(sb.numel(), device=dev) // cs
+    s_sorted, s_order = torch.sort(pair_keys(s_row, sb.reshape(-1)))
+    sc_flat = sc.reshape(-1)
+    tflat = tkey.reshape(-1)
+    r_key = pair_keys(r_srow, rb)
+    lo = torch.searchsorted(s_sorted, r_key, side="left")
+    n = torch.searchsorted(s_sorted, r_key, side="right") - lo
+    ends = torch.cumsum(n, 0)
+    r0 = 0
+    while r0 < n.shape[0]:
+        done = int(ends[r0 - 1]) if r0 else 0
+        r1 = int(torch.searchsorted(ends, done + _PLAIN_CHUNK_ELEMS,
+                                    side="right"))
+        r1 = min(max(r1, r0 + 1), n.shape[0])
+        n_c = n[r0:r1]
+        r_idx = torch.repeat_interleave(torch.arange(r0, r1, device=dev), n_c)
+        first = torch.repeat_interleave(torch.cumsum(n_c, 0) - n_c, n_c)
+        rank = torch.arange(r_idx.shape[0], device=dev) - first
+        s_idx = s_order[lo[r_idx] + rank]
+        q = pair_keys(sc_flat[s_idx], ra[r_idx])
+        base = r_trow[r_idx] * ct
+        cnt = (_row_bisect(tflat, base, ct, q, right=True)
+               - _row_bisect(tflat, base, ct, q, right=False))
+        acc.index_add_(0, r_cell[r_idx], cnt)
+        r0 = r1
+    return acc
+
+
 def _fused_cyclic_pairidx_ref(ra, rb, sb, sc, tc, ta):
     """ra/rb [hp,gp,uh,ug,Cr], sb/sc [gp,fp,ug,Cs], tc/ta [hp,fp,uh,Ct]
     -> [hp,gp,uh,ug] int32.
 
     Per cell (i, j, a, b) and stream bucket f: Σ over (s, r) of
-    [s.b = r.b] · #{t : (t.c, t.a) = (s.c, r.a)}.  Realized as a sort join:
-    per f, the S slots are sorted by (column bucket (j, b), key b), every R
-    slot finds its equal-b S slots in its own column bucket with two
-    binary searches, the matching (s, r) pairs are expanded in chunks that
-    bound memory, and each pair's T count is the distance between two
-    binary searches over the sorted (c, a) pair keys of its T bucket.
+    [s.b = r.b] · #{t : (t.c, t.a) = (s.c, r.a)}, with S bucket (j, f, b)
+    and T bucket (i, f, a) (``_cyclic_sort_join``, once per f).  The
+    plain version of both fused cyclic forms: the pair-index sweep and the
+    all-pairs contraction compute the same per-cell counts.
     """
     hp, gp, uh, ug, cr = ra.shape
     _, fp, _, cs = sb.shape
     ct = tc.shape[-1]
-    dev = ra.device
-    tkey = sorted_pair_keys(tc, ta).reshape(-1)          # rows (i, f, a)
+    tkey = sorted_pair_keys(tc, ta).reshape(hp * fp * uh, ct)  # rows (i, f, a)
     n_cells = hp * gp * uh * ug
-    cell = torch.arange(n_cells * cr, device=dev) // cr  # per R slot
+    cell = torch.arange(n_cells * cr, device=ra.device) // cr  # per R slot
     r_i = cell // (gp * uh * ug)
     r_a = (cell // ug) % uh
-    r_col = ((cell // (uh * ug)) % gp) * ug + cell % ug  # column bucket (j, b)
-    r_key = pair_keys(r_col, rb.reshape(-1))
-    ra_flat = ra.reshape(-1)
-    s_col = (torch.arange(gp, device=dev)[:, None, None] * ug
-             + torch.arange(ug, device=dev)[None, :, None]).expand(gp, ug, cs)
-    acc = torch.zeros(n_cells, dtype=torch.int64, device=dev)
+    r_col = ((cell // (uh * ug)) % gp) * ug + cell % ug  # S row (j, b)
+    acc = torch.zeros(n_cells, dtype=torch.int64, device=ra.device)
     for f in range(fp):
-        s_sorted, s_order = torch.sort(
-            pair_keys(s_col, sb[:, f]).reshape(-1))
-        sc_f = sc[:, f].reshape(-1)
-        lo = torch.searchsorted(s_sorted, r_key, side="left")
-        n = torch.searchsorted(s_sorted, r_key, side="right") - lo
-        ends = torch.cumsum(n, 0)
-        r0 = 0
-        while r0 < n.shape[0]:
-            done = int(ends[r0 - 1]) if r0 else 0
-            r1 = int(torch.searchsorted(ends, done + _PLAIN_CHUNK_ELEMS,
-                                        side="right"))
-            r1 = min(max(r1, r0 + 1), n.shape[0])
-            n_c = n[r0:r1]
-            r_idx = torch.repeat_interleave(
-                torch.arange(r0, r1, device=dev), n_c)
-            first = torch.repeat_interleave(torch.cumsum(n_c, 0) - n_c, n_c)
-            rank = torch.arange(r_idx.shape[0], device=dev) - first
-            s_idx = s_order[lo[r_idx] + rank]
-            q = pair_keys(sc_f[s_idx], ra_flat[r_idx])
-            base = ((r_i[r_idx] * fp + f) * uh + r_a[r_idx]) * ct
-            cnt = (_row_bisect(tkey, base, ct, q, right=True)
-                   - _row_bisect(tkey, base, ct, q, right=False))
-            acc.index_add_(0, cell[r_idx], cnt)
-            r0 = r1
+        acc += _cyclic_sort_join(
+            ra.reshape(-1), rb.reshape(-1), r_col, (r_i * fp + f) * uh + r_a,
+            cell, sb[:, f].reshape(gp * ug, cs), sc[:, f].reshape(gp * ug, cs),
+            tkey, n_cells)
     return acc.to(torch.int32).reshape(hp, gp, uh, ug)
+
+
+def _bucket_cyclic_join(ra, rb, sb, sc, tkey) -> torch.Tensor:
+    """ra/rb [*b, Cr], sb/sc [*b, Cs], tkey [*b, Ct] sorted (c, a) pair keys
+    (batch shapes broadcast; shared rows are indexed, not copied) ->
+    [*batch] int32 per-bucket triangle counts."""
+    batch = batch_shape(ra, sb, tkey)
+    n = math.prod(batch)
+    cr = ra.shape[-1]
+    dev = ra.device
+    slot = (_row_index(ra, batch)[:, None] * cr
+            + torch.arange(cr, device=dev)).reshape(-1)
+    s_row, t_row, cell = (x.repeat_interleave(cr) for x in (
+        _row_index(sb, batch), _row_index(tkey, batch),
+        torch.arange(n, device=dev)))
+    acc = _cyclic_sort_join(
+        ra.reshape(-1)[slot], rb.reshape(-1)[slot], s_row, t_row, cell,
+        sb.reshape(-1, sb.shape[-1]), sc.reshape(-1, sc.shape[-1]),
+        tkey.reshape(-1, tkey.shape[-1]), n)
+    return acc.to(torch.int32).reshape(batch)
+
+
+def _bucket_cyclic_ref(ra, rb, sb, sc, tc, ta):
+    """ra/rb [*batch, Cr], sb/sc [*batch, Cs], tc/ta [*batch, Ct] ->
+    [*batch] int32: per bucket row, Σ_{r,s,t} [r.b=s.b][s.c=t.c][t.a=r.a]
+    (the all-pairs contraction Σ (M1ᵀ·M2) ⊙ M3, computed as a sort
+    join)."""
+    return _bucket_cyclic_join(ra, rb, sb, sc, sorted_pair_keys(tc, ta))
 
 
 def _fused_star_ref(rb, sb, sc, tc):
@@ -236,10 +358,10 @@ def _fused_star_ref(rb, sb, sc, tc):
     uh, cr = rb.shape
     ch, _, ug, cs = sb.shape
     s_by_r = sb.permute(1, 0, 2, 3).reshape(uh, ch * ug * cs)
-    wr = _bucket_multiplicity(rb, s_by_r)
+    wr = _multiplicity(rb, s_by_r, (uh,))
     wr = wr.reshape(uh, ch, ug, cs).permute(1, 0, 2, 3)   # [ch,uh,ug,cs]
     s_by_t = sc.permute(2, 0, 1, 3).reshape(ug, ch * uh * cs)
-    wt = _bucket_multiplicity(tc, s_by_t)
+    wt = _multiplicity(tc, s_by_t, (ug,))
     wt = wt.reshape(ug, ch, uh, cs).permute(1, 2, 0, 3)   # [ch,uh,ug,cs]
     return _sum_int32(wr * wt, (0, 3))
 
@@ -277,11 +399,11 @@ def fused_count3_cyclic(ra, rb, rv, sb, sc, sv, tc, ta, tv, *,
     """Fused cyclic sweep: per-cell counts [hp, gp, uh, ug] int32.
 
     ``pair_index=True`` (the session's path) probes a sorted (c, a)-pair
-    index of the T stream.  ``pair_index=False`` is the all-pairs
-    contraction, whose Hopper kernel is not written yet (ROADMAP Queue B,
-    "all-pairs cyclic kernel"): on a CUDA tensor it raises instead of
-    quietly running something else.  On the CPU both forms compute the
-    same per-cell counts, so both take the one plain version.
+    index of the T stream (``cuda.fused_count3_cyclic_pairidx``).
+    ``pair_index=False`` is the all-pairs contraction Σ (M1ᵀ·M2) ⊙ M3 of
+    the reference's MXU kernel (``cuda.fused_count3_cyclic``, a merge join
+    per R slot).  On the CPU both forms compute the same per-cell counts,
+    so both take the one plain version.
     """
     ra = _mask(ra, rv, "r")
     rb = _mask(rb, rv, "r")
@@ -289,17 +411,12 @@ def fused_count3_cyclic(ra, rb, rv, sb, sc, sv, tc, ta, tv, *,
     sc = _mask(sc, sv, "s")
     tc = _mask(tc, tv, "t")
     ta = _mask(ta, tv, "t")
-    on_cuda = _on_cuda(ra, "fused_count3_cyclic")
-    if not pair_index:
-        if on_cuda:
-            raise NotImplementedError(
-                "fused_count3_cyclic(pair_index=False): the all-pairs cyclic "
-                "kernel has no Hopper port yet (ROADMAP Queue B, all-pairs "
-                "cyclic kernel); use pair_index=True")
-    if on_cuda:
+    if _on_cuda(ra, "fused_count3_cyclic"):
         from repro_torch.kernels import cuda
-        return cuda.fused_count3_cyclic_pairidx(
-            ra, rb, sb, sc, sorted_pair_keys(tc, ta))
+        if pair_index:
+            return cuda.fused_count3_cyclic_pairidx(
+                ra, rb, sb, sc, sorted_pair_keys(tc, ta))
+        return cuda.fused_count3_cyclic(ra, rb, sb, sc, tc, ta)
     return _fused_cyclic_pairidx_ref(ra, rb, sb, sc, tc, ta)
 
 
@@ -313,3 +430,74 @@ def fused_count3_star(rb, rv, sb, sc, sv, tc, tv):
         from repro_torch.kernels import cuda
         return cuda.fused_count3_star(rb, sb, sc, tc)
     return _fused_star_ref(rb, sb, sc, tc)
+
+
+# --------------------------------------------------------------------------
+# bucket-row ops of the scan-driver baselines (operands [*batch, C],
+# broadcast over size-1 batch dimensions)
+# --------------------------------------------------------------------------
+
+def bucket_pair_count(ka, va, kb, vb):
+    """Per-bucket count of equal key pairs [*batch] int32 (the bucketed
+    binary join)."""
+    ka = _mask(ka, va, "a")
+    kb = _mask(kb, vb, "b")
+    if _on_cuda(ka, "bucket_pair_count"):
+        from repro_torch.kernels import cuda
+        return cuda.bucket_pair_count(ka, kb)
+    return _bucket_pair_ref(ka, kb)
+
+
+def bucket_count3_linear(rb, rv, sb, sc, sv, tc, tv):
+    """Per-bucket linear 3-way counts [*batch] int32 (Algorithm 1's inner
+    join)."""
+    rb = _mask(rb, rv, "r")
+    sb = _mask(sb, sv, "s")
+    sc = _mask(sc, sv, "s")
+    tc = _mask(tc, tv, "t")
+    if _on_cuda(rb, "bucket_count3_linear"):
+        from repro_torch.kernels import cuda
+        return cuda.bucket_count3_linear(rb, sb, sc, tc)
+    return _bucket_linear_ref(rb, sb, sc, tc)
+
+
+def bucket_per_r_counts(rb, rv, sb, sc, sv, tc, tv):
+    """Per-R-slot counts [*batch, Cr] int32 (Example 1's per-user
+    aggregate), at the caller's Cr."""
+    rb = _mask(rb, rv, "r")
+    sb = _mask(sb, sv, "s")
+    sc = _mask(sc, sv, "s")
+    tc = _mask(tc, tv, "t")
+    if _on_cuda(rb, "bucket_per_r_counts"):
+        from repro_torch.kernels import cuda
+        return cuda.bucket_per_r_counts(rb, sb, sc, tc)
+    return _bucket_per_r_ref(rb, sb, sc, tc)
+
+
+def bucket_count3_cyclic(ra, rb, rv, sb, sc, sv, tc, ta, tv):
+    """Per-bucket triangle counts [*batch] int32 (the all-pairs form)."""
+    ra = _mask(ra, rv, "r")
+    rb = _mask(rb, rv, "r")
+    sb = _mask(sb, sv, "s")
+    sc = _mask(sc, sv, "s")
+    tc = _mask(tc, tv, "t")
+    ta = _mask(ta, tv, "t")
+    if _on_cuda(ra, "bucket_count3_cyclic"):
+        from repro_torch.kernels import cuda
+        return cuda.bucket_count3_cyclic(ra, rb, sb, sc, tc, ta)
+    return _bucket_cyclic_ref(ra, rb, sb, sc, tc, ta)
+
+
+def bucket_count3_cyclic_pairidx(ra, rb, rv, sb, sc, sv, tcs, tas):
+    """Per-bucket triangle counts [*batch] int32 against a pre-built
+    sorted pair index.
+
+    Same contract as ``bucket_count3_cyclic`` except that the T side
+    arrives as ``sorted_pair_index`` output (masked and lex-sorted, so no
+    validity argument).  Plain torch on every device: the sort join of
+    ``_cyclic_sort_join``, which never builds the reference's per-bucket
+    Ct x Cr prefix table.
+    """
+    return _bucket_cyclic_join(_mask(ra, rv, "r"), _mask(rb, rv, "r"),
+                               _mask(sb, sv, "s"), _mask(sc, sv, "s"),
+                               pair_keys(tcs, tas))

@@ -45,14 +45,31 @@ def test_kernels_match_plain_versions(card, seed):
         assert torch.equal(got, want), name
 
 
-def test_all_pairs_cyclic_raises_on_cuda(card):
-    x = torch.zeros((1, 1, 1, 1, 8), dtype=torch.int32, device=card)
-    v = torch.ones_like(x, dtype=torch.bool)
-    s = torch.zeros((1, 1, 1, 8), dtype=torch.int32, device=card)
-    sv = torch.ones_like(s, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.fused_count3_cyclic(x, x, v, s, s, sv, s, s, sv,
-                                pair_index=False)
+def test_all_pairs_cyclic_launches_its_kernel_on_cuda(card):
+    from repro_torch.kernels import cuda
+    gen = torch.Generator().manual_seed(7)
+
+    def grid(shape):
+        keys = torch.randint(0, 5, shape, generator=gen, dtype=torch.int32)
+        return keys.to(card), (torch.rand(shape, generator=gen) < 0.8).to(card)
+
+    ra, rv = grid((2, 2, 2, 3, 41))
+    rb, _ = grid((2, 2, 2, 3, 41))
+    sb, sv = grid((2, 3, 3, 29))
+    sc, _ = grid((2, 3, 3, 29))
+    tc, tv = grid((2, 3, 2, 37))
+    ta, _ = grid((2, 3, 2, 37))
+    before = dict(cuda.LAUNCHES)
+    got = ops.fused_count3_cyclic(ra, rb, rv, sb, sc, sv, tc, ta, tv,
+                                  pair_index=False)
+    assert cuda.LAUNCHES["fused_count3_cyclic"] == \
+        before["fused_count3_cyclic"] + 1
+    assert cuda.LAUNCHES["fused_count3_cyclic_pairidx"] == \
+        before["fused_count3_cyclic_pairidx"]
+    m = [ops._mask(x, v, side) for x, v, side in
+         ((ra, rv, "r"), (rb, rv, "r"), (sb, sv, "s"), (sc, sv, "s"),
+          (tc, tv, "t"), (ta, tv, "t"))]
+    assert torch.equal(got, ops._fused_cyclic_pairidx_ref(*m))
 
 
 def test_wrappers_check_their_inputs(card):

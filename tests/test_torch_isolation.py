@@ -76,3 +76,23 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
         relation_from_numpy({"a": [1, 2, 3]})
     rel = Relation.from_arrays(a=[1, 2, 3], device="cpu")
     assert rel.device == torch.device("cpu")
+
+
+def test_baseline_entry_points_need_the_card_unless_asked_for_cpu():
+    """The baselines take relations, which live on the card unless built
+    with ``device="cpu"``; CPU relations keep every result on the CPU."""
+    import numpy as np
+
+    from repro_torch.convert import relation_from_numpy
+    from repro_torch.core import binary_join, linear3, reference
+    if torch.cuda.is_available():
+        pytest.skip("this box has a CUDA device: the default is the card")
+    cols = {"b": np.arange(40, dtype=np.int32) % 7,
+            "c": np.arange(40, dtype=np.int32) % 5}
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        relation_from_numpy(cols)
+    rel = relation_from_numpy(cols, device="cpu")
+    plan = linear3.default_plan(40, 40, 40, m_budget=16, u=2)
+    res, _ = reference.linear3_count_auto(rel, rel, rel, plan)
+    count, _ = binary_join.bucketed_join_count(rel, "b", rel, "b", 4, 40, 40)
+    assert res.count.device.type == count.device.type == "cpu"

@@ -137,11 +137,14 @@ def test_lex_sort_pairs_matches_reference():
 
 
 def test_bucket_multiplicity_matches_reference():
+    """The port's ``_multiplicity`` (which also takes table rows shared
+    along a batch dimension) on aligned rows, against the reference's
+    ``_bucket_multiplicity``."""
     rng = np.random.default_rng(4)
     table = rng.integers(0, 7, size=(5, 23)).astype(np.int32)
     probes = rng.integers(0, 9, size=(5, 31)).astype(np.int32)
     np.testing.assert_array_equal(
-        ops._bucket_multiplicity(*_t(table, probes)).numpy(),
+        ops._multiplicity(*_t(table, probes), (5,)).numpy(),
         np.asarray(jops._bucket_multiplicity(*_j(table, probes))))
 
 
