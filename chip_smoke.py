@@ -8,12 +8,16 @@ result line):
 
   1. device  — requires CUDA and a compute capability 9.0 card; prints the
      card's name and power limit from nvidia-smi;
-  2. build   — compiles the nine Hopper kernels from ``src/repro_torch/
+  2. build   — compiles the eleven Hopper kernels from ``src/repro_torch/
      kernels/csrc`` (one nvcc per source, all in parallel) and prints the
      seconds;
-  3. kernels — each kernel against its plain PyTorch version on the card,
-     exactly, on seeded layouts with unaligned capacities, invalid slots,
-     hot keys, shared (broadcast) bucket rows and 1 x 1 edge cases;
+  3. kernels — each kernel against its plain PyTorch version on the card
+     on seeded layouts: the join kernels exactly (unaligned capacities,
+     invalid slots, hot keys, shared bucket rows, 1 x 1 edge cases), the
+     radix histogram exactly (n not a multiple of the block, bucket counts
+     on both sides of the shared-memory limit), the flash forward within
+     ``FLASH_TOL`` (the flash kernel tests' cases, ragged S, D = 128 and
+     256, bf16 and f32, strided views);
   4. main path — six queries through ``JoinSession(m_budget=16384)
      .execute``, each checked against an oracle independent of the port
      (numpy histograms, a float64 trace(A^3) on the card, a numpy
@@ -29,14 +33,33 @@ result line):
      of binary joins on Q6 and Q2, B6 the bucketed binary join on Q1.  The
      counters are zeroed before the phase: each of the five baseline
      kernels must have launched in it;
-  6. timings — each kernel at its layout (the main path's first round;
-     the baselines' first step), against its plain version (exact) and its
-     bound.  Prints one ``kernels`` JSON line with all nine kernels;
-  7. the last line: ``{"ok": true, "device": {...}}``.
+  6. radix — ``ops.radix_histogram`` over Q1's 4e6 source keys (~10%
+     dead) at 4,096 and 65,536 buckets, exact against the plain version,
+     the counter zeroed before the phase;
+  7. timings — each join kernel at its layout (the main path's first
+     round; the baselines' first step) and the radix kernel at Q1's
+     keys, against its plain version (exact) and its bound;
+  8. serve — the dense LM served at full width through
+     ``repro_torch.launch.serve``: S1 qwen2-1.5b (batch 8, prompt 1024,
+     32 generated tokens, 16 requests), S2 gemma3-1b (batch 4, prompt 2048,
+     16 tokens, 4 requests), random weights from the seed.  The flash
+     counter is zeroed before each and must equal layers x (waves + 1)
+     after the serving and the check: the teacher-forced ``forward`` of
+     two rows over prompt + generated tokens must match the served
+     prefill/decode logits within ``SERVE_TOL``, the served tokens must be
+     the argmax of the served logits, and at every checked position the
+     forward's logit for the served token must be within
+     ``SERVE_TOL["max"]`` of the forward's largest logit;
+  9. the flash kernel at S1's and S2's prefill shapes against its plain
+     version, its bound and ``scaled_dot_product_attention``.  Prints one
+     ``kernels`` JSON line with all eleven kernels;
+ 10. the last line: ``{"ok": true, "device": {...}}``.
 
-Sizes are cut from the paper's (Fig 4: N = 2e8 friends edges, a 1e9-row
-fact table) to N = 4e6 edges over 14,000 users (the paper's N/d of about
-286) and a 2e7-row fact table: the layout grows as N^2 / m_budget^2.
+Join sizes are cut from the paper's (Fig 4: N = 2e8
+friends edges, a 1e9-row fact table) to N = 4e6 edges over 14,000 users
+(the paper's N/d of about 286) and a 2e7-row fact table: the layout grows
+as N^2 / m_budget^2.  The LM widths are the published configs'; only the
+traffic (requests, prompt and generation lengths) is chosen here.
 """
 
 from __future__ import annotations
@@ -62,6 +85,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 # boost clock = 33.5e12 lane-instructions/s, the most a compare-and-add
 # loop can issue (the 67 TFLOP/s float32 rate counts an FMA as two).
 INT32_OPS_PER_S = 132 * 128 * 1.98e9
+BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
 
 
 def log(msg: str) -> None:
@@ -166,7 +190,8 @@ def kernel_cases(torch, ops, seed):
                       lambda a=args: ops.fused_count3_cyclic(
                           *a, pair_index=False),
                       lambda m=m: ops._fused_cyclic_pairidx_ref(*m)))
-    return cases + bucket_cases(torch, ops, gen)
+    return (cases + bucket_cases(torch, ops, gen) + radix_cases(torch, ops, gen)
+            + flash_cases(torch, gen))
 
 
 def bucket_cases(torch, ops, gen):
@@ -227,17 +252,138 @@ def bucket_cases(torch, ops, gen):
     return cases
 
 
-def compare(torch, name, got, want, errs):
-    torch.cuda.synchronize()
+def radix_cases(torch, ops, gen):
+    """The radix histogram: n not a multiple of the block, keys over the
+    whole int32 range and a hot key, bucket counts from 16 to past the
+    shared-memory histogram's 12,288."""
+    cases = []
+    for n, nb, hot in [(1, 16, False), (1000, 16, True), (4097, 1000, False),
+                       (100_003, 4096, True), (100_003, 12_288, False),
+                       (100_003, 12_289, True), (1 << 20, 65_536, False),
+                       (50_000, 100_003, True)]:
+        keys = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                             dtype=torch.int32)
+        if hot:
+            keys[torch.rand(n, generator=gen) < 0.5] = 7
+        valid = torch.rand(n, generator=gen) < 0.9
+        keys, valid = keys.cuda(), valid.cuda()
+        cases.append(("radix_histogram",
+                      lambda k=keys, v=valid, nb=nb: ops.radix_histogram(
+                          k, v, n_buckets=nb),
+                      lambda k=keys, v=valid, nb=nb: ops._radix_histogram_ref(
+                          k, v, nb)))
+    return cases
+
+
+# (B, S, T, H, KVH, D, causal, window, dtype): the six CASES of
+# tests/test_flash_kernel.py, then S not a multiple of the 64-row tile,
+# D = 128 and 256 (qwen2's and gemma3's heads), D = 8, one row, S != T
+FLASH_CASES = [
+    (1, 128, 128, 4, 4, 32, True, 0, "float32"),
+    (2, 128, 128, 4, 2, 32, True, 0, "float32"),
+    (1, 256, 256, 8, 1, 16, True, 0, "float32"),
+    (1, 128, 128, 4, 4, 32, False, 0, "float32"),
+    (1, 256, 256, 2, 2, 32, True, 64, "float32"),
+    (1, 128, 128, 4, 2, 32, True, 0, "bfloat16"),
+    (2, 100, 100, 4, 2, 16, True, 0, "float32"),
+    (2, 333, 333, 6, 2, 128, True, 0, "bfloat16"),
+    (1, 300, 300, 12, 2, 128, True, 0, "float32"),
+    (2, 200, 200, 4, 1, 256, True, 50, "bfloat16"),
+    (1, 130, 130, 4, 1, 256, True, 0, "float32"),
+    (1, 257, 257, 4, 1, 256, False, 100, "bfloat16"),
+    (1, 70, 70, 2, 1, 8, True, 0, "bfloat16"),
+    (1, 1, 1, 2, 2, 64, True, 0, "float32"),
+    (2, 100, 150, 4, 2, 32, False, 0, "bfloat16"),
+    (1, 150, 90, 4, 1, 64, True, 30, "float32"),
+]
+# Tolerance (atol, rtol) of the flash forward against its plain versions
+# (inputs ~N(0, 1)), |got - want| <= atol + rtol |want| on o, by case name
+# and dtype.  "flash_fwd", the plain version with f32 probabilities as the
+# kernel keeps them: in f32 both sum the same f32 products in another
+# order; in bf16 each rounds o to bf16 once, so they differ by a few ulps
+# (2^-8 to 2^-7 of |o|), which the relative term carries; the absolute one
+# only covers o near 0 (rows over many keys have |o| of a few hundredths).
+# "flash_fwd, bf16 P", the JAX package's jnp form, which rounds the
+# unnormalised probabilities to bf16 before PV: an error of up to 2^-8 of
+# each p |v| that does not shrink with |o| where the v's cancel (0.0022 at
+# |o| = 0.007 on a 17-key row, seen on the CPU), so 2e-2 absolute.  The
+# softmax stats m, l (f32 in both) within 1e-5 relative.
+FLASH_TOL = {"flash_fwd": {"torch.float32": (2e-5, 2e-5),
+                           "torch.bfloat16": (2e-3, 2e-2)},
+             "flash_fwd, bf16 P": {"torch.bfloat16": (2e-2, 2e-2)}}
+STATS_RTOL = 1e-5
+
+
+def _flash_inputs(torch, gen, b, s, t, nq, nkv, d, dtype, strided=False):
+    """q [B,S,H,D], k/v [B,T,KVH,D] ~N(0, 1) on the card; ``strided``
+    slices them out of one fused [B, S, (H + 2 KVH) D] projection, as
+    views (S == T)."""
+    dt = getattr(torch, dtype)
+    if strided:
+        qkv = torch.randn((b, s, (nq + 2 * nkv) * d), generator=gen)
+        qkv = qkv.to(dt).cuda()
+        q = qkv[..., :nq * d].unflatten(-1, (nq, d))
+        k = qkv[..., nq * d:(nq + nkv) * d].unflatten(-1, (nkv, d))
+        v = qkv[..., (nq + nkv) * d:].unflatten(-1, (nkv, d))
+        return q, k, v
+    return tuple(torch.randn(sh, generator=gen).to(dt).cuda()
+                 for sh in ((b, s, nq, d), (b, t, nkv, d), (b, t, nkv, d)))
+
+
+def flash_cases(torch, gen):
+    """The flash forward against its plain version (f32 probabilities, as
+    the kernel keeps them) and, in bf16, also against the plain version
+    with the probabilities rounded to bf16 (the JAX package's jnp form)."""
+    from repro_torch.kernels import flash_attention as fa
+    cases = []
+    for i, (b, s, t, nq, nkv, d, causal, window, dtype) in enumerate(
+            FLASH_CASES + [(2, 190, 190, 6, 2, 32, True, 40, "bfloat16"),
+                           (1, 129, 129, 4, 2, 128, True, 0, "float32")]):
+        q, k, v = _flash_inputs(torch, gen, b, s, t, nq, nkv, d, dtype,
+                                strided=i >= len(FLASH_CASES))
+        kw = dict(causal=causal, window=window)
+        cases.append(("flash_fwd",
+                      lambda q=q, k=k, v=v, kw=kw: fa.flash_fwd(q, k, v, **kw),
+                      lambda q=q, k=k, v=v, kw=kw: fa._flash_fwd_ref(
+                          q, k, v, **kw)))
+        if dtype == "bfloat16":
+            cases.append(("flash_fwd, bf16 P",
+                          lambda q=q, k=k, v=v, kw=kw: fa.flash_fwd(
+                              q, k, v, **kw),
+                          lambda q=q, k=k, v=v, kw=kw: fa._flash_fwd_ref(
+                              q, k, v, p_dtype=torch.bfloat16, **kw)))
+    return cases
+
+
+def case_error(torch, name, got, want):
+    """(max abs error, within tolerance) of case ``name``'s kernel result
+    against its plain version: integer results exactly; the flash
+    forward's (o, m, l) within FLASH_TOL[name] (o) and STATS_RTOL (m, l)."""
+    if isinstance(got, tuple):
+        (o, m, l), (wo, wm, wl) = got, want
+        if (o.shape, o.dtype, m.shape, l.shape) != (wo.shape, wo.dtype,
+                                                    wm.shape, wl.shape):
+            return math.inf, False
+        atol, rtol = FLASH_TOL[name][str(o.dtype)]
+        err = float((o.float() - wo.float()).abs().max()) if o.numel() else 0.
+        close = torch.allclose(o.float(), wo.float(), rtol=rtol, atol=atol)
+        stats = all(torch.allclose(a, w, rtol=STATS_RTOL, atol=STATS_RTOL)
+                    for a, w in ((m, wm), (l, wl)))
+        return err, close and stats
     if got.shape != want.shape or got.dtype != want.dtype:
-        fail(f"{name}: kernel gives {tuple(got.shape)} {got.dtype}, plain "
-             f"version {tuple(want.shape)} {want.dtype}")
+        return math.inf, False
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
         if got.numel() else 0
+    return err, err == 0
+
+
+def compare(torch, name, got, want, errs):
+    torch.cuda.synchronize()
+    err, ok = case_error(torch, name, got, want)
     errs[name] = max(errs.get(name, 0), err)
-    if err != 0:
-        fail(f"{name}: kernel differs from its plain version "
-             f"(max |diff| = {err})")
+    if not ok:
+        fail(f"{name}: kernel differs from its plain version beyond its "
+             f"tolerance (max |diff| = {err})")
 
 
 # --------------------------------------------------------------------------
@@ -488,25 +634,32 @@ def search_steps(torch, n):
 
 
 def record_kernel(torch, lines, errs, launches, name, shape_note, kern,
-                  plain, out_bytes, steps, line=True):
-    """Hold one kernel against its plain version at a layout, time both,
-    and put its entry (with its bound) in the ``kernels`` line."""
+                  plain, out_bytes, steps, line=True, rate=INT32_OPS_PER_S,
+                  library=None, extra=None):
+    """Hold one kernel against its plain version at a layout, time both
+    (and ``library``, one PyTorch call computing the same function, where
+    there is one), and put its entry in the ``kernels`` line.  Its bound
+    is the larger of ``out_bytes`` (inputs read once, output written once)
+    over the HBM rate and ``steps`` operations over ``rate``."""
     from repro_torch.kernels import cuda
     got = kern()
     want = plain()
     compare(torch, name, got, want, errs)
+    del got, want
     ms = time_ms(torch, kern)
     plain_ms = time_ms(torch, plain, reps=3)
+    library_ms = None if library is None else time_ms(torch, library)
     t_bytes = out_bytes / HBM_BYTES_PER_S
-    t_ops = steps / INT32_OPS_PER_S
+    t_ops = steps / rate
     src, replaces = cuda.SOURCES[name]
     entry = {"name": name, "route": "cuda", "source": src,
              "replaces": replaces, "launches": launches[name],
              "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
              "bound_ms": 1e3 * max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-             "library_ms": None, "shape": shape_note,
-             "search_steps": steps, "bytes": out_bytes}
+             "library_ms": library_ms, "shape": shape_note,
+             "ops": steps, "ops_per_s": rate, "bytes": out_bytes,
+             **(extra or {})}
     log(f"[kernel] {json.dumps(entry)}")
     if line:
         lines.append(entry)
@@ -988,6 +1141,253 @@ def baseline_kernel_phase(torch, ops, errs, launches, layouts):
     return lines
 
 
+# --------------------------------------------------------------------------
+# phase 6: the radix histogram over Q1's keys
+# --------------------------------------------------------------------------
+
+RADIX_BUCKETS = (4096, 65_536)
+RADIX_DEAD = 0.1
+# integer operations per live key: fmix32 (4 xors, 3 shifts, 2 multiplies,
+# the seed xor) and the modulo
+RADIX_OPS_PER_KEY = 11
+
+
+def radix_phase(torch, ops, data, seed):
+    """``ops.radix_histogram`` over Q1's source keys with ~10% dead rows,
+    at each of RADIX_BUCKETS, exact against the plain version and summing
+    to the live count.  The counter is zeroed before the phase."""
+    from repro_torch.kernels import cuda
+    src = data["F"]["src"]
+    keys = torch.as_tensor(src).cuda()
+    valid = torch.as_tensor(np.random.default_rng(seed + 2).random(len(src))
+                            >= RADIX_DEAD).cuda()
+    n_live = int(valid.sum())
+    cuda.reset_launch_counts()
+    rows = []
+    for nb in RADIX_BUCKETS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = ops.radix_histogram(keys, valid, n_buckets=nb)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        if not torch.equal(hist, ops._radix_histogram_ref(keys, valid, nb)):
+            fail(f"radix_histogram at {nb} buckets differs from the plain "
+                 "version")
+        if int(hist.sum()) != n_live:
+            fail(f"radix_histogram at {nb} buckets counts {int(hist.sum())}"
+                 f" live keys, not {n_live}")
+        rows.append({"radix": f"Q1 F.src, {nb} buckets", "keys": len(src),
+                     "live": n_live, "max_bucket": int(hist.max()),
+                     "cold_call_s": call_s})
+        log(f"[radix] {json.dumps(rows[-1])}")
+    launches = dict(cuda.LAUNCHES)
+    if launches["radix_histogram"] != len(RADIX_BUCKETS):
+        fail(f"radix_histogram launched {launches['radix_histogram']} times "
+             f"in the radix phase, expected {len(RADIX_BUCKETS)}")
+    return rows, launches, (keys, valid)
+
+
+def radix_kernel_phase(torch, ops, errs, launches, keys, valid):
+    """The radix kernel at Q1's keys: bound by the bytes (4 B key + 1 B
+    validity per row, the histogram written once) or RADIX_OPS_PER_KEY
+    integer operations per live key; library: ``hash_bucket`` and
+    ``torch.bincount``, the plain version's two calls on the live keys."""
+    from repro_torch.core import hashing
+    lines = []
+    n, n_live = keys.numel(), int(valid.sum())
+    for nb in RADIX_BUCKETS:
+        record_kernel(
+            torch, lines, errs, launches, "radix_histogram",
+            f"Q1 F.src: {n} keys, {n_live} live, {nb} buckets",
+            lambda nb=nb: ops.radix_histogram(keys, valid, n_buckets=nb),
+            lambda nb=nb: ops._radix_histogram_ref(keys, valid, nb),
+            5 * n + 4 * nb, RADIX_OPS_PER_KEY * n_live,
+            line=nb == RADIX_BUCKETS[0],
+            library=lambda nb=nb: torch.bincount(
+                hashing.hash_bucket(keys[valid], nb, "H"), minlength=nb))
+    return lines
+
+
+# --------------------------------------------------------------------------
+# phase 8: the dense LM served at full width
+# --------------------------------------------------------------------------
+
+# (label, arch, batch, prompt length, generated tokens, requests)
+SERVE = [("S1", "qwen2-1.5b", 8, 1024, 32, 16),
+         ("S2", "gemma3-1b", 4, 2048, 16, 4)]
+CHECK_ROWS = 2
+# Teacher-forced check, bf16 compute: the served logits (prefill through
+# the flash kernel, decode through the plain einsum path over the cache)
+# against one forward over prompt + generated tokens (flash kernel), with
+# other GEMM shapes and so other bf16 roundings, which grow over the
+# layers.  Logits are ~N(0, 1) at init.  Stated before the first run:
+# max |diff| <= 0.5 over every compared logit and mean |diff| <= 0.06.
+SERVE_TOL = {"max": 0.5, "mean": 0.06}
+
+
+def teacher_forced_check(torch, model, params, wave, prompt_len, gen, label):
+    """``forward`` over prompt + generated tokens of CHECK_ROWS rows
+    against the logits the serving loop produced at the same positions."""
+    rows = CHECK_ROWS
+    seq = np.concatenate([wave["prompts"][:rows], wave["tokens"][:rows, :gen]],
+                         axis=1)
+    with torch.no_grad():
+        full, _ = model.forward(params, torch.from_numpy(seq).cuda())
+    ref = full[:, prompt_len - 1:prompt_len + gen]         # [rows, gen+1, V]
+    served = wave["logits"]
+    if ref.shape != served.shape:
+        fail(f"{label}: forward logits {tuple(ref.shape)} against served "
+             f"{tuple(served.shape)}")
+    if not (torch.isfinite(ref).all() and torch.isfinite(served).all()):
+        fail(f"{label}: non-finite logits")
+    diff = (ref - served).abs()
+    max_d, mean_d = float(diff.max()), float(diff.mean())
+    tokens = torch.from_numpy(wave["tokens"][:rows]).cuda().long()
+    if not torch.equal(served.argmax(-1), tokens):
+        fail(f"{label}: the served tokens are not the argmax of the served "
+             "logits")
+    # at every position the served token is, under the forward, within the
+    # logit tolerance of the forward's own greedy choice (random weights
+    # leave top-2 margins below the bf16 differences, so the two argmaxes
+    # need not agree)
+    regret = ref.max(-1).values - ref.gather(-1, tokens[..., None])[..., 0]
+    max_regret = float(regret.max())
+    out = {"check_rows": rows, "check_positions": int(ref.shape[1]),
+           "greedy_positions_checked": int(regret.numel()),
+           "logit_max_abs_diff": max_d, "logit_mean_abs_diff": mean_d,
+           "logit_std": float(ref.std()),
+           "forward_max_regret_of_served": max_regret,
+           "forward_greedy_agree_share": float(
+               (ref.argmax(-1) == tokens).float().mean())}
+    if (max_d > SERVE_TOL["max"] or mean_d > SERVE_TOL["mean"]
+            or max_regret > SERVE_TOL["max"]):
+        fail(f"{label}: teacher-forced check failed: {json.dumps(out)}")
+    return out
+
+
+def serve_phase(torch, seed):
+    """S1 and S2 through ``repro_torch.launch.serve.serve`` at the configs'
+    full widths.  The flash counter is zeroed just before each and read
+    after its teacher-forced check: every prefill and the check's forward
+    run each attention layer once through the kernel."""
+    from repro_torch import configs
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import serve
+    from repro_torch.models import zoo
+    rows, flash_launches = [], 0
+    for label, arch, batch, prompt, gen, requests in SERVE:
+        cfg = configs.get(arch)
+        model = zoo.build(cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launch_counts()
+        waves = serve.serve(model, params, batch=batch, prompt_len=prompt,
+                            gen=gen, requests=requests, seed=seed,
+                            device="cuda", keep_rows=CHECK_ROWS,
+                            log=lambda m, label=label: log(f"[serve] {label}"
+                                                           f" {m}"))
+        served = cuda.LAUNCHES["flash_fwd"]
+        check = teacher_forced_check(torch, model, params, waves[-1], prompt,
+                                     gen, label)
+        launches = cuda.LAUNCHES["flash_fwd"]
+        want = cfg.n_layers * (len(waves) + 1)
+        if launches != want:
+            fail(f"{label}: flash_fwd launched {launches} times, expected "
+                 f"{cfg.n_layers} layers x ({len(waves)} prefills + 1 "
+                 "forward)")
+        flash_launches += launches
+        pre = [w["prefill_s"] for w in waves]
+        dec = [w["decode_s"] for w in waves]
+        row = {"serve": label, "arch": arch,
+               "params": sum(p.numel() for p in params.parameters()),
+               "layers": cfg.n_layers, "batch": batch, "prompt_len": prompt,
+               "gen": gen, "requests": requests, "waves": len(waves),
+               "init_s": init_s, "prefill_s": pre, "decode_s": dec,
+               "prefill_tok_s": [batch * prompt / t for t in pre],
+               "decode_tok_s": [batch * gen / t for t in dec],
+               "flash_launches": launches,
+               "flash_launches_serving": served,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               **check}
+        log(f"[serve] {json.dumps(row)}")
+        rows.append(row)
+        del params, waves, model
+        torch.cuda.empty_cache()
+    return rows, {"flash_fwd": flash_launches}
+
+
+def sdpa_kernels(torch, fn):
+    """The device kernels one call of ``fn`` runs, by device time (which
+    SDPA backend took the inputs), from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if getattr(e, "device_time_total", 0) > 0]
+        evs.sort(key=lambda e: -e.device_time_total)
+        return [e.key[:80] for e in evs[:3]] or ["no device time recorded"]
+    except Exception as exc:   # the yardstick's backend is a note only
+        return [f"not measured: {type(exc).__name__}: {exc}"[:120]]
+
+
+def flash_kernel_phase(torch, errs, launches, seed):
+    """The flash kernel at S1's prefill shape (in the kernels line) and at
+    S2's local and global layers' (printed), bf16, against its plain
+    version, its bound and ``scaled_dot_product_attention`` on the same
+    tensors.  Bound: the larger of q, k, v read once and o, m, l written
+    once over the HBM rate, and 4 D flops per visible (q, k) pair over the
+    bf16 tensor-core rate."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator().manual_seed(seed + 3)
+    lines = []
+    for label, (b, s, h, kvh, d, window) in [
+            ("S1 prefill", (8, 1024, 12, 2, 128, 0)),
+            ("S2 prefill, local layer", (4, 2048, 4, 1, 256, 512)),
+            ("S2 prefill, global layer", (4, 2048, 4, 1, 256, 0))]:
+        q, k, v = _flash_inputs(torch, gen, b, s, s, h, kvh, d, "bfloat16")
+        rows = np.arange(s)
+        visible = int(np.minimum(rows + 1, window if window else s).sum())
+        flops = 4 * d * visible * b * h
+        nb = nbytes(q, k, v) * 2 - nbytes(k, v) + 2 * 4 * b * h * s
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        pos = torch.arange(s, device="cuda")
+        kw = (dict(attn_mask=(pos[None] <= pos[:, None])
+                   & (pos[None] > pos[:, None] - window)) if window
+              else dict(is_causal=True))
+
+        def lib(qt=qt, kt=kt, vt=vt, kw=kw):
+            return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                                  **kw)
+        lib_out = lib().transpose(1, 2)
+        o_ref = fa._flash_fwd_ref(q, k, v, causal=True, window=window)[0]
+        extra = {"sdpa_kernels": sdpa_kernels(torch, lib),
+                 "sdpa_max_abs_diff_vs_plain": float(
+                     (lib_out.float() - o_ref.float()).abs().max()),
+                 "visible_pairs": visible * b * h, "flops": flops}
+        del lib_out, o_ref
+        record_kernel(torch, lines, errs, launches, "flash_fwd",
+                      f"{label}: q [{b}, {s}, {h}, {d}], k/v [{b}, {s}, "
+                      f"{kvh}, {d}] bf16, causal, window {window}",
+                      lambda q=q, k=k, v=v, w=window: fa.flash_fwd(
+                          q, k, v, causal=True, window=w),
+                      lambda q=q, k=k, v=v, w=window: fa._flash_fwd_ref(
+                          q, k, v, causal=True, window=w),
+                      nb, flops, line=label == "S1 prefill",
+                      rate=BF16_FLOPS_PER_S, library=lib, extra=extra)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1005,6 +1405,9 @@ def main() -> int:
         print(f"chip_smoke: FAILED: the port is not importable here ({exc});"
               " run from the root of a checkout", file=sys.stderr)
         return 2
+    # the plain versions' f32 products in full f32 (TF32 keeps ~3 digits)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
     build_s = cuda.build()
@@ -1020,23 +1423,32 @@ def main() -> int:
     cases = kernel_cases(torch, ops, args.seed)
     for kname, kern, plain in cases:
         compare(torch, kname, kern(), plain(), errs)
-    log(f"[kernels] {len(cases)} random layouts exact against the plain "
-        f"versions in {time.perf_counter() - t0:.1f}s: {json.dumps(errs)}")
+    log(f"[kernels] {len(cases)} random layouts against the plain versions "
+        f"(join and radix kernels exact, flash within FLASH_TOL) in "
+        f"{time.perf_counter() - t0:.1f}s: {json.dumps(errs)}")
+    del cases
 
     t0 = time.perf_counter()
     data = make_data(args.seed)
     log(f"[data] generated in {time.perf_counter() - t0:.1f}s")
-    rows, launches, results, queries, want, key_sums = main_path(torch,
-                                                                  data)
+    rows, launches, results, queries, want, key_sums = main_path(torch, data)
     t0 = time.perf_counter()
     b_rows, b_launches, b_layouts = baseline_phase(
         torch, data, rows, queries, want, key_sums, args.seed)
     log(f"[baseline] phase took {time.perf_counter() - t0:.1f}s")
+    r_rows, r_launches, (keys, valid) = radix_phase(torch, ops, data,
+                                                    args.seed)
     del data
 
     lines = kernel_phase(torch, ops, errs, launches, results, queries)
     lines += baseline_kernel_phase(torch, ops, errs, b_launches, b_layouts)
-    log(json.dumps({"queries": rows, "baselines": b_rows}))
+    lines += radix_kernel_phase(torch, ops, errs, r_launches, keys, valid)
+    del results, queries, b_layouts, keys, valid
+    torch.cuda.empty_cache()
+    s_rows, s_launches = serve_phase(torch, args.seed)
+    lines += flash_kernel_phase(torch, errs, s_launches, args.seed)
+    log(json.dumps({"queries": rows, "baselines": b_rows, "radix": r_rows,
+                    "serve": s_rows}))
     print(card, flush=True)
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {

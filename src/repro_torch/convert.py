@@ -1,8 +1,12 @@
-"""Carry relations between numpy, the port and the JAX package's layout.
+"""Carry state between numpy, the port and the JAX package's layout.
 
-There are no weights: the state of a join is the relations' columns and
-validity.  These helpers build the port's relations from numpy arrays (and
-back), so the tests and the smoke run feed both packages the same data.
+The state of a join is the relations' columns and validity: these helpers
+build the port's relations from numpy arrays (and back), so the tests and
+the smoke run feed both packages the same data.  The state of a language
+model is its parameter tree and its KV cache: ``lm_params_from_numpy``
+turns the JAX package's ``init_lm`` tree (numpy leaves, stacked ``[L, ...]``
+per layer) into a ``TransformerLM`` and ``lm_params_to_numpy`` back;
+``cache_from_numpy`` carries a KV cache across.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.relation import Relation, as_int32, resolve_device
+from repro_torch.models import attention, layers, transformer
+from repro_torch.models.config import ModelConfig
 
 
 def relation_from_numpy(columns: Mapping[str, np.ndarray], valid=None,
@@ -52,3 +58,87 @@ def relation_from_reference_arrays(d: Mapping, device=None) -> Relation:
     ``relation_to_numpy`` returns), padding slots included."""
     return relation_from_numpy(d["columns"], valid=d["valid"],
                                capacity=d.get("capacity"), device=device)
+
+
+# --------------------------------------------------------------------------
+# language-model parameters and caches
+# --------------------------------------------------------------------------
+
+def _tensor(x, device: torch.device) -> torch.Tensor:
+    """A numpy array (bfloat16 too, as ``np.asarray`` gives it from JAX) as
+    a tensor of the same dtype on ``device``."""
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
+                         device=None) -> transformer.TransformerLM:
+    """The port's ``TransformerLM`` from the JAX package's ``init_lm``
+    parameter tree with numpy leaves; ``device=None`` means the card."""
+    dev = resolve_device(device)
+    lay = tree["layers"]
+    n_layers = np.asarray(lay["ln_attn"]["scale"]).shape[0]
+    if n_layers != cfg.n_layers:
+        raise ValueError(f"the tree has {n_layers} layers, {cfg.name} has "
+                         f"{cfg.n_layers}")
+
+    def t(x):
+        return _tensor(np.asarray(x, dtype=np.float32), dev)
+
+    def lin(d, i):
+        return layers.Linear(t(d["w"][i]), t(d["b"][i]) if "b" in d else None)
+
+    def norm(d, i):
+        return layers.RMSNorm(t(d["scale"][i]))
+
+    blocks = []
+    for i in range(n_layers):
+        a = lay["attn"]
+        qk = ((norm(a["q_norm"], i), norm(a["k_norm"], i))
+              if "q_norm" in a else ())
+        attn = attention.Attention(*(lin(a[n], i) for n in
+                                     ("wq", "wk", "wv", "wo")), *qk)
+        mlp = layers.GLUMLP(*(lin(lay["mlp"][n], i)
+                              for n in ("gate", "up", "down")))
+        blocks.append(transformer.Block(norm(lay["ln_attn"], i), attn,
+                                        norm(lay["ln_mlp"], i), mlp))
+    head = (layers.Embed(t(tree["lm_head"]["table"])) if "lm_head" in tree
+            else None)
+    return transformer.TransformerLM(
+        cfg, layers.Embed(t(tree["embed"]["table"])), blocks,
+        layers.RMSNorm(t(tree["final_norm"]["scale"])), head)
+
+
+def lm_params_to_numpy(params: transformer.TransformerLM) -> dict:
+    """The JAX package's parameter tree (numpy f32 leaves, per-layer
+    leaves stacked ``[L, ...]`` under ``"layers"``) of a TransformerLM."""
+    tree: dict = {}
+    per_layer: dict = {}
+    for key, val in params.state_dict().items():
+        parts = key.split(".")
+        arr = val.detach().float().cpu().numpy()
+        if parts[0] == "blocks":
+            per_layer.setdefault(tuple(parts[2:]), []).append(arr)
+            continue
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = arr
+    layer_tree = tree.setdefault("layers", {})
+    for path, arrs in per_layer.items():
+        node = layer_tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.stack(arrs)
+    return tree
+
+
+def cache_from_numpy(cache: Mapping, device=None) -> dict:
+    """A KV cache ``{"k", "v": [L, B, T, KVH, D], "length"}`` with numpy
+    leaves (bfloat16 too) as the port's cache, dtypes kept."""
+    dev = resolve_device(device)
+    return {"k": _tensor(cache["k"], dev), "v": _tensor(cache["v"], dev),
+            "length": int(np.asarray(cache["length"]))}

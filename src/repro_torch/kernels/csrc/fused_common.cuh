@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "error_string.cuh"
+
 namespace rj {
 
 constexpr int kThreads = 256;
@@ -158,7 +160,3 @@ inline cudaError_t launch_sweep3(const int* sb, const int* sc, int dead_key,
 }
 
 }  // namespace rj
-
-extern "C" const char* rj_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

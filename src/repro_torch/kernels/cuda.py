@@ -21,6 +21,11 @@ packed (b, a) and (c, a) keys; the all-pairs sweeps' packed (b, c) and
 (a, c) keys), and hand the pair-index kernel each S bucket's live length
 (one past its last live slot), so it skips dead tails.
 
+The flash forward (``flash_fwd``, the LM's prefill attention) takes f32
+or bf16 q, k, v through their strides and returns o, m, l; the radix
+histogram (``radix_histogram``) takes an int32 key stream and its bool
+validity.  Neither is masked with sentinels.
+
 The bucket-row wrappers (``bucket_*``) take ``[*batch, C]`` rows whose
 batch shapes broadcast: an operand of size 1 along a batch dimension is
 one row shared along it, passed to the kernel once with a zero row
@@ -79,6 +84,11 @@ _LIBS = {
                      [_P, _P, _P, _P, _P, _C, _I, _I, _I, _I, _I, _I, _C, _C,
                       _P, _P, _C, _P]),
     "bucket_cyclic": ("rj_bucket_cyclic", _MERGE_ARGS),
+    "flash_fwd": ("rj_flash_fwd",
+                  [_P, _P, _P, _P, _P, _P, _C, *[_I] * 15, _C, _C,
+                   ctypes.c_float, _C, _P]),
+    "radix_hist": ("rj_radix_histogram",
+                   [_P, _P, _I, _C, ctypes.c_uint, _P, _C, _P]),
 }
 
 # kernel name -> launches through its wrapper (main-path evidence).  The
@@ -89,7 +99,11 @@ FUSED_KERNELS = ("fused_count3_linear", "fused_count3_star",
 BASELINE_KERNELS = ("bucket_pair_count", "bucket_count3_linear",
                     "bucket_per_r_counts", "bucket_count3_cyclic",
                     "fused_count3_cyclic")
-KERNELS = FUSED_KERNELS + BASELINE_KERNELS
+# the attention forward of the LM's serving path, and the histogram of
+# the partitioning
+LM_KERNELS = ("flash_fwd",)
+HIST_KERNELS = ("radix_histogram",)
+KERNELS = FUSED_KERNELS + BASELINE_KERNELS + LM_KERNELS + HIST_KERNELS
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 # kernel name -> (source in the repo, TPU kernel it replaces)
@@ -113,6 +127,10 @@ SOURCES = {
                              "src/repro/kernels/bucket_join.py:164"),
     "fused_count3_cyclic": ("src/repro_torch/kernels/csrc/fused_cyclic.cu",
                             "src/repro/kernels/bucket_join.py:317"),
+    "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
+                  "src/repro/kernels/flash_attention.py:110"),
+    "radix_histogram": ("src/repro_torch/kernels/csrc/radix_hist.cu",
+                        "src/repro/kernels/radix_hist.py:51"),
 }
 
 _lock = threading.Lock()
@@ -473,4 +491,64 @@ def bucket_count3_cyclic(ra, rb, sb, sc, tc, ta) -> torch.Tensor:
     _launch_merge(op, "bucket_cyclic", ra, rb, sb, sc, tc, ta, dims,
                   *(_row_strides(_shape_nd(x, 5)) for x in (ra, sb, tc)),
                   _row_strides(dims), out)
+    return out
+
+
+# --------------------------------------------------------------------------
+# the flash attention forward and the radix histogram
+# --------------------------------------------------------------------------
+
+_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_fwd(q, k, v, *, causal: bool = True, window: int = 0):
+    """q [B,S,H,D], k/v [B,T,KVH,D] (f32 or bf16, unit stride along D, any
+    other strides that keep 4-element rows aligned) -> (o [B,S,H,D] in q's
+    dtype, m [B,H,S,1] f32, l [B,H,S,1] f32)."""
+    op = "flash_fwd"
+    dev = q.device
+    b, s, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    if q.dtype not in _FLASH_DTYPES:
+        raise TypeError(f"{op}: dtype {q.dtype}; the kernel takes "
+                        f"{sorted(map(str, _FLASH_DTYPES))}")
+    if d % 8 or not 0 < d <= 256:
+        raise ValueError(f"{op}: head dim {d} is not a multiple of 8 in "
+                         "[8, 256]")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.device != dev or x.device.type != "cuda":
+            raise ValueError(f"{op}: {name} is on {x.device}, expected "
+                             f"{dev}")
+        if x.dtype != q.dtype:
+            raise TypeError(f"{op}: {name} has dtype {x.dtype}, expected "
+                            f"{q.dtype}")
+        strides = [st for st, n in zip(x.stride()[:3], x.shape[:3]) if n > 1]
+        if (x.stride(3) != 1 or any(st % 4 for st in strides)
+                or x.data_ptr() % (4 * x.element_size())):
+            raise ValueError(f"{op}: {name} needs unit stride along D and "
+                             "rows aligned to 4 elements")
+    o = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
+    m = torch.empty((b, h, s, 1), dtype=torch.float32, device=dev)
+    l = torch.empty((b, h, s, 1), dtype=torch.float32, device=dev)
+    _launch(op, "flash_fwd", dev, _ptr(q), _ptr(k), _ptr(v), _ptr(o),
+            _ptr(m), _ptr(l), _FLASH_DTYPES[q.dtype], b, s, t, h, kvh, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
+            int(window), 1.0 / d ** 0.5)
+    return o, m, l
+
+
+def radix_histogram(keys, valid, *, n_buckets: int) -> torch.Tensor:
+    """keys (n,) int32, valid (n,) bool -> (n_buckets,) int32: the live keys
+    per bucket of ``hash_bucket(keys, n_buckets, "H")``."""
+    from repro_torch.core.hashing import _SEEDS
+    op = "radix_histogram"
+    dev = keys.device
+    n = keys.shape[0]
+    _check(op, torch.int32, dev, keys=(keys, (n,)))
+    _check(op, torch.bool, dev, valid=(valid, (n,)))
+    if not 0 < n_buckets < 2**31:
+        raise ValueError(f"{op}: n_buckets {n_buckets} out of range")
+    out = torch.zeros((n_buckets,), dtype=torch.int32, device=dev)
+    _launch(op, "radix_hist", dev, _ptr(keys), _ptr(valid), n, n_buckets,
+            _SEEDS["H"], _ptr(out))
     return out

@@ -1,6 +1,6 @@
 """The kernel ops of the join engine, and their plain versions.
 
-Two families:
+Three families:
 
   * the fused partition-sweep ops (``fused_*``) of the engine's hot path:
     one call covers a whole coarse partition sweep;
@@ -12,7 +12,8 @@ Two families:
     do: a size-1 batch dimension shares one bucket row across that
     dimension without copying it (the T bucket that Algorithm 1 broadcasts
     to every PMU, the S and T rows the cyclic grid broadcasts down columns
-    and across rows).  ``[B, C]`` operands are the reference's contract.
+    and across rows).  ``[B, C]`` operands are the reference's contract;
+  * ``radix_histogram``: the per-bucket counts of a hashed key stream.
 
 Each public op masks invalid slots with per-side sentinels (so an invalid
 slot can never equal anything on another side) and then dispatches on the
@@ -501,3 +502,30 @@ def bucket_count3_cyclic_pairidx(ra, rb, rv, sb, sc, sv, tcs, tas):
     return _bucket_cyclic_join(_mask(ra, rv, "r"), _mask(rb, rv, "r"),
                                _mask(sb, sv, "s"), _mask(sc, sv, "s"),
                                pair_keys(tcs, tas))
+
+
+# --------------------------------------------------------------------------
+# radix histogram (the partitioning's per-bucket counts)
+# --------------------------------------------------------------------------
+
+def _radix_histogram_ref(keys, valid, n_buckets: int):
+    """keys (n,) int32, valid (n,) bool -> (n_buckets,) int32: the plain
+    version, ``hash_bucket(keys, n_buckets, "H")`` counted over live rows
+    with ``torch.bincount``."""
+    from repro_torch.core import hashing
+    ids = hashing.hash_bucket(keys, n_buckets, "H")
+    return torch.bincount(ids[valid].long(), minlength=n_buckets).to(
+        torch.int32)
+
+
+def radix_histogram(keys, valid, *, n_buckets: int):
+    """Histogram of ``hash_bucket(keys, n_buckets, "H")`` over live rows,
+    (n_buckets,) int32; exact at any count (int32 atomics on the card)."""
+    if keys.dim() != 1 or valid.shape != keys.shape:
+        raise ValueError(f"radix_histogram: keys {tuple(keys.shape)} and "
+                         f"valid {tuple(valid.shape)} must be one (n,) "
+                         "stream")
+    if _on_cuda(keys, "radix_histogram"):
+        from repro_torch.kernels import cuda
+        return cuda.radix_histogram(keys, valid, n_buckets=n_buckets)
+    return _radix_histogram_ref(keys, valid, n_buckets)

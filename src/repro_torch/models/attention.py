@@ -1,0 +1,198 @@
+"""Attention: GQA with causal / sliding-window masks, and KV-cache decode.
+
+Prefill and the teacher-forced forward run ``flash_attention``, which on
+the card launches the hand-written flash forward kernel
+(``kernels.flash_attention.flash_fwd``, the counterpart of the JAX
+package's Pallas ``flash_fwd``): the score matrix never reaches device
+memory.  On the CPU it takes the kernel's plain version, a dense masked
+softmax.
+
+Decode attends one query position against the cache.  Its scores are
+``[B, KVH, G, 1, T]``, linear in T, and stay plain torch on every device,
+as the JAX package computes them with einsums outside any Pallas kernel.
+Its products accumulate in f32 (the JAX dots use
+``preferred_element_type=f32``; a bf16 torch matmul would round its
+output to bf16), and the probabilities are rounded to the value dtype
+before the ``PV`` product, as in JAX.
+
+The cache is ``{"k", "v": [L, B, T, KVH, D], "length": int}``; the port
+updates it in place (the JAX package returns a new one), and its length is
+a host integer, so no decode step waits on the device to build its masks.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import flash_attention as flash_kernel
+from repro_torch.models import layers
+
+NEG_INF = flash_kernel.NEG_INF
+
+
+class Attention(nn.Module):
+    def __init__(self, wq, wk, wv, wo, q_norm=None, k_norm=None):
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
+        self.q_norm, self.k_norm = q_norm, k_norm
+
+
+def init_attention(gen: torch.Generator, cfg) -> Attention:
+    d, hd, nq, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    wq = layers.init_linear(gen, d, nq * hd, bias=cfg.qkv_bias)
+    wk = layers.init_linear(gen, d, nkv * hd, bias=cfg.qkv_bias)
+    wv = layers.init_linear(gen, d, nkv * hd, bias=cfg.qkv_bias)
+    wo = layers.init_linear(gen, nq * hd, d)
+    if cfg.qk_norm:
+        return Attention(wq, wk, wv, wo,
+                         layers.init_rms_norm(hd, gen.device),
+                         layers.init_rms_norm(hd, gen.device))
+    return Attention(wq, wk, wv, wo)
+
+
+def _project_qkv(p: Attention, cfg, x, positions, theta):
+    b, s, _ = x.shape
+    hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    q = layers.linear(x, p.wq.w, p.wq.b).reshape(b, s, nq, hd)
+    k = layers.linear(x, p.wk.w, p.wk.b).reshape(b, s, nkv, hd)
+    v = layers.linear(x, p.wv.w, p.wv.b).reshape(b, s, nkv, hd)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, p.q_norm.scale, cfg.norm_eps)
+        k = layers.rms_norm(k, p.k_norm.scale, cfg.norm_eps)
+    if theta is not None:
+        q = layers.rope(q, positions, theta)
+        k = layers.rope(k, positions, theta)
+    return q, k, v
+
+
+def _is_arange(pos: torch.Tensor, n: int) -> bool:
+    want = torch.arange(n, device=pos.device, dtype=pos.dtype)
+    return pos.shape[-1] == n and bool((pos == want).all())
+
+
+def flash_attention(q, k, v, qpos, kpos, *, causal=True, window=0):
+    """Attention of q [B,S,H,D] over k/v [B,T,KVH,D] at positions
+    qpos [B,S], kpos [B,T]; returns [B,S,H,D] in q's dtype.
+
+    ``qpos`` / ``kpos`` of ``None`` mean ``0..S-1`` / ``0..T-1`` in every
+    row, the positions the kernel takes; the model passes ``None`` so that
+    no layer waits on the device.  On the card a positions tensor is
+    checked (one device sync) and anything but ``0..S-1`` / ``0..T-1``
+    raises rather than compute something else.  On the CPU the plain
+    version honours any positions."""
+    if q.device.type == "cuda":
+        if not ((qpos is None or _is_arange(qpos, q.shape[1]))
+                and (kpos is None or _is_arange(kpos, k.shape[1]))):
+            raise ValueError("flash_attention: the flash kernel takes "
+                             "positions 0..S-1 and 0..T-1 only")
+        return flash_kernel.flash_fwd(q, k, v, causal=causal,
+                                      window=window)[0]
+    flash_kernel._check_operands(q, k, v)
+    return flash_kernel._flash_fwd_ref(q, k, v, causal=causal, window=window,
+                                       qpos=qpos, kpos=kpos)[0]
+
+
+def arange_positions(x: torch.Tensor) -> torch.Tensor:
+    """Positions ``0..S-1`` of every row of x [B, S, ...], int32."""
+    b, s = x.shape[:2]
+    return torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(
+        b, s)
+
+
+def self_attention(p: Attention, cfg, x, positions=None, *, causal=True,
+                   window=0, theta=None, return_kv=False):
+    """Full self-attention sub-layer (projections + flash + output).
+    ``positions`` [B, S] of ``None`` means ``0..S-1`` in every row (what
+    the model passes): rope takes ``arange_positions`` and the flash
+    kernel its own positions, with no device check."""
+    b, s, _ = x.shape
+    theta = cfg.rope_theta if theta is None else theta
+    rope_pos = arange_positions(x) if positions is None else positions
+    q, k, v = _project_qkv(p, cfg, x, rope_pos, theta)
+    out = flash_attention(q, k, v, positions, positions, causal=causal,
+                          window=window)
+    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    out = layers.linear(out, p.wo.w)
+    if return_kv:
+        return out, k, v
+    return out
+
+
+# --------------------------------------------------------------------------
+# KV cache (decode)
+# --------------------------------------------------------------------------
+
+def init_kv_cache(cfg, batch, max_len, dtype=torch.bfloat16, device=None):
+    """[L, B, T, KVH, D] stacked cache (+ current length)."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "length": 0}
+
+
+def _token_positions(x, length: int) -> torch.Tensor:
+    return torch.full((x.shape[0], 1), length, dtype=torch.int32,
+                      device=x.device)
+
+
+def project_kv_token(p: Attention, cfg, x, length: int, *, theta=None):
+    """This step's k/v [B,1,KVH,D], without writing the cache."""
+    b = x.shape[0]
+    hd, nkv = cfg.head_dim, cfg.n_kv_heads
+    theta = cfg.rope_theta if theta is None else theta
+    k = layers.linear(x, p.wk.w, p.wk.b).reshape(b, 1, nkv, hd)
+    v = layers.linear(x, p.wv.w, p.wv.b).reshape(b, 1, nkv, hd)
+    if cfg.qk_norm:
+        k = layers.rms_norm(k, p.k_norm.scale, cfg.norm_eps)
+    if theta is not None:
+        k = layers.rope(k, _token_positions(x, length), theta)
+    return k, v
+
+
+def decode_attention_append(p: Attention, cfg, x, layer_k, layer_v, k_new,
+                            v_new, length: int, *, window=0, theta=None):
+    """One-token attention: scores against the cache slots before
+    ``length`` plus the new token's own score, computed separately (the
+    cache is read only).  x [B,1,d]; layer_k/v [B,T,KVH,D]."""
+    b = x.shape[0]
+    t = layer_k.shape[1]
+    hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    g = nq // nkv
+    theta = cfg.rope_theta if theta is None else theta
+
+    q = layers.linear(x, p.wq.w, p.wq.b).reshape(b, 1, nq, hd)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, p.q_norm.scale, cfg.norm_eps)
+    if theta is not None:
+        q = layers.rope(q, _token_positions(x, length), theta)
+    qg = q.reshape(b, 1, nkv, g, hd)
+
+    # operands in q's dtype, products in f32
+    qf = qg.float()
+    s = torch.einsum("bqkgd,btkd->bkgqt", qf,
+                     layer_k.to(qg.dtype).float()) / (hd ** 0.5)
+    kpos = torch.arange(t, device=x.device)
+    mask = kpos < length                       # strictly-past cache slots
+    if window > 0:
+        mask = mask & (kpos > length - window)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    s_new = torch.einsum("bqkgd,btkd->bkgqt", qf,
+                         k_new.to(qg.dtype).float()) / (hd ** 0.5)
+    sc = torch.cat([s, s_new], dim=-1)         # [B,KVH,G,1,T+1]
+    wts = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bkgqt,btkd->bqkgd",
+                       wts[..., :t].to(layer_v.dtype).float(),
+                       layer_v.float()) \
+        + torch.einsum("bkgqt,btkd->bqkgd",
+                       wts[..., t:].to(v_new.dtype).float(), v_new.float())
+    out = out.reshape(b, 1, nq * hd).to(x.dtype)
+    return layers.linear(out, p.wo.w)
+
+
+def write_kv_stack(cache_k, cache_v, ks, vs, length: int):
+    """Write the per-layer k/v of one step [L,B,1,KVH,D] into the stacked
+    [L,B,T,KVH,D] cache at position ``length``, in place."""
+    cache_k[:, :, length:length + 1] = ks.to(cache_k.dtype)
+    cache_v[:, :, length:length + 1] = vs.to(cache_v.dtype)
+    return cache_k, cache_v

@@ -1,0 +1,59 @@
+"""Model zoo: one uniform interface over the model families.
+
+  model = zoo.build(cfg)
+  params = model.init(torch.Generator(device="cuda").manual_seed(0))
+  logits, aux = model.forward(params, tokens)
+  cache = model.init_cache(batch, max_len, device=...)
+  logits, cache = model.prefill(params, tokens, cache)
+  logits, cache = model.decode_step(params, cache, tokens)
+
+Only the dense family is ported; every other family raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+
+# family -> what is still to port for it (ROADMAP Queue A, item 6)
+NOT_PORTED = {
+    "moe": "MoE (models/moe.py)",
+    "vlm": "VLM cross-attention",
+    "ssm": "SSM/hybrid (models/ssm.py, models/hybrid.py)",
+    "hybrid": "SSM/hybrid (models/ssm.py, models/hybrid.py)",
+    "encdec": "enc-dec (models/encdec.py)",
+    "audio": "enc-dec (models/encdec.py)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    config: ModelConfig
+    init: Callable             # (generator) -> params (an nn.Module)
+    forward: Callable          # (params, tokens) -> (logits, aux)
+    init_cache: Callable       # (batch, max_len, dtype=..., device=...)
+    prefill: Callable          # (params, tokens, cache) -> (logits, cache)
+    decode_step: Callable      # (params, cache, tokens) -> (logits, cache)
+
+
+def build(cfg: ModelConfig) -> Model:
+    if cfg.family == "dense":
+        return Model(
+            config=cfg,
+            init=lambda gen: transformer.init_lm(gen, cfg),
+            forward=lambda p, t: transformer.forward(p, cfg, t),
+            init_cache=lambda b, ml, dtype=torch.bfloat16, device=None:
+                transformer.init_cache(cfg, b, ml, dtype, device),
+            prefill=lambda p, t, c: transformer.prefill(p, cfg, t, c),
+            decode_step=lambda p, c, t: transformer.decode_step(p, cfg, c, t))
+    if cfg.family in NOT_PORTED:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet; "
+            f"ROADMAP Queue A, item 6 lists {NOT_PORTED[cfg.family]}")
+    raise ValueError(f"unknown family {cfg.family!r}")

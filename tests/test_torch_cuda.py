@@ -6,7 +6,8 @@ it also runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Counts are integers: the tolerance is exact equality.
+Counts are integers: the tolerance is exact equality.  The flash forward
+is held to ``chip_smoke.FLASH_TOL`` (o) and ``STATS_RTOL`` (m, l).
 """
 
 import importlib.util
@@ -39,10 +40,10 @@ def _smoke():
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_kernels_match_plain_versions(card, seed):
-    for name, kern, plain in _smoke().kernel_cases(torch, ops, seed):
-        got, want = kern(), plain()
-        assert got.dtype == want.dtype, name
-        assert torch.equal(got, want), name
+    smoke = _smoke()
+    for name, kern, plain in smoke.kernel_cases(torch, ops, seed):
+        err, ok = smoke.case_error(torch, name, kern(), plain())
+        assert ok, (name, err)
 
 
 def test_all_pairs_cyclic_launches_its_kernel_on_cuda(card):
@@ -86,3 +87,46 @@ def test_wrappers_check_their_inputs(card):
                                  .transpose(2, 3), tc)
     with pytest.raises(ValueError, match="cpu"):
         cuda.fused_count3_linear(rb, sb, sb, tc.cpu())
+
+
+def test_flash_and_radix_launch_their_kernels_on_cuda(card):
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn((2, 70, 4, 32), generator=gen).to(card, torch.bfloat16)
+    k = torch.randn((2, 70, 2, 32), generator=gen).to(card, torch.bfloat16)
+    v = torch.randn((2, 70, 2, 32), generator=gen).to(card, torch.bfloat16)
+    pos = torch.arange(70, device=card)[None].expand(2, 70)
+    before = dict(cuda.LAUNCHES)
+    o = attention.flash_attention(q, k, v, pos, pos, causal=True, window=9)
+    assert cuda.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
+    want = fa._flash_fwd_ref(q, k, v, causal=True, window=9)[0]
+    assert torch.allclose(o.float(), want.float(), rtol=2e-2, atol=2e-2)
+    with pytest.raises(ValueError, match="positions"):
+        attention.flash_attention(q, k, v, pos + 1, pos + 1)
+    keys = torch.randint(0, 100, (1000,), generator=gen,
+                         dtype=torch.int32).to(card)
+    valid = (torch.rand(1000, generator=gen) < 0.5).to(card)
+    hist = ops.radix_histogram(keys, valid, n_buckets=17)
+    assert cuda.LAUNCHES["radix_histogram"] == before["radix_histogram"] + 1
+    assert torch.equal(hist, ops._radix_histogram_ref(keys, valid, 17))
+
+
+def test_flash_and_radix_wrappers_check_their_inputs(card):
+    from repro_torch.kernels import cuda
+    q = torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16, device=card)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.flash_fwd(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="head dim"):
+        cuda.flash_fwd(q[..., :12], q[..., :12], q[..., :12])
+    with pytest.raises(ValueError, match="unit stride"):
+        t = q.transpose(1, 3).contiguous().transpose(1, 3)
+        cuda.flash_fwd(t, q, q)
+    with pytest.raises(ValueError, match="cpu"):
+        cuda.flash_fwd(q, q.cpu(), q)
+    keys = torch.zeros(10, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.radix_histogram(keys, keys, n_buckets=4)
+    with pytest.raises(ValueError, match="n_buckets"):
+        cuda.radix_histogram(keys, keys != 0, n_buckets=0)

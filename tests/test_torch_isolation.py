@@ -53,6 +53,9 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.kernels.ops, repro_torch.kernels.cuda\n"
         "import repro_torch.analysis.verify_plan, repro_torch.analysis.widths\n"
         "import repro_torch.analysis.arena_sanitizer, repro_torch.perfmodel\n"
+        "import repro_torch.configs, repro_torch.models.zoo\n"
+        "import repro_torch.kernels.flash_attention, repro_torch.train\n"
+        "import repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"

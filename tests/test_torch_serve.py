@@ -1,0 +1,211 @@
+"""The port's dense LM serving path against the JAX package, on the CPU.
+
+The JAX package's ``init_lm`` parameters go through
+``convert.lm_params_from_numpy``; both packages then run the same prompts:
+prefill, greedy decode (the port is fed the tokens JAX picked) and a
+teacher-forced forward over prompt + generated tokens.  One jitted JAX
+function per config holds all three, so each config compiles once.
+
+Tolerances.  float32 configs: every logit and the prefill cache within
+1e-5 (absolute and relative; logits are ~N(0, 1) at init), the same
+greedy tokens.  The configs' own bfloat16: the two frameworks round to
+bf16 at different places (matmul outputs, activations), and the
+differences grow over the layers.  Logits (~N(0, 1)) and the cached k, v
+(~unit scale) agree within 0.1 absolute, about 13 bf16 ulps at 1.0 (the
+largest differences seen are 0.071 and 0.0625); the greedy tokens are
+compared where the top-2 margin exceeds twice that.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import zoo as jzoo
+from repro.train import make_decode_step as jdecode_step
+from repro_torch import configs, convert
+from repro_torch.launch import serve
+from repro_torch.models import zoo
+
+B, N_DEC = 2, 8
+PROMPT = {"qwen2-1.5b": 20, "gemma3-1b": 24}   # gemma3's smoke window: 16
+F32_TOL = 1e-5
+BF16_TOL = 0.1
+
+
+def _jax_run(arch, dtype, prompt):
+    """JAX: prefill, N_DEC greedy decode steps, and the teacher-forced
+    forward over prompt + fed tokens, in one jit."""
+    cfg = dataclasses.replace(jconfigs.smoke(arch), dtype=dtype)
+    model = jzoo.build(cfg)
+    params = model.init(jax.random.key(7))
+    p_len = prompt.shape[1]
+    cache_dt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    decode = jdecode_step(model)
+
+    @jax.jit
+    def run(params, prompt):
+        cache = model.init_cache(B, p_len + N_DEC, dtype=cache_dt)
+        pre, cache = model.prefill(params, prompt, cache)
+        tok0 = jnp.argmax(pre[:, -1], axis=-1).astype(jnp.int32)[:, None]
+
+        def step(carry, _):
+            c, tok = carry
+            nxt, logits, c = decode(params, c, tok)
+            return (c, nxt), (logits[:, 0], tok[:, 0])
+
+        (_, last), (dec, fed) = jax.lax.scan(step, (cache, tok0), None,
+                                             length=N_DEC)
+        seq = jnp.concatenate([prompt, fed.T], axis=1)
+        full, _ = model.forward(params, seq)
+        return pre, cache, dec.transpose(1, 0, 2), seq, last, full
+
+    out = jax.tree.map(np.array, run(params, jnp.asarray(prompt)))
+    return jax.tree.map(np.asarray, params), out
+
+
+def _port_run(arch, dtype, tree, prompt, seq):
+    cfg = dataclasses.replace(configs.smoke(arch), dtype=dtype)
+    model = zoo.build(cfg)
+    params = convert.lm_params_from_numpy(tree, cfg, device="cpu")
+    cache_dt = torch.float32 if dtype == "float32" else torch.bfloat16
+    p_len = prompt.shape[1]
+    with torch.no_grad():
+        cache = model.init_cache(B, p_len + N_DEC, dtype=cache_dt,
+                                 device="cpu")
+        pre, cache = model.prefill(params, torch.from_numpy(prompt), cache)
+        pre_cache = {k: cache[k].float().numpy().copy() for k in ("k", "v")}
+        seq_t = torch.from_numpy(seq)
+        dec = []
+        for i in range(N_DEC):
+            logits, cache = model.decode_step(
+                params, cache, seq_t[:, p_len + i:p_len + i + 1])
+            dec.append(logits[:, 0])
+        full, _ = model.forward(params, seq_t)
+    return (pre.numpy(), pre_cache, torch.stack(dec, 1).numpy(),
+            full.numpy(), cache["length"])
+
+
+def _prompt(arch, vocab):
+    return np.random.default_rng(3).integers(
+        0, vocab, size=(B, PROMPT[arch])).astype(np.int32)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma3-1b"])
+def test_serving_path_matches_repro_float32(arch):
+    prompt = _prompt(arch, configs.smoke(arch).vocab_size)
+    tree, (pre, cache, dec, seq, last, full) = _jax_run(arch, "float32",
+                                                        prompt)
+    t_pre, t_cache, t_dec, t_full, length = _port_run(arch, "float32", tree,
+                                                      prompt, seq)
+    tol = dict(rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(t_full, full, **tol)
+    np.testing.assert_allclose(t_pre, pre, **tol)
+    p_len = prompt.shape[1]
+    for k in ("k", "v"):
+        np.testing.assert_allclose(t_cache[k][:, :, :p_len],
+                                   cache[k][:, :, :p_len], **tol)
+    np.testing.assert_allclose(t_dec, dec, **tol)
+    assert length == p_len + N_DEC
+    # the same greedy tokens: the port's argmax picks what JAX fed next
+    greedy = np.concatenate([t_pre[:, :1].argmax(-1), t_dec.argmax(-1)], 1)
+    np.testing.assert_array_equal(
+        greedy, np.concatenate([seq[:, p_len:], last], 1))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma3-1b"])
+def test_serving_path_matches_repro_bfloat16(arch):
+    prompt = _prompt(arch, configs.smoke(arch).vocab_size)
+    tree, (pre, cache, dec, seq, last, full) = _jax_run(arch, "bfloat16",
+                                                        prompt)
+    t_pre, t_cache, t_dec, t_full, _ = _port_run(arch, "bfloat16", tree,
+                                                 prompt, seq)
+    for got, want in ((t_full, full), (t_pre, pre), (t_dec, dec)):
+        np.testing.assert_allclose(got, want, rtol=0, atol=BF16_TOL)
+    p_len = prompt.shape[1]
+    for k in ("k", "v"):
+        want = np.asarray(cache[k], np.float32)[:, :, :p_len]
+        np.testing.assert_allclose(t_cache[k][:, :, :p_len], want,
+                                   rtol=0, atol=BF16_TOL)
+    srt = np.sort(t_dec, -1)
+    sure = srt[..., -1] - srt[..., -2] > 2 * BF16_TOL
+    nxt = np.concatenate([seq[:, p_len + 1:], last], 1)
+    assert sure.any()
+    np.testing.assert_array_equal(t_dec.argmax(-1)[sure], nxt[sure])
+
+
+def test_params_round_trip_through_numpy():
+    cfg = configs.smoke("gemma3-1b")
+    params = zoo.build(cfg).init(torch.Generator().manual_seed(0))
+    tree = convert.lm_params_to_numpy(params)
+    jtree = jzoo.build(jconfigs.smoke("gemma3-1b")).init(jax.random.key(0))
+    assert (jax.tree.structure(jax.tree.map(np.asarray, jtree))
+            == jax.tree.structure(tree))
+    for a, b in zip(jax.tree.leaves(jtree), jax.tree.leaves(tree)):
+        assert a.shape == b.shape
+    again = convert.lm_params_to_numpy(
+        convert.lm_params_from_numpy(tree, cfg, device="cpu"))
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(again)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_init_scales_match_repro():
+    """Init draws other bits than JAX, from the same distributions."""
+    cfg = configs.smoke("qwen2-1.5b")
+    tree = convert.lm_params_to_numpy(
+        zoo.build(cfg).init(torch.Generator().manual_seed(1)))
+    w = tree["layers"]["mlp"]["down"]["w"]
+    assert abs(w.std() * np.sqrt(cfg.d_ff) - 1) < 0.05
+    assert abs(tree["embed"]["table"].std() * np.sqrt(cfg.d_model) - 1) < 0.05
+    assert not tree["layers"]["attn"]["wq"]["b"].any()
+    assert not tree["final_norm"]["scale"].any()
+
+
+def test_cache_from_numpy_keeps_bfloat16():
+    cache = jzoo.build(jconfigs.smoke("qwen2-1.5b")).init_cache(2, 5)
+    cache = dict(cache, k=cache["k"].at[0, 0, 1].set(1.5))
+    got = convert.cache_from_numpy(jax.tree.map(np.asarray, cache),
+                                   device="cpu")
+    assert got["k"].dtype == torch.bfloat16 and got["length"] == 0
+    assert float(got["k"][0, 0, 1].max()) == 1.5
+
+
+def test_serve_main_runs_on_the_cpu(capsys):
+    waves = serve.main(["--arch", "gemma3-1b", "--smoke", "--batch", "2",
+                        "--prompt-len", "20", "--gen", "3", "--requests", "3",
+                        "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("wave 0: served 2 requests (3 tokens each)")
+    assert out[-1].startswith("served 3 requests, 6 decode steps in ")
+    assert len(waves) == 2 and waves[0]["tokens"].shape == (2, 4)
+
+
+def test_entry_points_need_the_card_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this box has a CUDA device: the default is the card")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        serve.main(["--smoke", "--gen", "1", "--requests", "1"])
+    tree = convert.lm_params_to_numpy(zoo.build(configs.smoke(
+        "qwen2-1.5b")).init(torch.Generator().manual_seed(0)))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        convert.lm_params_from_numpy(tree, configs.smoke("qwen2-1.5b"))
+
+
+@pytest.mark.parametrize("arch", [a for a in configs.ARCH_IDS
+                                  if configs.get(a).family != "dense"])
+def test_other_families_are_not_ported_yet(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        zoo.build(configs.get(arch))
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_configs_are_copies_of_repro(arch):
+    assert (dataclasses.asdict(configs.get(arch))
+            == dataclasses.asdict(jconfigs.get(arch)))
+    assert (dataclasses.asdict(configs.smoke(arch))
+            == dataclasses.asdict(jconfigs.smoke(arch)))
+    assert configs.get(arch).param_count() == jconfigs.get(arch).param_count()
