@@ -8,7 +8,7 @@ result line):
 
   1. device  — requires CUDA and a compute capability 9.0 card; prints the
      card's name and power limit from nvidia-smi;
-  2. build   — compiles the eleven Hopper kernels from ``src/repro_torch/
+  2. build   — compiles the twelve Hopper kernels from ``src/repro_torch/
      kernels/csrc`` (one nvcc per source, all in parallel) and prints the
      seconds;
   3. kernels — each kernel against its plain PyTorch version on the card
@@ -17,7 +17,9 @@ result line):
      radix histogram exactly (n not a multiple of the block, bucket counts
      on both sides of the shared-memory limit), the flash forward within
      ``FLASH_TOL`` (the flash kernel tests' cases, ragged S, D = 128 and
-     256, bf16 and f32, strided views);
+     256, bf16 and f32, strided views), the flash backward within
+     ``FLASH_BWD_TOL`` against its plain version and against autograd of
+     the plain forward (``FLASH_BWD_CASES``);
   4. main path — six queries through ``JoinSession(m_budget=16384)
      .execute``, each checked against an oracle independent of the port
      (numpy histograms, a float64 trace(A^3) on the card, a numpy
@@ -50,16 +52,29 @@ result line):
      the argmax of the served logits, and at every checked position the
      forward's logit for the served token must be within
      ``SERVE_TOL["max"]`` of the forward's largest logit;
-  9. the flash kernel at S1's and S2's prefill shapes against its plain
-     version, its bound and ``scaled_dot_product_attention``.  Prints one
-     ``kernels`` JSON line with all eleven kernels;
- 10. the last line: ``{"ok": true, "device": {...}}``.
+  9. train — the dense LM trained at full width through
+     ``repro_torch.launch.train``: T1 qwen2-1.5b (batch 8, seq 1024, 4
+     microbatches, remat, 6 steps), T2 gemma3-1b (batch 4, seq 2048, 2
+     microbatches, 2 steps), random weights and ``batch_at`` data from the
+     seed.  The flash counters are zeroed before each and read after every
+     step: layers x microbatches x 2 forward launches (remat) and layers x
+     microbatches backward launches a step; losses and gradient norms
+     finite.  Then the gradient check on T1's model (``GRAD_TOL``), and
+     the restart check at the qwen2-1.5b smoke config: a run that fails at
+     step 5 and resumes from its newest committed checkpoint ends with the
+     parameters of an uninterrupted run;
+ 10. the flash forward and backward at S1's and S2's shapes against their
+     plain versions, their bounds and ``scaled_dot_product_attention``
+     (its backward alone on a retained graph).  Prints one ``kernels``
+     JSON line with all twelve kernels;
+ 11. the last line: ``{"ok": true, "device": {...}}``.
 
 Join sizes are cut from the paper's (Fig 4: N = 2e8
 friends edges, a 1e9-row fact table) to N = 4e6 edges over 14,000 users
 (the paper's N/d of about 286) and a 2e7-row fact table: the layout grows
 as N^2 / m_budget^2.  The LM widths are the published configs'; only the
-traffic (requests, prompt and generation lengths) is chosen here.
+traffic (requests, prompt and generation lengths; training batch,
+sequence length and steps) is chosen here.
 """
 
 from __future__ import annotations
@@ -191,7 +206,7 @@ def kernel_cases(torch, ops, seed):
                           *a, pair_index=False),
                       lambda m=m: ops._fused_cyclic_pairidx_ref(*m)))
     return (cases + bucket_cases(torch, ops, gen) + radix_cases(torch, ops, gen)
-            + flash_cases(torch, gen))
+            + flash_cases(torch, gen) + flash_bwd_cases(torch, gen))
 
 
 def bucket_cases(torch, ops, gen):
@@ -330,6 +345,89 @@ def _flash_inputs(torch, gen, b, s, t, nq, nkv, d, dtype, strided=False):
                  for sh in ((b, s, nq, d), (b, t, nkv, d), (b, t, nkv, d)))
 
 
+# (B, S, T, H, KVH, D, causal, window, dtype, strided): f32 and bf16,
+# causal and bidirectional, windows 0, 64 and 512, g = 1, 2, 4, 6 and MQA,
+# D = 8 to 256, S not a multiple of the 64-row tile, S != T, rows with no
+# visible key (S > T + window), one row; strided q/k/v views of a fused
+# projection with do a transposed [B, H, S, D] view
+FLASH_BWD_CASES = [
+    (1, 128, 128, 4, 4, 32, True, 0, "float32", False),
+    (2, 128, 128, 4, 2, 32, True, 0, "float32", False),
+    (1, 256, 256, 8, 1, 16, True, 0, "float32", False),
+    (1, 128, 128, 4, 4, 32, False, 0, "float32", False),
+    (1, 256, 256, 2, 2, 32, True, 64, "float32", False),
+    (1, 128, 128, 4, 2, 32, True, 0, "bfloat16", False),
+    (2, 100, 100, 12, 2, 64, True, 0, "bfloat16", False),
+    (1, 333, 333, 12, 2, 128, True, 0, "bfloat16", False),
+    (1, 300, 300, 12, 2, 128, True, 64, "float32", False),
+    (1, 600, 600, 4, 1, 256, True, 512, "bfloat16", False),
+    (1, 200, 200, 4, 1, 256, False, 0, "float32", False),
+    (1, 130, 130, 2, 1, 256, True, 64, "float32", False),
+    (2, 200, 100, 4, 2, 16, True, 40, "float32", False),
+    (1, 150, 150, 4, 2, 64, False, 64, "bfloat16", False),
+    (2, 100, 150, 4, 2, 32, False, 0, "bfloat16", False),
+    (1, 70, 70, 2, 1, 8, True, 0, "bfloat16", False),
+    (1, 1, 1, 2, 2, 64, True, 0, "float32", False),
+    (2, 190, 190, 6, 2, 32, True, 40, "bfloat16", True),
+    (1, 129, 129, 4, 2, 128, True, 0, "float32", True),
+    (1, 520, 520, 12, 2, 128, True, 512, "float32", True),
+]
+# Tolerance (a, rtol) of the flash backward's dq, dk, dv (inputs and do
+# ~N(0, 1)): |got - want| <= a max(max|want|, 1) + rtol |want| per tensor,
+# by case name and dtype; stated before the first run on the card.  (The
+# floor of 1 is the inputs' scale: with one key the softmax is constant
+# and autograd's dq, dk are exactly 0, the recompute's a few 1e-8.)  "flash_bwd",
+# against the plain backward on the same (o, m, l): the same f32 math
+# summed in another order, about 1e-6 of the largest |value| in f32; in
+# bf16 both round once to bf16, so they differ by a bf16 ulp or two, which
+# the relative term carries (the forward's 2e-3 / 2e-2, the absolute term
+# scaled to the tensor).  "flash_bwd, autograd", against
+# torch.autograd.grad of the plain forward: in bf16 the kernel takes
+# delta = sum o do from the bf16-rounded o, as the Pallas kernel does, so
+# each row's ds moves by up to 2^-8 |delta| (up to 6e-3 of the largest
+# |value| on the CPU): 1e-2.
+FLASH_BWD_TOL = {"flash_bwd": {"torch.float32": (1e-4, 1e-4),
+                               "torch.bfloat16": (2e-3, 2e-2)},
+                 "flash_bwd, autograd": {"torch.float32": (1e-4, 1e-4),
+                                         "torch.bfloat16": (1e-2, 2e-2)}}
+
+
+def _plain_grads(torch, fa, q, k, v, do, kw):
+    """torch.autograd.grad of the plain forward: (dq, dk, dv)."""
+    xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    with torch.enable_grad():
+        o = fa._flash_fwd_ref(*xs, **kw)[0]
+        return torch.autograd.grad(o, xs, do)
+
+
+def flash_bwd_cases(torch, gen):
+    """The flash backward against its plain version on the kernel
+    forward's (o, m, l), and against autograd of the plain forward."""
+    from repro_torch.kernels import flash_attention as fa
+    cases = []
+    for (b, s, t, nq, nkv, d, causal, window, dtype,
+         strided) in FLASH_BWD_CASES:
+        q, k, v = _flash_inputs(torch, gen, b, s, t, nq, nkv, d, dtype,
+                                strided=strided)
+        dt = getattr(torch, dtype)
+        if strided:
+            do = torch.randn((b, nq, s, d), generator=gen).to(dt).cuda()
+            do = do.transpose(1, 2)
+        else:
+            do = torch.randn((b, s, nq, d), generator=gen).to(dt).cuda()
+        kw = dict(causal=causal, window=window)
+        o, m, l = fa.flash_fwd(q, k, v, **kw)
+        a = (q, k, v, o, m, l, do)
+        cases.append(("flash_bwd",
+                      lambda a=a, kw=kw: fa.flash_bwd(*a, **kw),
+                      lambda a=a, kw=kw: fa._flash_bwd_ref(*a, **kw)))
+        cases.append(("flash_bwd, autograd",
+                      lambda a=a, kw=kw: fa.flash_bwd(*a, **kw),
+                      lambda q=q, k=k, v=v, do=do, kw=kw: _plain_grads(
+                          torch, fa, q, k, v, do, kw)))
+    return cases
+
+
 def flash_cases(torch, gen):
     """The flash forward against its plain version (f32 probabilities, as
     the kernel keeps them) and, in bf16, also against the plain version
@@ -358,7 +456,21 @@ def flash_cases(torch, gen):
 def case_error(torch, name, got, want):
     """(max abs error, within tolerance) of case ``name``'s kernel result
     against its plain version: integer results exactly; the flash
-    forward's (o, m, l) within FLASH_TOL[name] (o) and STATS_RTOL (m, l)."""
+    forward's (o, m, l) within FLASH_TOL[name] (o) and STATS_RTOL (m, l);
+    the flash backward's (dq, dk, dv) within FLASH_BWD_TOL[name]."""
+    if name.startswith("flash_bwd"):
+        err, ok = 0.0, True
+        for g, w in zip(got, want):
+            if (g.shape, g.dtype) != (w.shape, w.dtype):
+                return math.inf, False
+            if not g.numel():
+                continue
+            a, rtol = FLASH_BWD_TOL[name][str(g.dtype)]
+            g, w = g.float(), w.float()
+            err = max(err, float((g - w).abs().max()))
+            ok &= torch.allclose(g, w, rtol=rtol,
+                                 atol=a * max(float(w.abs().max()), 1.0))
+        return err, ok
     if isinstance(got, tuple):
         (o, m, l), (wo, wm, wl) = got, want
         if (o.shape, o.dtype, m.shape, l.shape) != (wo.shape, wo.dtype,
@@ -1320,6 +1432,215 @@ def serve_phase(torch, seed):
     return rows, {"flash_fwd": flash_launches}
 
 
+# --------------------------------------------------------------------------
+# phase 9: the dense LM trained at full width
+# --------------------------------------------------------------------------
+
+# (label, arch, batch, sequence length, steps): the configs' own
+# accum_steps (4 and 2) and remat (on)
+TRAIN = [("T1", "qwen2-1.5b", 8, 1024, 6),
+         ("T2", "gemma3-1b", 4, 2048, 2)]
+GRAD_SEQ = 1024
+# The gradient check, stated before the first run: T1's model on one
+# 1 x 1024 microbatch, bf16 compute, the loss and every parameter's
+# gradient through the flash kernels against the same model whose
+# attention is the plain forward under autograd.  The two differ by bf16
+# roundings (o, dq, dk, dv; the kernel's delta from the rounded o) that
+# grow over the layers: a relative L2 error per tensor <= 5e-2 (1.35e-2
+# worst on the CPU at 8 layers) and a relative loss difference <= 1e-3.
+GRAD_TOL = {"rel_l2": 5e-2, "loss_rel": 1e-3}
+RESTART_STEPS, RESTART_FAIL_AT = 8, 5
+
+
+def grad_check(torch, model, params, cfg, seed):
+    """Loss and gradients of ``params`` on one microbatch through the
+    kernels and through the plain attention (the model's attention
+    function swapped here, not in the package), within GRAD_TOL."""
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+    from repro_torch.train import cross_entropy_loss
+    rng = np.random.default_rng(seed + 7)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(1, GRAD_SEQ + 1)).astype(np.int32)).cuda()
+    plist = list(params.parameters())
+
+    def loss_and_grads():
+        logits, _ = model.forward(params, toks[:, :-1])
+        loss = cross_entropy_loss(logits, toks[:, 1:])
+        del logits
+        loss.backward()
+        grads = [p.grad for p in plist]
+        for p in plist:
+            p.grad = None
+        return float(loss.detach()), grads
+
+    def plain(q, k, v, qpos, kpos, *, causal=True, window=0):
+        return fa._flash_fwd_ref(q, k, v, causal=causal, window=window)[0]
+
+    loss_k, grads_k = loss_and_grads()
+    before, kernel_attention = dict(cuda.LAUNCHES), attention.flash_attention
+    attention.flash_attention = plain
+    try:
+        loss_p, grads_p = loss_and_grads()
+    finally:
+        attention.flash_attention = kernel_attention
+    if cuda.LAUNCHES != before:
+        fail("grad check: the plain attention path launched a flash kernel")
+    errs = sorted(
+        (float(torch.linalg.vector_norm(a - b)
+               / torch.linalg.vector_norm(b)), name)
+        for (name, _), a, b in zip(params.named_parameters(), grads_k,
+                                   grads_p))
+    del grads_k, grads_p
+    out = {"grad_check_tokens": GRAD_SEQ, "loss_kernel": loss_k,
+           "loss_plain": loss_p,
+           "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+           "tensors": len(errs), "worst_rel_l2": errs[-1][0],
+           "worst_tensor": errs[-1][1],
+           "median_rel_l2": errs[len(errs) // 2][0]}
+    if (out["worst_rel_l2"] > GRAD_TOL["rel_l2"]
+            or out["loss_rel_diff"] > GRAD_TOL["loss_rel"]):
+        fail(f"grad check: {json.dumps(out)}")
+    return out
+
+
+def train_phase(torch, seed):
+    """T1 and T2 through ``repro_torch.launch.train.train`` at the configs'
+    full widths, random weights from the seed, the launcher's ``batch_at``
+    data.  The flash counters are zeroed just before each run and read
+    after every step: each step must launch the forward twice (remat) and
+    the backward once per layer and microbatch.  Then the gradient check
+    on T1's model."""
+    from repro_torch import configs
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import train
+    from repro_torch.models import zoo
+    rows, totals, check = [], {"flash_fwd": 0, "flash_bwd": 0}, None
+    for label, arch, batch, seq, steps in TRAIN:
+        cfg = configs.get(arch)
+        model = zoo.build(cfg)
+        accum = cfg.accum_steps
+        per_step = {"flash_fwd": cfg.n_layers * accum * (2 if cfg.remat
+                                                         else 1),
+                    "flash_bwd": cfg.n_layers * accum}
+        snaps = []
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = train.train(
+            model, steps=steps, batch=batch, seq=seq, seed=seed,
+            device="cuda", log_every=1,
+            log=lambda m, label=label: log(f"[train] {label} {m}"),
+            metrics_cb=lambda *_: snaps.append(
+                {k: cuda.LAUNCHES[k] for k in per_step}))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = {k: cuda.LAUNCHES[k] for k in per_step}
+        got = [{k: b[k] - a[k] for k in per_step}
+               for a, b in zip([dict.fromkeys(per_step, 0)] + snaps, snaps)]
+        if got != [per_step] * steps:
+            fail(f"{label}: flash launches per step {got}, expected "
+                 f"{per_step} ({cfg.n_layers} layers x {accum} microbatches"
+                 ", the forward twice under remat)")
+        recs = out["records"]
+        if len(recs) != steps or not all(
+                math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                for r in recs):
+            fail(f"{label}: {len(recs)} steps, non-finite metrics: {recs}")
+        step_s = [r["step_s"] for r in recs]
+        warm = statistics.median(step_s[1:]) if steps > 1 else step_s[0]
+        params = out["state"].params
+        row = {"train": label, "arch": arch,
+               "params": sum(p.numel() for p in params.parameters()),
+               "layers": cfg.n_layers, "batch": batch, "seq": seq,
+               "accum_steps": accum, "remat": cfg.remat, "steps": steps,
+               "wall_s": wall, "step_s": step_s, "warm_step_s": warm,
+               "tokens_per_s": batch * seq / warm, "peak_gib": peak,
+               "loss": [r["loss"] for r in recs],
+               "grad_norm": [r["grad_norm"] for r in recs],
+               "lr": [r["lr"] for r in recs],
+               "flash_launches_per_step": per_step,
+               "flash_launches": launches}
+        log(f"[train] {json.dumps(row)}")
+        rows.append(row)
+        for k in totals:
+            totals[k] += launches[k]
+        if label == "T1":
+            t0 = time.perf_counter()
+            check = grad_check(torch, model, params, cfg, seed)
+            check["seconds"] = time.perf_counter() - t0
+            log(f"[train] T1 gradient check {json.dumps(check)}")
+        del out, params, model
+        torch.cuda.empty_cache()
+    return rows, totals, check
+
+
+def restart_phase(torch, seed):
+    """On the card at the qwen2-1.5b smoke config: a run that fails at step
+    RESTART_FAIL_AT and resumes from the newest committed checkpoint ends
+    with the parameters of an uninterrupted run.  The checkpoints go to a
+    directory of the checkout (``.smoke_ckpt``), removed afterwards."""
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.synthetic import TokenGenConfig, batch_at
+    from repro_torch.models import zoo
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import RestartableLoop
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = configs.smoke("qwen2-1.5b")
+    model = zoo.build(cfg)
+    gen = TokenGenConfig(vocab_size=cfg.vocab_size, batch=4, seq_len=64,
+                         seed=seed)
+    step_fn = make_train_step(model, AdamWConfig(
+        lr=1e-3, total_steps=RESTART_STEPS))
+
+    def batch(step):
+        return {k: torch.from_numpy(v).cuda()
+                for k, v in batch_at(gen, step).items()}
+
+    def fresh():
+        return init_train_state(
+            model, torch.Generator(device="cuda").manual_seed(seed))
+
+    ref = fresh()
+    for step in range(RESTART_STEPS):
+        ref, _ = step_fn(ref, batch(step))
+    ckpt = ROOT / ".smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        manager = CheckpointManager(ckpt, every=2, keep=2)
+        try:
+            RestartableLoop(manager, log=lambda m: None).run(
+                fresh(), step_fn, batch, RESTART_STEPS,
+                fail_at=RESTART_FAIL_AT)
+        except RuntimeError as exc:
+            if "simulated node failure" not in str(exc):
+                raise
+        else:
+            fail("restart: the run did not fail at its fail_at step")
+        loop = RestartableLoop(manager, log=lambda m: None)
+        resumed, start = loop.resume_step(fresh(), device="cuda")
+        if resumed is None:
+            fail("restart: no committed checkpoint to resume from")
+        final, end = loop.run(resumed, step_fn, batch, RESTART_STEPS,
+                              start_step=start)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    pairs = list(zip(ref.params.parameters(), final.params.parameters()))
+    out = {"restart_config": cfg.name, "steps": RESTART_STEPS,
+           "failed_at": RESTART_FAIL_AT, "resumed_from": start, "end": end,
+           "bit_equal": all(torch.equal(a, b) for a, b in pairs),
+           "max_abs_diff": max(float((a - b).abs().max()) for a, b in pairs)}
+    log(f"[restart] {json.dumps(out)}")
+    if end != RESTART_STEPS or out["max_abs_diff"] > 1e-6:
+        fail(f"restart: the resumed run differs: {json.dumps(out)}")
+    return out
+
+
 def sdpa_kernels(torch, fn):
     """The device kernels one call of ``fn`` runs, by device time (which
     SDPA backend took the inputs), from ``torch.profiler``."""
@@ -1338,13 +1659,36 @@ def sdpa_kernels(torch, fn):
         return [f"not measured: {type(exc).__name__}: {exc}"[:120]]
 
 
+def _sdpa_backward(torch, F, q, k, v, do, kw):
+    """The backward alone of ``scaled_dot_product_attention`` on a retained
+    graph (the yardstick's time; the port never calls it), or None and
+    why when no backend takes the inputs."""
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    try:
+        out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                             **kw)
+
+        def lib():
+            return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+        lib()
+        torch.cuda.synchronize()
+        return lib, None
+    except Exception as exc:   # the yardstick's backend is a note only
+        return None, f"not measured: {type(exc).__name__}: {exc}"[:120]
+
+
 def flash_kernel_phase(torch, errs, launches, seed):
-    """The flash kernel at S1's prefill shape (in the kernels line) and at
-    S2's local and global layers' (printed), bf16, against its plain
-    version, its bound and ``scaled_dot_product_attention`` on the same
-    tensors.  Bound: the larger of q, k, v read once and o, m, l written
-    once over the HBM rate, and 4 D flops per visible (q, k) pair over the
-    bf16 tensor-core rate."""
+    """The flash kernels at S1's prefill shape (in the kernels line) and at
+    S2's local and global layers' (printed), bf16, causal, against their
+    plain versions, their bounds and ``scaled_dot_product_attention`` on
+    the same tensors (forward; backward alone on a retained graph).
+    Bounds: the larger of the bytes (forward: q, k, v read once, o, m, l
+    written once; backward: q, k, v, o, do, m, l read once, dq, dk, dv
+    written once) over the HBM rate, and 4 D (forward) or 10 D (backward)
+    flops per visible (q, k) pair over the bf16 tensor-core rate."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator().manual_seed(seed + 3)
@@ -1374,16 +1718,35 @@ def flash_kernel_phase(torch, errs, launches, seed):
                      (lib_out.float() - o_ref.float()).abs().max()),
                  "visible_pairs": visible * b * h, "flops": flops}
         del lib_out, o_ref
-        record_kernel(torch, lines, errs, launches, "flash_fwd",
-                      f"{label}: q [{b}, {s}, {h}, {d}], k/v [{b}, {s}, "
-                      f"{kvh}, {d}] bf16, causal, window {window}",
+        shape = (f"{label}: q [{b}, {s}, {h}, {d}], k/v [{b}, {s}, {kvh}, "
+                 f"{d}] bf16, causal, window {window}")
+        record_kernel(torch, lines, errs, launches, "flash_fwd", shape,
                       lambda q=q, k=k, v=v, w=window: fa.flash_fwd(
                           q, k, v, causal=True, window=w),
                       lambda q=q, k=k, v=v, w=window: fa._flash_fwd_ref(
                           q, k, v, causal=True, window=w),
                       nb, flops, line=label == "S1 prefill",
                       rate=BF16_FLOPS_PER_S, library=lib, extra=extra)
-        del q, k, v, qt, kt, vt
+
+        o, m, l = fa.flash_fwd(q, k, v, causal=True, window=window)
+        do = torch.randn((b, s, h, d), generator=gen).to(
+            torch.bfloat16).cuda()
+        a = (q, k, v, o, m, l, do)
+        bwd_flops = 10 * d * visible * b * h
+        bwd_bytes = nbytes(*a) + nbytes(q, k, v)
+        lib_bwd, why = _sdpa_backward(torch, F, q, k, v, do, kw)
+        extra = {"sdpa_backward_kernels": (sdpa_kernels(torch, lib_bwd)
+                                           if lib_bwd else [why]),
+                 "visible_pairs": visible * b * h, "flops": bwd_flops}
+        record_kernel(torch, lines, errs, launches, "flash_bwd",
+                      shape.replace("prefill", "training shape") + ", do",
+                      lambda a=a, w=window: fa.flash_bwd(
+                          *a, causal=True, window=w),
+                      lambda a=a, w=window: fa._flash_bwd_ref(
+                          *a, causal=True, window=w),
+                      bwd_bytes, bwd_flops, line=label == "S1 prefill",
+                      rate=BF16_FLOPS_PER_S, library=lib_bwd, extra=extra)
+        del q, k, v, qt, kt, vt, o, m, l, do, a, lib_bwd
         torch.cuda.empty_cache()
     return lines
 
@@ -1424,7 +1787,8 @@ def main() -> int:
     for kname, kern, plain in cases:
         compare(torch, kname, kern(), plain(), errs)
     log(f"[kernels] {len(cases)} random layouts against the plain versions "
-        f"(join and radix kernels exact, flash within FLASH_TOL) in "
+        f"(join and radix kernels exact, flash within FLASH_TOL and "
+        f"FLASH_BWD_TOL) in "
         f"{time.perf_counter() - t0:.1f}s: {json.dumps(errs)}")
     del cases
 
@@ -1446,9 +1810,15 @@ def main() -> int:
     del results, queries, b_layouts, keys, valid
     torch.cuda.empty_cache()
     s_rows, s_launches = serve_phase(torch, args.seed)
-    lines += flash_kernel_phase(torch, errs, s_launches, args.seed)
+    t_rows, t_launches, grad = train_phase(torch, args.seed)
+    restart = restart_phase(torch, args.seed)
+    lines += flash_kernel_phase(
+        torch, errs, {"flash_fwd": s_launches["flash_fwd"]
+                      + t_launches["flash_fwd"],
+                      "flash_bwd": t_launches["flash_bwd"]}, args.seed)
     log(json.dumps({"queries": rows, "baselines": b_rows, "radix": r_rows,
-                    "serve": s_rows}))
+                    "serve": s_rows, "train": t_rows, "grad_check": grad,
+                    "restart": restart}))
     print(card, flush=True)
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {

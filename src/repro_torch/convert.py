@@ -6,7 +6,11 @@ the smoke run feed both packages the same data.  The state of a language
 model is its parameter tree and its KV cache: ``lm_params_from_numpy``
 turns the JAX package's ``init_lm`` tree (numpy leaves, stacked ``[L, ...]``
 per layer) into a ``TransformerLM`` and ``lm_params_to_numpy`` back;
-``cache_from_numpy`` carries a KV cache across.
+``cache_from_numpy`` carries a KV cache across.  The state of training is
+the JAX package's ``TrainState(params, opt={"m", "v", "step"}, step)``:
+``train_state_to_numpy`` gives it as nested dicts with numpy leaves (the
+moments in the parameters' tree layout), ``train_state_from_numpy`` builds
+the port's ``TrainState`` from such a tree.
 """
 
 from __future__ import annotations
@@ -115,25 +119,7 @@ def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
 def lm_params_to_numpy(params: transformer.TransformerLM) -> dict:
     """The JAX package's parameter tree (numpy f32 leaves, per-layer
     leaves stacked ``[L, ...]`` under ``"layers"``) of a TransformerLM."""
-    tree: dict = {}
-    per_layer: dict = {}
-    for key, val in params.state_dict().items():
-        parts = key.split(".")
-        arr = val.detach().float().cpu().numpy()
-        if parts[0] == "blocks":
-            per_layer.setdefault(tuple(parts[2:]), []).append(arr)
-            continue
-        node = tree
-        for part in parts[:-1]:
-            node = node.setdefault(part, {})
-        node[parts[-1]] = arr
-    layer_tree = tree.setdefault("layers", {})
-    for path, arrs in per_layer.items():
-        node = layer_tree
-        for part in path[:-1]:
-            node = node.setdefault(part, {})
-        node[path[-1]] = np.stack(arrs)
-    return tree
+    return _tree_of(leaf_paths(params), params.parameters())
 
 
 def cache_from_numpy(cache: Mapping, device=None) -> dict:
@@ -142,3 +128,87 @@ def cache_from_numpy(cache: Mapping, device=None) -> dict:
     dev = resolve_device(device)
     return {"k": _tensor(cache["k"], dev), "v": _tensor(cache["v"], dev),
             "length": int(np.asarray(cache["length"]))}
+
+
+# --------------------------------------------------------------------------
+# training state
+# --------------------------------------------------------------------------
+
+def leaf_paths(params: transformer.TransformerLM) -> list[tuple[str, int]]:
+    """For each tensor of ``params.parameters()``, in that order: its
+    ``/``-joined path in the JAX parameter tree and its layer (-1 outside
+    the stacked ``layers`` leaves)."""
+    out = []
+    for name, _ in params.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            out.append(("/".join(["layers", *parts[2:]]), int(parts[1])))
+        else:
+            out.append(("/".join(parts), -1))
+    return out
+
+
+def _tree_of(paths: list[tuple[str, int]], tensors) -> dict:
+    """The JAX tree (numpy f32 leaves, layers stacked) of ``tensors``,
+    aligned with ``paths``."""
+    flat: dict = {}
+    for (path, layer), x in zip(paths, tensors):
+        arr = x.detach().float().cpu().numpy()
+        if layer >= 0:
+            flat.setdefault(path, []).append(arr)
+        else:
+            flat[path] = arr
+    tree: dict = {}
+    for path, arr in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = np.stack(arr) if isinstance(arr, list) else arr
+    return tree
+
+
+def _leaf(tree: Mapping, path: str, layer: int):
+    node = tree
+    for part in path.split("/"):
+        node = node[part]
+    arr = np.asarray(node)
+    return arr[layer] if layer >= 0 else arr
+
+
+def train_state_to_numpy(state) -> dict:
+    """The JAX package's ``TrainState`` tree of a port ``TrainState``:
+    ``{"params": ..., "opt": {"m": ..., "v": ..., "step"}, "step"}`` with
+    numpy leaves (f32; the steps int32 scalars)."""
+    paths = leaf_paths(state.params)
+    step = np.asarray(int(state.step), np.int32)
+    return {"params": lm_params_to_numpy(state.params),
+            "opt": {"m": _tree_of(paths, state.opt["m"]),
+                    "v": _tree_of(paths, state.opt["v"]),
+                    "step": np.asarray(int(state.opt["step"]), np.int32)},
+            "step": step}
+
+
+def train_state_from_numpy(tree: Mapping, cfg: ModelConfig, device=None):
+    """The port's ``TrainState`` from the JAX package's ``TrainState`` tree
+    with numpy leaves (as ``train_state_to_numpy`` gives it, or as
+    ``jax.tree.map(np.asarray, state._asdict())``); ``device=None`` means
+    the card."""
+    from repro_torch.train.steps import TrainState
+    dev = resolve_device(device)
+    params = lm_params_from_numpy(tree["params"], cfg, device=dev)
+    paths = leaf_paths(params)
+
+    def moments(t):
+        return [_tensor(np.asarray(_leaf(t, p, i), np.float32), dev)
+                for p, i in paths]
+
+    opt = tree["opt"]
+
+    def step(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32,
+                            device=dev)
+
+    return TrainState(params, {"m": moments(opt["m"]), "v": moments(opt["v"]),
+                               "step": step(opt["step"])},
+                      step(tree["step"]))

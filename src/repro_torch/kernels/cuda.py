@@ -21,10 +21,12 @@ packed (b, a) and (c, a) keys; the all-pairs sweeps' packed (b, c) and
 (a, c) keys), and hand the pair-index kernel each S bucket's live length
 (one past its last live slot), so it skips dead tails.
 
-The flash forward (``flash_fwd``, the LM's prefill attention) takes f32
-or bf16 q, k, v through their strides and returns o, m, l; the radix
-histogram (``radix_histogram``) takes an int32 key stream and its bool
-validity.  Neither is masked with sentinels.
+The flash forward (``flash_fwd``, the LM's prefill and training
+attention) takes f32 or bf16 q, k, v through their strides and returns
+o, m, l; the flash backward (``flash_bwd``) takes q, k, v, do through
+their strides with o, m, l and returns dq, dk, dv; the radix histogram
+(``radix_histogram``) takes an int32 key stream and its bool validity.
+None is masked with sentinels.
 
 The bucket-row wrappers (``bucket_*``) take ``[*batch, C]`` rows whose
 batch shapes broadcast: an operand of size 1 along a batch dimension is
@@ -87,6 +89,9 @@ _LIBS = {
     "flash_fwd": ("rj_flash_fwd",
                   [_P, _P, _P, _P, _P, _P, _C, *[_I] * 15, _C, _C,
                    ctypes.c_float, _C, _P]),
+    "flash_bwd": ("rj_flash_bwd",
+                  [*[_P] * 10, _C, *[_I] * 18, _C, _C, ctypes.c_float, _C,
+                   _P]),
     "radix_hist": ("rj_radix_histogram",
                    [_P, _P, _I, _C, ctypes.c_uint, _P, _C, _P]),
 }
@@ -99,9 +104,9 @@ FUSED_KERNELS = ("fused_count3_linear", "fused_count3_star",
 BASELINE_KERNELS = ("bucket_pair_count", "bucket_count3_linear",
                     "bucket_per_r_counts", "bucket_count3_cyclic",
                     "fused_count3_cyclic")
-# the attention forward of the LM's serving path, and the histogram of
-# the partitioning
-LM_KERNELS = ("flash_fwd",)
+# the attention forward (serving and training) and backward (training)
+# of the LM, and the histogram of the partitioning
+LM_KERNELS = ("flash_fwd", "flash_bwd")
 HIST_KERNELS = ("radix_histogram",)
 KERNELS = FUSED_KERNELS + BASELINE_KERNELS + LM_KERNELS + HIST_KERNELS
 LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -129,6 +134,8 @@ SOURCES = {
                             "src/repro/kernels/bucket_join.py:317"),
     "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
                   "src/repro/kernels/flash_attention.py:110"),
+    "flash_bwd": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
+                  "src/repro/kernels/flash_attention.py:262"),
     "radix_histogram": ("src/repro_torch/kernels/csrc/radix_hist.cu",
                         "src/repro/kernels/radix_hist.py:51"),
 }
@@ -495,27 +502,24 @@ def bucket_count3_cyclic(ra, rb, sb, sc, tc, ta) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# the flash attention forward and the radix histogram
+# the flash attention forward and backward, and the radix histogram
 # --------------------------------------------------------------------------
 
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def flash_fwd(q, k, v, *, causal: bool = True, window: int = 0):
-    """q [B,S,H,D], k/v [B,T,KVH,D] (f32 or bf16, unit stride along D, any
-    other strides that keep 4-element rows aligned) -> (o [B,S,H,D] in q's
-    dtype, m [B,H,S,1] f32, l [B,H,S,1] f32)."""
-    op = "flash_fwd"
-    dev = q.device
-    b, s, h, d = q.shape
-    t, kvh = k.shape[1], k.shape[2]
+def _check_flash(op: str, q, **rows) -> None:
+    """q and each of ``rows`` on q's CUDA device in q's dtype (f32 or
+    bf16), with unit stride along D and 4-element aligned rows; D a
+    multiple of 8 up to 256."""
+    dev, d = q.device, q.shape[3]
     if q.dtype not in _FLASH_DTYPES:
         raise TypeError(f"{op}: dtype {q.dtype}; the kernel takes "
                         f"{sorted(map(str, _FLASH_DTYPES))}")
     if d % 8 or not 0 < d <= 256:
         raise ValueError(f"{op}: head dim {d} is not a multiple of 8 in "
                          "[8, 256]")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    for name, x in (("q", q), *rows.items()):
         if x.device != dev or x.device.type != "cuda":
             raise ValueError(f"{op}: {name} is on {x.device}, expected "
                              f"{dev}")
@@ -527,6 +531,17 @@ def flash_fwd(q, k, v, *, causal: bool = True, window: int = 0):
                 or x.data_ptr() % (4 * x.element_size())):
             raise ValueError(f"{op}: {name} needs unit stride along D and "
                              "rows aligned to 4 elements")
+
+
+def flash_fwd(q, k, v, *, causal: bool = True, window: int = 0):
+    """q [B,S,H,D], k/v [B,T,KVH,D] (f32 or bf16, unit stride along D, any
+    other strides that keep 4-element rows aligned) -> (o [B,S,H,D] in q's
+    dtype, m [B,H,S,1] f32, l [B,H,S,1] f32)."""
+    op = "flash_fwd"
+    dev = q.device
+    b, s, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    _check_flash(op, q, k=k, v=v)
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
     m = torch.empty((b, h, s, 1), dtype=torch.float32, device=dev)
     l = torch.empty((b, h, s, 1), dtype=torch.float32, device=dev)
@@ -535,6 +550,35 @@ def flash_fwd(q, k, v, *, causal: bool = True, window: int = 0):
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
             int(window), 1.0 / d ** 0.5)
     return o, m, l
+
+
+def flash_bwd(q, k, v, o, m, l, do, *, causal: bool = True,
+              window: int = 0):
+    """q, do [B,S,H,D], k/v [B,T,KVH,D] (f32 or bf16, read through their
+    strides as ``flash_fwd`` reads q, k, v), o [B,S,H,D] and the forward's
+    m, l [B,H,S,1] f32 -> (dq [B,S,H,D], dk, dv [B,T,KVH,D]) in the input
+    dtype, contiguous.  ``delta = sum_D o do`` is a torch reduction."""
+    op = "flash_bwd"
+    dev = q.device
+    b, s, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    _check_flash(op, q, k=k, v=v, do=do)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"{op}: o {tuple(o.shape)} and do "
+                         f"{tuple(do.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    m, l = m.reshape(b, h, s), l.reshape(b, h, s)
+    _check(op, torch.float32, dev, m=(m, (b, h, s)), l=(l, (b, h, s)))
+    delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
+    dk = torch.empty((b, t, kvh, d), dtype=q.dtype, device=dev)
+    dv = torch.empty((b, t, kvh, d), dtype=q.dtype, device=dev)
+    _launch(op, "flash_bwd", dev, _ptr(q), _ptr(k), _ptr(v), _ptr(do),
+            _ptr(m), _ptr(l), _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv),
+            _FLASH_DTYPES[q.dtype], b, s, t, h, kvh, d, *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], int(causal),
+            int(window), 1.0 / d ** 0.5)
+    return dq, dk, dv
 
 
 def radix_histogram(keys, valid, *, n_buckets: int) -> torch.Tensor:

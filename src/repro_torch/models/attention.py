@@ -1,11 +1,12 @@
 """Attention: GQA with causal / sliding-window masks, and KV-cache decode.
 
-Prefill and the teacher-forced forward run ``flash_attention``, which on
-the card launches the hand-written flash forward kernel
+Prefill, the teacher-forced forward and training run ``flash_attention``,
+which on the card launches the hand-written flash forward kernel
 (``kernels.flash_attention.flash_fwd``, the counterpart of the JAX
 package's Pallas ``flash_fwd``): the score matrix never reaches device
-memory.  On the CPU it takes the kernel's plain version, a dense masked
-softmax.
+memory.  With grad enabled it goes through ``FlashAttention``, whose
+backward is the flash backward kernel.  On the CPU both take the
+kernels' plain versions, dense masked softmaxes.
 
 Decode attends one query position against the cache.  Its scores are
 ``[B, KVH, G, 1, T]``, linear in T, and stay plain torch on every device,
@@ -76,21 +77,27 @@ def flash_attention(q, k, v, qpos, kpos, *, causal=True, window=0):
     qpos [B,S], kpos [B,T]; returns [B,S,H,D] in q's dtype.
 
     ``qpos`` / ``kpos`` of ``None`` mean ``0..S-1`` / ``0..T-1`` in every
-    row, the positions the kernel takes; the model passes ``None`` so that
+    row, the positions the kernels take; the model passes ``None`` so that
     no layer waits on the device.  On the card a positions tensor is
     checked (one device sync) and anything but ``0..S-1`` / ``0..T-1``
-    raises rather than compute something else.  On the CPU the plain
-    version honours any positions."""
+    raises rather than compute something else.  With grad enabled the
+    call goes through ``FlashAttention`` (the backward kernel on the card,
+    its plain version on the CPU), else through ``flash_fwd``.  On the CPU
+    explicit positions take the plain forward, differentiated by
+    autograd."""
     if q.device.type == "cuda":
         if not ((qpos is None or _is_arange(qpos, q.shape[1]))
                 and (kpos is None or _is_arange(kpos, k.shape[1]))):
             raise ValueError("flash_attention: the flash kernel takes "
                              "positions 0..S-1 and 0..T-1 only")
-        return flash_kernel.flash_fwd(q, k, v, causal=causal,
-                                      window=window)[0]
-    flash_kernel._check_operands(q, k, v)
-    return flash_kernel._flash_fwd_ref(q, k, v, causal=causal, window=window,
-                                       qpos=qpos, kpos=kpos)[0]
+    elif qpos is not None or kpos is not None:
+        flash_kernel._check_operands(q, k, v)
+        return flash_kernel._flash_fwd_ref(q, k, v, causal=causal,
+                                           window=window, qpos=qpos,
+                                           kpos=kpos)[0]
+    if torch.is_grad_enabled():
+        return flash_kernel.flash_attention_kernel(q, k, v, causal, window)
+    return flash_kernel.flash_fwd(q, k, v, causal=causal, window=window)[0]
 
 
 def arange_positions(x: torch.Tensor) -> torch.Tensor:

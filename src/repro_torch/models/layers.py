@@ -11,6 +11,7 @@ The JAX package annotates logical sharding axes here; on one card they do
 nothing, so the port has none.  Init draws from an explicit
 ``torch.Generator`` (the parameters land on its device) with the scales of
 the JAX package; the bits differ, so tests carry JAX's parameters across.
+Parameters are trainable (``requires_grad=True``).
 """
 
 from __future__ import annotations
@@ -28,8 +29,9 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def _param(x: torch.Tensor) -> nn.Parameter:
-    # The serving path needs no gradients; the training slice turns them on.
-    return nn.Parameter(x, requires_grad=False)
+    # Trainable: the train step differentiates through every weight; the
+    # serving steps run under torch.no_grad() and record no graph.
+    return nn.Parameter(x, requires_grad=True)
 
 
 # --------------------------------------------------------------------------

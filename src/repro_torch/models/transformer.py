@@ -4,7 +4,11 @@ blocks, forward, and the stacked KV cache for serving.
 The JAX package scans stacked ``[L, ...]`` parameters; the port holds one
 ``Block`` module per layer in an ``nn.ModuleList`` and loops over them.
 Per-layer heterogeneity (gemma3's 5 local : 1 global pattern) is a static
-Python list of windows and rope thetas.  MoE blocks and the VLM's
+Python list of windows and rope thetas.  With ``cfg.remat`` and grad
+enabled, each block of the training forward runs under
+``torch.utils.checkpoint`` (as the JAX package wraps it in
+``jax.checkpoint``): its activations are recomputed in the backward, so
+the flash forward runs twice per block.  MoE blocks and the VLM's
 cross-attention groups are not in this slice (``models.zoo`` refuses
 their families).
 """
@@ -13,6 +17,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, layers
 from repro_torch.models.config import ModelConfig
@@ -53,7 +58,8 @@ class Block(nn.Module):
 def init_block(gen: torch.Generator, cfg: ModelConfig) -> Block:
     if cfg.is_moe:
         raise NotImplementedError("MoE blocks are not ported yet (ROADMAP "
-                                  "Queue A, item 6: models/moe.py)")
+                                  "Queue A, \"the other LM families\": "
+                                  "models/moe.py)")
     return Block(layers.init_rms_norm(cfg.d_model, gen.device),
                  attention.init_attention(gen, cfg),
                  layers.init_rms_norm(cfg.d_model, gen.device),
@@ -97,11 +103,12 @@ class TransformerLM(nn.Module):
                 else self.lm_head.table)
 
 
+@torch.no_grad()
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> TransformerLM:
     if cfg.cross_attn_every:
         raise NotImplementedError("cross-attention groups (the VLM family) "
                                   "are not ported yet (ROADMAP Queue A, "
-                                  "item 6)")
+                                  "\"the other LM families\")")
     emb = layers.init_embed(gen, cfg.vocab_size, cfg.d_model)
     blocks = [init_block(gen, cfg) for _ in range(cfg.n_layers)]
     final_norm = layers.init_rms_norm(cfg.d_model, gen.device)
@@ -112,12 +119,24 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> TransformerLM:
 
 def forward(params: TransformerLM, cfg: ModelConfig, tokens):
     """Training/prefill forward -> f32 logits [B, S, V] (+ aux dict)."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    gk = cfg.scan_group
+    if (torch.is_grad_enabled() and gk and cfg.n_layers % gk == 0
+            and gk < cfg.n_layers):
+        raise NotImplementedError(
+            f"{cfg.name}: scan_group={gk} (sqrt-L remat, nested "
+            "checkpoints) is not ported yet (ROADMAP Queue A, \"the "
+            "other LM families\"); the dense configs have scan_group=0")
     dt = layers.dtype_of(cfg.dtype)
     x = layers.embed(tokens, params.embed.table, dt)
     windows, thetas = layer_schedule(cfg)
     for blk, w, th in zip(params.blocks, windows, thetas):
-        x, _ = block_forward(blk, cfg, x, positions=None, window=w,
-                             theta=th)
+        if remat:
+            x, _ = checkpoint(block_forward, blk, cfg, x, None, w, th,
+                              use_reentrant=False)
+        else:
+            x, _ = block_forward(blk, cfg, x, positions=None, window=w,
+                                 theta=th)
     x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
     return layers.unembed(x, params.head_table()), {}
 

@@ -21,7 +21,8 @@ import torch
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 
-# family -> what is still to port for it (ROADMAP Queue A, item 6)
+# family -> what is still to port for it (ROADMAP Queue A, "the other LM
+# families")
 NOT_PORTED = {
     "moe": "MoE (models/moe.py)",
     "vlm": "VLM cross-attention",
@@ -55,5 +56,6 @@ def build(cfg: ModelConfig) -> Model:
     if cfg.family in NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; "
-            f"ROADMAP Queue A, item 6 lists {NOT_PORTED[cfg.family]}")
+            f"ROADMAP Queue A, \"the other LM families\", lists "
+            f"{NOT_PORTED[cfg.family]}")
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -1,15 +1,92 @@
-"""The serve steps: the functions the serving launcher calls.
+"""train_step / serve_step builders: the functions the launchers call.
 
-Only the serving half is ported; ``make_train_step``, the loss and the
-optimizer come with the training slice (ROADMAP Queue A, item 1).  Both
-steps run under ``torch.no_grad()``.
+Batch format: ``{"inputs": [B, S] int, "targets": [B, S] int}`` tensors on
+the model's device.
+
+The train step is the JAX package's: the mean token NLL plus a z-loss,
+microbatch gradient accumulation in f32, then AdamW.  The port's
+parameters are f32 ``nn.Parameter``s, so each microbatch's ``backward()``
+accumulates its gradient into ``.grad`` in f32 (the JAX scan's f32 sum, in
+the same order); the sum is divided by the number of microbatches.  The
+step updates the state in place and returns it with the loss, the learning
+rate and the gradient norm as device tensors: nothing waits on the device
+within a step.  The serve steps run under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
 
+from typing import Any, NamedTuple
+
 import torch
 
 from repro_torch.models.zoo import Model
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+
+class TrainState(NamedTuple):
+    params: Any            # the model's parameters (a TransformerLM)
+    opt: dict              # {"m": [f32], "v": [f32], "step": int32}
+    step: torch.Tensor     # int32 scalar
+
+
+def init_train_state(model: Model, gen: torch.Generator) -> TrainState:
+    params = model.init(gen)
+    opt = adamw_init(params.parameters())
+    return TrainState(params, opt, torch.zeros((), dtype=torch.int32,
+                                               device=gen.device))
+
+
+def cross_entropy_loss(logits, targets, z_loss: float = 1e-4):
+    """Mean token NLL (+ z-loss for logit drift control).  logits f32."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    loss = torch.mean(lse - gold)
+    if z_loss:
+        loss = loss + z_loss * torch.mean(torch.square(lse))
+    return loss
+
+
+def make_train_step(model: Model, opt_cfg: AdamWConfig,
+                    accum_steps: int | None = None):
+    """Returns train_step(state, batch) -> (state, metrics).
+
+    ``accum_steps`` (default: the config's ``accum_steps``) splits the
+    batch into that many microbatches of consecutive rows, each run
+    forward and backward in turn: live activation memory drops by that
+    factor.  Metrics: ``loss`` (the microbatches' mean), ``lr``,
+    ``grad_norm`` (before clipping)."""
+    accum = (accum_steps if accum_steps is not None
+             else getattr(model.config, "accum_steps", 1) or 1)
+
+    def train_step(state: TrainState, batch):
+        params = list(state.params.parameters())
+        b = batch["inputs"].shape[0]
+        if b % accum:
+            raise ValueError(f"batch {b} is not a multiple of "
+                             f"accum_steps {accum}")
+        mb = b // accum
+        for p in params:
+            p.grad = None
+        loss_sum = torch.zeros((), dtype=torch.float32,
+                               device=params[0].device)
+        for i in range(accum):
+            rows = slice(i * mb, (i + 1) * mb)
+            logits, _ = model.forward(state.params, batch["inputs"][rows])
+            loss = cross_entropy_loss(logits, batch["targets"][rows])
+            del logits
+            loss.backward()
+            loss_sum += loss.detach()
+        grads = [p.grad for p in params]
+        for p in params:
+            p.grad = None
+        if accum > 1:
+            torch._foreach_div_(grads, accum)
+        _, opt, om = adamw_update(params, grads, state.opt, opt_cfg)
+        del grads
+        return (TrainState(state.params, opt, state.step + 1),
+                {"loss": loss_sum / accum, **om})
+
+    return train_step
 
 
 def make_prefill_step(model: Model):

@@ -7,7 +7,8 @@ it also runs where only the port is installed:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Counts are integers: the tolerance is exact equality.  The flash forward
-is held to ``chip_smoke.FLASH_TOL`` (o) and ``STATS_RTOL`` (m, l).
+is held to ``chip_smoke.FLASH_TOL`` (o) and ``STATS_RTOL`` (m, l), the
+flash backward to ``chip_smoke.FLASH_BWD_TOL`` (dq, dk, dv).
 """
 
 import importlib.util
@@ -130,3 +131,67 @@ def test_flash_and_radix_wrappers_check_their_inputs(card):
         cuda.radix_histogram(keys, keys, n_buckets=4)
     with pytest.raises(ValueError, match="n_buckets"):
         cuda.radix_histogram(keys, keys != 0, n_buckets=0)
+
+
+def test_flash_attention_function_launches_both_kernels_on_cuda(card):
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import flash_attention as fa
+    smoke = _smoke()
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(sh, generator=gen).to(card, torch.bfloat16)
+               .requires_grad_() for sh in ((2, 90, 6, 64), (2, 90, 2, 64),
+                                            (2, 90, 2, 64)))
+    do = torch.randn((2, 90, 6, 64), generator=gen).to(card, torch.bfloat16)
+    before = dict(cuda.LAUNCHES)
+    o = fa.flash_attention_kernel(q, k, v, True, 33)
+    o.backward(do)
+    assert cuda.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
+    assert cuda.LAUNCHES["flash_bwd"] == before["flash_bwd"] + 1
+    want = smoke._plain_grads(torch, fa, q, k, v, do,
+                              dict(causal=True, window=33))
+    err, ok = smoke.case_error(torch, "flash_bwd, autograd",
+                               (q.grad, k.grad, v.grad), want)
+    assert ok, err
+
+
+def test_flash_bwd_wrapper_checks_its_inputs(card):
+    from repro_torch.kernels import cuda
+    q = torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16, device=card)
+    o, m, l = cuda.flash_fwd(q, q, q)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.flash_bwd(q, q, q, o, m, l, q.float())
+    with pytest.raises(ValueError, match="unit stride"):
+        t = q.transpose(1, 3).contiguous().transpose(1, 3)
+        cuda.flash_bwd(q, q, q, o, m, l, t)
+    with pytest.raises(ValueError, match="shape"):
+        cuda.flash_bwd(q, q, q, o[:, :4], m, l, q)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.flash_bwd(q, q, q, o, m.double(), l, q)
+    with pytest.raises(ValueError, match="cpu"):
+        cuda.flash_bwd(q, q, q, o, m, l, q.cpu())
+
+
+def test_train_step_launches_the_flash_kernels_on_cuda(card):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import cuda
+    from repro_torch.models import zoo
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = dataclasses.replace(configs.smoke("qwen2-1.5b"), remat=True)
+    model = zoo.build(cfg)
+    state = init_train_state(model, torch.Generator(device=card)
+                             .manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 65), generator=gen,
+                         dtype=torch.int32).to(card)
+    step = make_train_step(model, AdamWConfig(), accum_steps=2)
+    before = dict(cuda.LAUNCHES)
+    state, metrics = step(state, {"inputs": toks[:, :-1],
+                                  "targets": toks[:, 1:]})
+    assert cuda.LAUNCHES["flash_fwd"] - before["flash_fwd"] == \
+        cfg.n_layers * 2 * 2       # 2 microbatches, remat
+    assert cuda.LAUNCHES["flash_bwd"] - before["flash_bwd"] == \
+        cfg.n_layers * 2
+    assert torch.isfinite(metrics["loss"]) and int(state.step) == 1

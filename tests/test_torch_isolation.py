@@ -55,7 +55,9 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.analysis.arena_sanitizer, repro_torch.perfmodel\n"
         "import repro_torch.configs, repro_torch.models.zoo\n"
         "import repro_torch.kernels.flash_attention, repro_torch.train\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.launch.train\n"
+        "import repro_torch.optim.compression, repro_torch.data\n"
+        "import repro_torch.checkpoint, repro_torch.runtime\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"

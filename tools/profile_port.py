@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time of a warm ``JoinSession.execute``, or of serving, goes,
-on the card.
+"""Where the time of a warm ``JoinSession.execute``, of serving, or of a
+training step goes, on the card.
 
-    python3 tools/profile_port.py [--seed N] [--serve]
+    python3 tools/profile_port.py [--seed N] [--serve | --train]
 
 Default: builds the smoke's Q1 (linear), Q2 (star) and Q3 (triangles)
 data (``chip_smoke.make_data``), runs each query once to warm the plan
@@ -10,11 +10,15 @@ cache, then traces one more execute with ``torch.profiler``.  With
 ``--serve``: for each of the smoke's serving runs (``chip_smoke.SERVE``:
 S1 qwen2-1.5b, S2 gemma3-1b at full width, random weights), one warm-up
 wave, then a traced prefill of a fresh wave and a traced run of
-``DECODE_STEPS`` decode steps.  Prints, per traced span: the host wall
+``DECODE_STEPS`` decode steps.  With ``--train``: the smoke's T1 run
+(``chip_smoke.TRAIN[0]``: qwen2-1.5b at full width, batch 8 x 1024, 4
+microbatches, remat), one warm-up step, then one traced train step.
+Prints, per traced span: the host wall
 time, the summed device kernel time, the device busy share (kernel time
 over wall time; kernels on one stream do not overlap), the kernel
-launches, and the device kernels that took the most time.  Needs a CUDA
-device.
+launches, the device kernels that took the most time, and the host ops
+with the most self time (the profiler's own overhead included).  Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -44,17 +48,23 @@ def traced(torch, fn, top):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA"]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type.name == "CUDA"]
+    host = [e for e in events if e.device_type.name == "CPU"]
     dev_us = sum(e.self_device_time_total for e in kernels)
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    host_ranked = sorted(host, key=lambda e: -e.self_cpu_time_total)
     return out, {"wall_s": wall, "device_kernel_s": dev_us / 1e6,
                  "device_busy_share": dev_us / 1e6 / wall,
                  "device_launches": sum(e.count for e in kernels),
                  "top_kernels": [
                      {"name": e.key[:90], "calls": e.count,
                       "device_s": e.self_device_time_total / 1e6}
-                     for e in ranked[:top]]}
+                     for e in ranked[:top]],
+                 "top_host_ops": [
+                     {"name": e.key[:60], "calls": e.count,
+                      "host_self_s": e.self_cpu_time_total / 1e6}
+                     for e in host_ranked[:top]]}
 
 
 def profile_serving(torch, chip_smoke, seed, top):
@@ -91,12 +101,46 @@ def profile_serving(torch, chip_smoke, seed, top):
         torch.cuda.empty_cache()
 
 
+def profile_training(torch, chip_smoke, seed, top):
+    from repro_torch import configs
+    from repro_torch.data.synthetic import TokenGenConfig, batch_at
+    from repro_torch.kernels import cuda
+    from repro_torch.models import zoo
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, make_train_step
+    label, arch, batch, seq, steps = chip_smoke.TRAIN[0]
+    cfg = configs.get(arch)
+    model = zoo.build(cfg)
+    state = init_train_state(
+        model, torch.Generator(device="cuda").manual_seed(seed))
+    gen = TokenGenConfig(vocab_size=cfg.vocab_size, batch=batch,
+                         seq_len=seq, seed=seed)
+    step = make_train_step(model, AdamWConfig(total_steps=steps,
+                                              warmup_steps=5))
+
+    def data(i):
+        return {k: torch.from_numpy(v).cuda()
+                for k, v in batch_at(gen, i).items()}
+    state, _ = step(state, data(0))
+    cuda.reset_launch_counts()
+    (state, metrics), row = traced(torch, lambda: step(state, data(1)), top)
+    print(json.dumps({"train": label, "span": "one train step",
+                      "batch": batch, "seq": seq,
+                      "accum_steps": cfg.accum_steps, "remat": cfg.remat,
+                      "loss": float(metrics["loss"]),
+                      "flash_launches": {k: cuda.LAUNCHES[k] for k in
+                                         ("flash_fwd", "flash_bwd")},
+                      **row}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=8)
     ap.add_argument("--serve", action="store_true",
                     help="profile the serving runs instead of the joins")
+    ap.add_argument("--train", action="store_true",
+                    help="profile a training step instead of the joins")
     args = ap.parse_args()
     import torch
 
@@ -105,6 +149,9 @@ def main() -> int:
     import chip_smoke
     if args.serve:
         profile_serving(torch, chip_smoke, args.seed, args.top)
+        return 0
+    if args.train:
+        profile_training(torch, chip_smoke, args.seed, args.top)
         return 0
     from repro_torch.convert import relation_from_numpy
     from repro_torch.core.query import Query
