@@ -63,10 +63,10 @@ result line):
      the restart check at the qwen2-1.5b smoke config: a run that fails at
      step 5 and resumes from its newest committed checkpoint ends with the
      parameters of an uninterrupted run;
- 10. the flash forward and backward at S1's and S2's shapes against their
-     plain versions, their bounds and ``scaled_dot_product_attention``
-     (its backward alone on a retained graph).  Prints one ``kernels``
-     JSON line with all twelve kernels;
+ 10. the flash forward and backward at S1's, T1's microbatch and S2's
+     shapes against their plain versions, their bounds and
+     ``scaled_dot_product_attention`` (its backward alone on a retained
+     graph).  Prints one ``kernels`` JSON line with all twelve kernels;
  11. the last line: ``{"ok": true, "device": {...}}``.
 
 Join sizes are cut from the paper's (Fig 4: N = 2e8
@@ -310,6 +310,17 @@ FLASH_CASES = [
     (1, 1, 1, 2, 2, 64, True, 0, "float32"),
     (2, 100, 150, 4, 2, 32, False, 0, "bfloat16"),
     (1, 150, 90, 4, 1, 64, True, 30, "float32"),
+    # the bf16 kernel's tile edges: S = 127 and 129 around its 128-row CTA
+    # tile, T not a multiple of its 64-key stage, T1's microbatch, a window
+    # that crosses tile edges, MQA at D = 256, rows with no visible key
+    (1, 127, 127, 4, 2, 64, True, 0, "bfloat16"),
+    (2, 129, 129, 6, 2, 128, True, 0, "bfloat16"),
+    (1, 129, 100, 4, 2, 128, False, 0, "bfloat16"),
+    (1, 129, 129, 4, 2, 64, True, 0, "float32"),
+    (2, 1024, 1024, 12, 2, 128, True, 0, "bfloat16"),
+    (1, 300, 300, 4, 2, 128, True, 100, "bfloat16"),
+    (1, 200, 200, 8, 1, 256, True, 0, "bfloat16"),
+    (1, 200, 70, 4, 2, 64, True, 30, "bfloat16"),
 ]
 # Tolerance (atol, rtol) of the flash forward against its plain versions
 # (inputs ~N(0, 1)), |got - want| <= atol + rtol |want| on o, by case name
@@ -371,6 +382,16 @@ FLASH_BWD_CASES = [
     (2, 190, 190, 6, 2, 32, True, 40, "bfloat16", True),
     (1, 129, 129, 4, 2, 128, True, 0, "float32", True),
     (1, 520, 520, 12, 2, 128, True, 512, "float32", True),
+    # the bf16 kernels' tile edges, as in FLASH_CASES, and one query head
+    # a kv head (the dkv kernel writes dk, dv without partials)
+    (1, 127, 127, 4, 2, 64, True, 0, "bfloat16", False),
+    (1, 150, 150, 4, 4, 128, True, 0, "bfloat16", False),
+    (2, 129, 129, 6, 2, 128, True, 0, "bfloat16", False),
+    (1, 129, 100, 4, 2, 128, False, 0, "bfloat16", False),
+    (2, 1024, 1024, 12, 2, 128, True, 0, "bfloat16", False),
+    (1, 300, 300, 4, 2, 128, True, 100, "bfloat16", True),
+    (1, 200, 200, 8, 1, 256, True, 0, "bfloat16", False),
+    (1, 200, 70, 4, 2, 64, True, 30, "bfloat16", False),
 ]
 # Tolerance (a, rtol) of the flash backward's dq, dk, dv (inputs and do
 # ~N(0, 1)): |got - want| <= a max(max|want|, 1) + rtol |want| per tensor,
@@ -496,6 +517,7 @@ def compare(torch, name, got, want, errs):
     if not ok:
         fail(f"{name}: kernel differs from its plain version beyond its "
              f"tolerance (max |diff| = {err})")
+    return err
 
 
 # --------------------------------------------------------------------------
@@ -1682,9 +1704,10 @@ def _sdpa_backward(torch, F, q, k, v, do, kw):
 
 def flash_kernel_phase(torch, errs, launches, seed):
     """The flash kernels at S1's prefill shape (in the kernels line) and at
-    S2's local and global layers' (printed), bf16, causal, against their
-    plain versions, their bounds and ``scaled_dot_product_attention`` on
-    the same tensors (forward; backward alone on a retained graph).
+    T1's microbatch and S2's local and global layers' (printed), bf16,
+    causal, against their plain versions, their bounds and
+    ``scaled_dot_product_attention`` on the same tensors (forward;
+    backward alone on a retained graph).
     Bounds: the larger of the bytes (forward: q, k, v read once, o, m, l
     written once; backward: q, k, v, o, do, m, l read once, dq, dk, dv
     written once) over the HBM rate, and 4 D (forward) or 10 D (backward)
@@ -1695,6 +1718,7 @@ def flash_kernel_phase(torch, errs, launches, seed):
     lines = []
     for label, (b, s, h, kvh, d, window) in [
             ("S1 prefill", (8, 1024, 12, 2, 128, 0)),
+            ("T1 microbatch", (2, 1024, 12, 2, 128, 0)),
             ("S2 prefill, local layer", (4, 2048, 4, 1, 256, 512)),
             ("S2 prefill, global layer", (4, 2048, 4, 1, 256, 0))]:
         q, k, v = _flash_inputs(torch, gen, b, s, s, h, kvh, d, "bfloat16")
@@ -1784,8 +1808,15 @@ def main() -> int:
     errs = {}
     t0 = time.perf_counter()
     cases = kernel_cases(torch, ops, args.seed)
+    bf16_p = []
     for kname, kern, plain in cases:
-        compare(torch, kname, kern(), plain(), errs)
+        err = compare(torch, kname, kern(), plain(), errs)
+        if kname == "flash_fwd, bf16 P":
+            bf16_p.append(err)
+    # for information: each bf16 forward case's distance from the plain
+    # version that rounds P to bf16 (the kernel keeps P to ~2^-17)
+    log(f"[kernels] flash_fwd bf16 cases against the bf16-P plain version, "
+        f"max |diff| each: {json.dumps(bf16_p)}")
     log(f"[kernels] {len(cases)} random layouts against the plain versions "
         f"(join and radix kernels exact, flash within FLASH_TOL and "
         f"FLASH_BWD_TOL) in "

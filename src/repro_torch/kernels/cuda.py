@@ -90,7 +90,7 @@ _LIBS = {
                   [_P, _P, _P, _P, _P, _P, _C, *[_I] * 15, _C, _C,
                    ctypes.c_float, _C, _P]),
     "flash_bwd": ("rj_flash_bwd",
-                  [*[_P] * 10, _C, *[_I] * 18, _C, _C, ctypes.c_float, _C,
+                  [*[_P] * 11, _C, *[_I] * 18, _C, _C, ctypes.c_float, _C,
                    _P]),
     "radix_hist": ("rj_radix_histogram",
                    [_P, _P, _I, _C, ctypes.c_uint, _P, _C, _P]),
@@ -509,9 +509,10 @@ _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check_flash(op: str, q, **rows) -> None:
-    """q and each of ``rows`` on q's CUDA device in q's dtype (f32 or
-    bf16), with unit stride along D and 4-element aligned rows; D a
-    multiple of 8 up to 256."""
+    """q and each of ``rows`` in q's dtype (f32 or bf16) on q's CUDA
+    device, with unit stride along D and rows aligned to 16 bytes (4 f32
+    or 8 bf16 elements: the bf16 kernels read them with TMA); D a multiple
+    of 8 up to 256."""
     dev, d = q.device, q.shape[3]
     if q.dtype not in _FLASH_DTYPES:
         raise TypeError(f"{op}: dtype {q.dtype}; the kernel takes "
@@ -519,23 +520,27 @@ def _check_flash(op: str, q, **rows) -> None:
     if d % 8 or not 0 < d <= 256:
         raise ValueError(f"{op}: head dim {d} is not a multiple of 8 in "
                          "[8, 256]")
-    for name, x in (("q", q), *rows.items()):
-        if x.device != dev or x.device.type != "cuda":
-            raise ValueError(f"{op}: {name} is on {x.device}, expected "
-                             f"{dev}")
+    named = (("q", q), *rows.items())
+    for name, x in named:
         if x.dtype != q.dtype:
             raise TypeError(f"{op}: {name} has dtype {x.dtype}, expected "
                             f"{q.dtype}")
+        size = x.element_size()
         strides = [st for st, n in zip(x.stride()[:3], x.shape[:3]) if n > 1]
-        if (x.stride(3) != 1 or any(st % 4 for st in strides)
-                or x.data_ptr() % (4 * x.element_size())):
+        if (x.stride(3) != 1 or any(st * size % 16 for st in strides)
+                or x.data_ptr() % 16):
             raise ValueError(f"{op}: {name} needs unit stride along D and "
-                             "rows aligned to 4 elements")
+                             f"rows aligned to 16 bytes ({16 // size} "
+                             "elements)")
+    for name, x in named:
+        if x.device != dev or x.device.type != "cuda":
+            raise ValueError(f"{op}: {name} is on {x.device}, expected "
+                             f"{dev}")
 
 
 def flash_fwd(q, k, v, *, causal: bool = True, window: int = 0):
     """q [B,S,H,D], k/v [B,T,KVH,D] (f32 or bf16, unit stride along D, any
-    other strides that keep 4-element rows aligned) -> (o [B,S,H,D] in q's
+    other strides that keep rows 16-byte aligned) -> (o [B,S,H,D] in q's
     dtype, m [B,H,S,1] f32, l [B,H,S,1] f32)."""
     op = "flash_fwd"
     dev = q.device
@@ -557,7 +562,10 @@ def flash_bwd(q, k, v, o, m, l, do, *, causal: bool = True,
     """q, do [B,S,H,D], k/v [B,T,KVH,D] (f32 or bf16, read through their
     strides as ``flash_fwd`` reads q, k, v), o [B,S,H,D] and the forward's
     m, l [B,H,S,1] f32 -> (dq [B,S,H,D], dk, dv [B,T,KVH,D]) in the input
-    dtype, contiguous.  ``delta = sum_D o do`` is a torch reduction."""
+    dtype, contiguous.  ``delta = sum_D o do`` is a torch reduction.  In
+    bf16 with H > KVH the dkv kernel writes f32 per-query-head partials
+    of dk and dv to a scratch ``[2, B, T, H, D]`` that a second kernel sums
+    per kv head."""
     op = "flash_bwd"
     dev = q.device
     b, s, h, d = q.shape
@@ -573,11 +581,15 @@ def flash_bwd(q, k, v, o, m, l, do, *, causal: bool = True,
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
     dk = torch.empty((b, t, kvh, d), dtype=q.dtype, device=dev)
     dv = torch.empty((b, t, kvh, d), dtype=q.dtype, device=dev)
+    part = None
+    if q.dtype == torch.bfloat16 and h > kvh:
+        part = torch.empty((2, b, t, h, d), dtype=torch.float32, device=dev)
     _launch(op, "flash_bwd", dev, _ptr(q), _ptr(k), _ptr(v), _ptr(do),
             _ptr(m), _ptr(l), _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv),
-            _FLASH_DTYPES[q.dtype], b, s, t, h, kvh, d, *q.stride()[:3],
-            *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], int(causal),
-            int(window), 1.0 / d ** 0.5)
+            None if part is None else _ptr(part), _FLASH_DTYPES[q.dtype], b,
+            s, t, h, kvh, d, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *do.stride()[:3], int(causal), int(window),
+            1.0 / d ** 0.5)
     return dq, dk, dv
 
 

@@ -162,3 +162,26 @@ def test_entry_points_record_no_graph():
     assert not any(x.requires_grad for x in fa.flash_bwd(q, k, v, o, m, l,
                                                           do))
     assert fa.flash_attention_kernel(q, k, v).grad_fn is not None
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_wrappers_want_16_byte_aligned_rows(dtype):
+    """The bf16 kernels read q, k, v and do with TMA, which needs 16-byte
+    aligned bases and row strides (8 bf16 or 4 f32 elements).  The
+    wrappers refuse a view aligned to less, by its base or by a stride
+    (in bf16: 4 elements, which the CUDA-core kernels took), before
+    anything reaches a device; a 16-byte aligned view passes on to the
+    device check (these tensors lie on the CPU)."""
+    from repro_torch.kernels import cuda
+    half = 16 // torch.zeros((), dtype=dtype).element_size() // 2
+    x = torch.zeros((1, 8, 2, 48), dtype=dtype)
+    good = x[..., 2 * half:2 * half + 32]
+    by_base = x[..., half:half + 32]
+    by_stride = torch.zeros((1, 8, 2, 32 + half), dtype=dtype)[..., :32]
+    for bad in (by_base, by_stride):
+        with pytest.raises(ValueError, match="aligned to 16 bytes"):
+            cuda.flash_fwd(bad, good, good)
+        with pytest.raises(ValueError, match="aligned to 16 bytes"):
+            cuda.flash_bwd(good, good, good, good, None, None, bad)
+    with pytest.raises(ValueError, match="cpu"):
+        cuda.flash_fwd(good, good, good)
