@@ -13,7 +13,11 @@ result line):
      seconds;
   3. kernels — each kernel against its plain PyTorch version on the card
      on seeded layouts: the join kernels exactly (unaligned capacities,
-     invalid slots, hot keys, shared bucket rows, 1 x 1 edge cases), the
+     invalid slots, hot keys, shared bucket rows, 1 x 1 edge cases; for the
+     linear and pair-index kernels also ``LINEAR_HARD`` / ``CYCLIC_HARD``:
+     rows of distinct keys past their shared-memory tables' budgets, a hot
+     key whose cell counts wrap int32, dead rows and buckets, long S
+     buckets, unaligned capacities), the
      radix histogram exactly (n not a multiple of the block, bucket counts
      on both sides of the shared-memory limit), the flash forward within
      ``FLASH_TOL`` (the flash kernel tests' cases, ragged S, D = 128 and
@@ -40,7 +44,10 @@ result line):
      the counter zeroed before the phase;
   7. timings — each join kernel at its layout (the main path's first
      round; the baselines' first step) and the radix kernel at Q1's
-     keys, against its plain version (exact) and its bound;
+     keys, against its plain version (exact) and its bound: ``ms`` one op
+     call as the main path makes it, ``kernel_ms`` the device time of the
+     kernels that call launches (``torch.profiler`` after its warm-up
+     step; null when the trace is incomplete);
   8. serve — the dense LM served at full width through
      ``repro_torch.launch.serve``: S1 qwen2-1.5b (batch 8, prompt 1024,
      32 generated tokens, 16 requests), S2 gemma3-1b (batch 4, prompt 2048,
@@ -66,7 +73,9 @@ result line):
  10. the flash forward and backward at S1's, T1's microbatch and S2's
      shapes against their plain versions, their bounds and
      ``scaled_dot_product_attention`` (its backward alone on a retained
-     graph).  Prints one ``kernels`` JSON line with all twelve kernels;
+     graph).  Prints one ``kernels`` JSON line with all twelve kernels
+     (a ``kernel_ms`` whose trace is incomplete is null, with
+     ``kernel_ms_missing`` saying why);
  11. the last line: ``{"ok": true, "device": {...}}``.
 
 Join sizes are cut from the paper's (Fig 4: N = 2e8
@@ -205,8 +214,120 @@ def kernel_cases(torch, ops, seed):
                       lambda a=args: ops.fused_count3_cyclic(
                           *a, pair_index=False),
                       lambda m=m: ops._fused_cyclic_pairidx_ref(*m)))
-    return (cases + bucket_cases(torch, ops, gen) + radix_cases(torch, ops, gen)
+    return (cases + hard_join_cases(torch, ops, gen)
+            + bucket_cases(torch, ops, gen) + radix_cases(torch, ops, gen)
             + flash_cases(torch, gen) + flash_bwd_cases(torch, gen))
+
+
+def _distinct_rows(torch, gen, shape, d):
+    """Keys [*rows, C]: each row holds C distinct keys of [0, d)."""
+    *rows, c = shape
+    keys = [torch.randperm(d, generator=gen)[:c] for _ in range(math.prod(rows))]
+    return torch.stack(keys).to(torch.int32).reshape(shape)
+
+
+def hard_layout(torch, gen, kind, sides, d):
+    """Seeded (keys, validity) per column of one join layout, on the CPU.
+
+    ``sides`` maps each side to (its shape, its key columns); ``kind``:
+    "distinct" — the first key column of the R and T sides (b, and c) holds
+    distinct keys in every row, the others uniform keys, 90% live; "hot" —
+    every key 7 and every slot live, so per-cell counts pass 2^32;
+    "dead" — uniform keys with whole rows and buckets dead on every side;
+    "long" / "unaligned" — uniform keys with a hot key, 80% live; any other
+    kind ("a200", "a600") — uniform keys, 80% live.
+    Returns {column: keys} and {side: validity}."""
+    keys, valid = {}, {}
+    for side, (shape, cols) in sides.items():
+        for n, col in enumerate(cols):
+            if kind == "hot":
+                keys[col] = torch.full(shape, 7, dtype=torch.int32)
+            elif kind == "distinct" and n == 0 and side in "rt":
+                keys[col] = _distinct_rows(torch, gen, shape, d[col])
+            else:
+                keys[col] = torch.randint(0, d[col], shape, generator=gen,
+                                          dtype=torch.int32)
+                if kind in ("long", "unaligned"):
+                    keys[col][torch.rand(shape, generator=gen) < 0.3] = 3
+        p = {"hot": 1.0, "distinct": 0.9}.get(kind, 0.8)
+        valid[side] = torch.rand(shape, generator=gen) < p
+        if kind == "dead":
+            # a whole leading row, and a whole row of every second leading
+            # index, dead
+            valid[side][0, ...] = False
+            valid[side][1::2, -1, ...] = False
+    return keys, valid
+
+
+# (hp, gp, u, Cr, Cs, Ct, kind, key range per column): every key of a row
+# distinct past the shared tables' budgets (T rows of ~8,100 live keys,
+# R lists of ~10,800 an H); one hot key whose cell counts wrap int32; dead
+# rows and buckets on every side; S blocks of 9,003 slots; capacities 1
+# and 4097
+LINEAR_HARD = [
+    ((2, 3, 4, 3000, 700, 9000), "distinct",
+     dict(rb=20_000, sb=20_000, sc=20_000, tc=20_000)),
+    ((1, 2, 2, 3000, 60, 30_000), "hot", dict(rb=1, sb=1, sc=1, tc=1)),
+    ((3, 4, 5, 40, 33, 500), "dead", dict(rb=13, sb=13, sc=13, tc=13)),
+    ((2, 2, 3, 50, 3001, 700), "long", dict(rb=31, sb=31, sc=31, tc=31)),
+    ((3, 2, 5, 1, 129, 4097), "unaligned", dict(rb=3, sb=3, sc=3, tc=3)),
+]
+# (hp, gp, uh, ug, fp, Cr, Cs, Ct, kind, key range per column): T rows of
+# ~9,000 distinct (c, a) pairs and R cells of ~2,250 distinct b past the
+# table and multimap budgets; a hot key with 2048 x 2100 x 1100 per cell;
+# dead rows and buckets; S buckets of 4,000 slots (eight 512-thread
+# passes); capacities 1, 513 and 4099; T rows of ~200 distinct a (bit rows
+# of 8 words) and of ~600 (a first chunk past the bit rows' 256 a, so a
+# multimap of 4,096 entries, then ~140 entries as bit rows)
+CYCLIC_HARD = [
+    ((1, 2, 1, 2, 2, 2500, 3000, 10_000), "distinct",
+     dict(rb=5000, ra=40, sb=5000, sc=12_000, tc=12_000, ta=40)),
+    ((1, 1, 1, 1, 1, 2048, 2100, 1100), "hot",
+     dict(rb=1, ra=1, sb=1, sc=1, tc=1, ta=1)),
+    ((2, 3, 2, 3, 2, 50, 40, 60), "dead",
+     dict(rb=6, ra=6, sb=6, sc=6, tc=6, ta=6)),
+    ((1, 2, 2, 2, 2, 30, 4000, 200), "long",
+     dict(rb=9, ra=9, sb=9, sc=9, tc=9, ta=9)),
+    ((2, 1, 3, 1, 2, 1, 513, 4099), "unaligned",
+     dict(rb=4, ra=4, sb=4, sc=4, tc=4, ta=4)),
+    ((1, 2, 2, 2, 1, 300, 1000, 2000), "a200",
+     dict(rb=50, ra=200, sb=50, sc=500, tc=500, ta=200)),
+    ((1, 2, 2, 2, 1, 300, 1000, 5300), "a600",
+     dict(rb=50, ra=600, sb=50, sc=500, tc=500, ta=600)),
+]
+
+
+def hard_join_cases(torch, ops, gen):
+    """The redesigned linear and pair-index kernels on the layouts that
+    exercise their tiers: LINEAR_HARD and CYCLIC_HARD."""
+    cases = []
+    for (hp, gp, u, cr, cs, ct), kind, d in LINEAR_HARD:
+        k, v = hard_layout(torch, gen, kind, {
+            "r": ((hp, u, cr), ("rb",)), "s": ((hp, gp, u, cs), ("sb", "sc")),
+            "t": ((gp, ct), ("tc",))}, d)
+        k = {c: x.cuda() for c, x in k.items()}
+        v = {c: x.cuda() for c, x in v.items()}
+        args = (k["rb"], v["r"], k["sb"], k["sc"], v["s"], k["tc"], v["t"])
+        m = _masked(ops, [(k["rb"], v["r"], "r"), (k["sb"], v["s"], "s"),
+                          (k["sc"], v["s"], "s"), (k["tc"], v["t"], "t")])
+        cases.append(("fused_count3_linear",
+                      lambda a=args: ops.fused_count3_linear(*a),
+                      lambda m=m: ops._fused_linear_ref(*m)))
+    for (hp, gp, uh, ug, fp, cr, cs, ct), kind, d in CYCLIC_HARD:
+        k, v = hard_layout(torch, gen, kind, {
+            "r": ((hp, gp, uh, ug, cr), ("rb", "ra")),
+            "s": ((gp, fp, ug, cs), ("sb", "sc")),
+            "t": ((hp, fp, uh, ct), ("tc", "ta"))}, d)
+        k = {c: x.cuda() for c, x in k.items()}
+        v = {c: x.cuda() for c, x in v.items()}
+        args = (k["ra"], k["rb"], v["r"], k["sb"], k["sc"], v["s"], k["tc"],
+                k["ta"], v["t"])
+        m = _masked(ops, [(k[c], v[c[0]], c[0]) for c in
+                          ("ra", "rb", "sb", "sc", "tc", "ta")])
+        cases.append(("fused_count3_cyclic_pairidx",
+                      lambda a=args: ops.fused_count3_cyclic(*a),
+                      lambda m=m: ops._fused_cyclic_pairidx_ref(*m)))
+    return cases
 
 
 def bucket_cases(torch, ops, gen):
@@ -740,6 +861,46 @@ def time_ms(torch, fn, reps=5):
     return statistics.median(out)
 
 
+def kernel_ms(torch, fn, reps=5):
+    """Device ms of the kernels one call of ``fn`` launches: their sum and
+    each by name, the mean over ``reps`` calls traced by ``torch.profiler``
+    (host and device; the device events are the kernels).  The trace's
+    first step is the profiler's warm-up (``reps`` calls, their records
+    dropped): late in a long process the first two kernel launches after
+    a trace starts leave no record (seen on the H100 with torch 2.11 after
+    the serving and training phases: 3 of 5 flash_fwd calls recorded; with
+    a warm-up step of 2 calls, 5 of 5).  A trace in which a kernel does
+    not appear a multiple of ``reps`` times measured nothing: the sum is
+    then None and the third value says why."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):   # the warm-up step, then the traced one
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    by_name, count = {}, {}
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        # device events: the kernels (the step's own annotation excluded)
+        if (e.device_type.name == "CUDA" and us > 0
+                and not e.key.startswith("ProfilerStep")):
+            by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + us / 1e3 / reps
+            count[e.key[:60]] = count.get(e.key[:60], 0) + e.count
+    partial = {k: n for k, n in count.items() if n % reps}
+    if not by_name or partial:
+        why = (f"not measured: the trace of {reps} calls holds "
+               + (f"kernels seen a number of times that is not a multiple "
+                  f"of {reps}: {partial}" if partial else "no device event"))
+        log(f"[kernel] {why}")
+        return None, {}, why
+    return sum(by_name.values()), by_name, None
+
+
 def nbytes(*xs):
     return sum(x.numel() * x.element_size() for x in xs)
 
@@ -774,13 +935,16 @@ def record_kernel(torch, lines, errs, launches, name, shape_note, kern,
     (and ``library``, one PyTorch call computing the same function, where
     there is one), and put its entry in the ``kernels`` line.  Its bound
     is the larger of ``out_bytes`` (inputs read once, output written once)
-    over the HBM rate and ``steps`` operations over ``rate``."""
+    over the HBM rate and ``steps`` operations over ``rate``.  ``ms`` is
+    one call of the op as the main path makes it; ``kernel_ms`` the device
+    time of the kernels that call launches (``kernel_ms_by_name`` each)."""
     from repro_torch.kernels import cuda
     got = kern()
     want = plain()
     compare(torch, name, got, want, errs)
     del got, want
     ms = time_ms(torch, kern)
+    k_ms, k_by_name, k_missing = kernel_ms(torch, kern)
     plain_ms = time_ms(torch, plain, reps=3)
     library_ms = None if library is None else time_ms(torch, library)
     t_bytes = out_bytes / HBM_BYTES_PER_S
@@ -788,7 +952,10 @@ def record_kernel(torch, lines, errs, launches, name, shape_note, kern,
     src, replaces = cuda.SOURCES[name]
     entry = {"name": name, "route": "cuda", "source": src,
              "replaces": replaces, "launches": launches[name],
-             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+             "max_abs_err": errs[name], "ms": ms, "kernel_ms": k_ms,
+             "kernel_ms_by_name": k_by_name,
+             **({"kernel_ms_missing": k_missing} if k_missing else {}),
+             "plain_ms": plain_ms,
              "bound_ms": 1e3 * max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
              "library_ms": library_ms, "shape": shape_note,
@@ -888,9 +1055,16 @@ def kernel_phase(torch, ops, errs, launches, results, queries):
            nbytes(*m) + uh * ug * 4, steps)
     del args, m, rg, sg, tg
 
-    # Q3: cyclic.  Every live S slot of bucket (j, f, b) is visited by the
-    # hp * uh cells (i, a): two searches of the R cell (i, j, a, b) and two
-    # of the T row (i, f, a) per visit, and two steps per matching pair.
+    # Q3: cyclic.  The sorted formulation: every live S slot of bucket
+    # (j, f, b) is visited by the hp * uh cells (i, a): two searches of the
+    # R cell (i, j, a, b) and two of the T row (i, f, a) per visit, and two
+    # steps per matching pair.  The kernel's bit-row formulation, one
+    # operation per table probe or row word: two probes per live T entry
+    # (its a and c), and for every (cell, f) whose R cell, S bucket and T
+    # row all hold live entries, two per R entry (its a and b) and, per S
+    # entry, two probes (its b and c rows) and the W words of the rows'
+    # AND (W = 4 where the T row has at most 128 distinct a, else 8).  The
+    # bound takes the smaller count.
     _, (rg, sg, tg), cols = first_round_layout(results, queries, "Q3",
                                                "default")
     names = ("ra", "rb", "sb", "sc", "tc", "ta")
@@ -909,17 +1083,33 @@ def kernel_phase(torch, ops, errs, launches, results, queries):
     pairs = int((torch.bincount(rkeys, minlength=top)
                  * torch.bincount(skeys, minlength=top)).sum())
     n_s = live(m[2], "s", -1)                           # [gp, fp, ug]
-    lg_r = _steps(live(m[0], "r", -1))                  # [hp, gp, uh, ug]
-    lg_t = _steps(live(m[4], "t", -1))                  # [hp, fp, uh]
+    n_r = live(m[0], "r", -1)                           # [hp, gp, uh, ug]
+    n_t = live(m[4], "t", -1)                           # [hp, fp, uh]
+    lg_r, lg_t = _steps(n_r), _steps(n_t)
     r_visit = int((lg_r * n_s.sum(1)[None, :, None, :]).sum())
     t_visit = int((lg_t * n_s.sum((0, 2))[None, :, None]).sum())
-    steps = 2 * (r_visit + t_visit) + 2 * pairs
+    search_ops = 2 * (r_visit + t_visit) + 2 * pairs
+    # [i, j, a, b, f]: the (cell, f) passes the kernel makes
+    s5 = n_s.permute(0, 2, 1)[None, :, None, :, :]     # [1, gp, 1, ug, fp]
+    t5 = n_t.permute(0, 2, 1)[:, None, :, None, :]     # [hp, 1, uh, 1, fp]
+    r5 = n_r[..., None]
+    active = ((r5 > 0) & (s5 > 0) & (t5 > 0)).to(torch.int64)
+    ta_sorted = torch.sort(m[5], dim=-1).values          # [hp, fp, uh, ct]
+    dead_t = ops._SENT["t"]
+    n_a = (((ta_sorted[..., 1:] != ta_sorted[..., :-1])
+            & (ta_sorted[..., 1:] != dead_t)).sum(-1)
+           + (ta_sorted[..., 0] != dead_t))
+    words = torch.where(n_a <= 128, 4, 8).permute(0, 2, 1)[:, None, :, None, :]
+    table_ops = int(2 * n_t.sum() + (active * 2 * r5).sum()
+                    + (active * s5 * (2 + words)).sum())
+    del ta_sorted
     record("fused_count3_cyclic_pairidx",
            f"Q3 round 1: hp={hp} gp={gp} uh={uh} ug={ug} fp={fp} Cr={cr} "
            f"Cs={cs} Ct={ct}; matching (s, r) pairs={pairs}",
            lambda: ops.fused_count3_cyclic(*args),
            lambda: ops._fused_cyclic_pairidx_ref(*m),
-           nbytes(*m) + hp * gp * uh * ug * 4, steps)
+           nbytes(*m) + hp * gp * uh * ug * 4, min(search_ops, table_ops),
+           extra={"ops_search": search_ops, "ops_tables": table_ops})
     return lines
 
 

@@ -71,7 +71,8 @@ class JoinSession:
     profile the 3-way vs cascade time decisions run on, and
     ``star_fact_ratio`` tunes the star/linear hub disambiguation.
     ``calibration`` (``perfmodel.Calibration``, typically
-    ``calibration_from_bench("BENCH_engine.json")``) re-anchors the time
+    ``calibration_from_bench(perfmodel.BENCH_FILE)``, the port's own bench
+    report) re-anchors the time
     model's constants to measured per-root seconds; the default ``None``
     keeps the paper's hand-set constants.
     """
@@ -103,19 +104,21 @@ class JoinSession:
     def clear_plan_cache(self) -> None:
         self._plan_cache.clear()
 
-    def refresh_calibration(self, bench="BENCH_engine.json", *,
-                            out_path=None, shape: str = "cascade_4way"
-                            ) -> Calibration:
-        """Re-derive the time-model calibration from a bench report,
-        persist it to the committed calibration file
-        (``perfmodel.CALIBRATION_FILE``), and adopt it for this session.
+    def refresh_calibration(self, bench=None, *, out_path=None,
+                            shape: str = "cascade_4way") -> Calibration:
+        """Re-derive the time-model calibration from a bench report (the
+        port's ``perfmodel.BENCH_FILE`` unless ``bench`` names another),
+        persist it to the port's calibration file
+        (``perfmodel.CALIBRATION_FILE`` unless ``out_path`` names another),
+        and adopt it for this session.
         The plan cache is cleared: cached plans embed 3-way/cascade
         decisions made under the old scales, and the calibration is part
         of the cache key anyway."""
         from repro_torch.perfmodel import calibrate
         cal = calibrate.refresh_calibration_file(
-            bench, calibrate.CALIBRATION_FILE if out_path is None
-            else out_path, shape=shape)
+            calibrate.BENCH_FILE if bench is None else bench,
+            calibrate.CALIBRATION_FILE if out_path is None else out_path,
+            shape=shape)
         self.calibration = cal
         self.clear_plan_cache()
         return cal

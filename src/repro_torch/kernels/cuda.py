@@ -14,12 +14,14 @@ raises on the ``cudaGetLastError()`` code the C function returns, and adds
 one to its launch counter (``LAUNCHES``).  Nothing here falls back to a
 plain version: a build or launch failure raises.
 
-The operands arrive sentinel-masked (``ops._mask``), so a slot holding its
-side's sentinel is dead and equals no key.  The wrappers sort each bucket
-row that the kernels binary-search (R and T rows; the pair-index sweep's
-packed (b, a) and (c, a) keys; the all-pairs sweeps' packed (b, c) and
-(a, c) keys), and hand the pair-index kernel each S bucket's live length
-(one past its last live slot), so it skips dead tails.
+The linear and pair-index sweeps take the raw key columns and their bool
+validity masks: their pre-passes drop dead slots and build the tables
+they probe in shared memory, so nothing is sorted or masked around them;
+the wrappers allocate the pre-passes' scratch.  The other join kernels'
+operands arrive sentinel-masked (``ops._mask``), so a slot holding its
+side's sentinel is dead and equals no key; their wrappers sort each
+bucket row that the kernels binary-search (R and T rows; the all-pairs
+sweeps' packed (b, c) and (a, c) keys).
 
 The flash forward (``flash_fwd``, the LM's prefill and training
 attention) takes f32 or bf16 q, k, v through their strides and returns
@@ -69,14 +71,14 @@ _SWEEP_ARGS = [_P, _P, _P, _P, _C, _I, _I, _I, _I, _I, _I, _P, _C, _P]
 _MERGE_ARGS = [_P, _P, _P, _P, _C, _C, _A, _A, _A, _A, _A, _I, _I, _I, _P,
                _C, _P]
 _LIBS = {
-    "fused_linear": ("rj_fused_linear", _SWEEP_ARGS),
+    "fused_linear": ("rj_fused_linear", [*[_P] * 7, *[_I] * 6, *[_P] * 8, _C,
+                                         _P]),
     "fused_star": ("rj_fused_star", _SWEEP_ARGS),
     "fused_per_r": ("rj_fused_per_r",
                     [_P, _P, _P, _P, _P, _C, _I, _I, _I, _I, _I, _I, _P, _P,
                      _C, _P]),
     "fused_cyclic_pairidx": ("rj_fused_cyclic_pairidx",
-                             [_P, _P, _P, _P, _P, _C, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _P, _C, _P]),
+                             [*[_P] * 9, *[_I] * 8, *[_P] * 7, _C, _P]),
     "fused_cyclic": ("rj_fused_cyclic", _MERGE_ARGS),
     "pair_count": ("rj_pair_count", [_P, _P, _C, _I, _I, _I, _P, _C, _P]),
     "bucket_linear": ("rj_bucket_linear",
@@ -218,10 +220,13 @@ def _lib(stem: str) -> ctypes.CDLL:
 
 
 def _check(op: str, dtype: torch.dtype, device: torch.device, **arrays):
-    """Each argument must be a contiguous CUDA tensor of ``dtype`` on
-    ``device`` with its expected shape: ``name=(tensor, shape)``."""
-    for name, (x, shape) in arrays.items():
-        want_dtype = dtype if not name.endswith("key") else torch.int64
+    """Each argument must be a contiguous CUDA tensor on ``device`` with
+    its expected shape and dtype: ``name=(tensor, shape)`` for ``dtype``
+    (int64 for a name ending in "key"), ``name=(tensor, shape, dtype)``
+    for another."""
+    for name, (x, shape, *other) in arrays.items():
+        want_dtype = (other[0] if other else
+                      dtype if not name.endswith("key") else torch.int64)
         if x.device != device or x.device.type != "cuda":
             raise ValueError(f"{op}: {name} is on {x.device}, expected {device}")
         if x.dtype != want_dtype:
@@ -250,36 +255,39 @@ def _ptr(x: torch.Tensor) -> int:
     return x.data_ptr()
 
 
-def _live_len(rows: torch.Tensor, side: str) -> torch.Tensor:
-    """One past the last slot of each bucket row that does not hold the
-    side's sentinel (0 for an all-dead row): int32 [n_rows]."""
-    c = rows.shape[-1]
-    rows = rows.reshape(-1, c)
-    pos = torch.arange(1, c + 1, dtype=torch.int32, device=rows.device)
-    live = torch.where(rows != _SENT[side], pos, torch.zeros_like(pos))
-    return live.amax(dim=1).to(torch.int32).contiguous()
-
-
 def _sorted_rows(x: torch.Tensor) -> torch.Tensor:
     """Each bucket row (the last dimension) sorted ascending, contiguous."""
     return torch.sort(x, dim=-1).values.contiguous()
 
 
-def fused_count3_linear(rb, sb, sc, tc) -> torch.Tensor:
-    """rb [hp,u,Cr], sb/sc [hp,gp,u,Cs], tc [gp,Ct] int32 (sentinel-masked)
-    -> [hp, u] int32."""
+def _scratch(dev: torch.device, *shapes, zero=False) -> list:
+    """int32 tensors of ``shapes`` on ``dev`` (zeroed where ``zero``)."""
+    make = torch.zeros if zero else torch.empty
+    return [make(sh, dtype=torch.int32, device=dev) for sh in shapes]
+
+
+def fused_count3_linear(rb, rv, sb, sc, sv, tc, tv) -> torch.Tensor:
+    """rb [hp,u,Cr], sb/sc [hp,gp,u,Cs], tc [gp,Ct] int32 keys with their
+    bool validity rv, sv, tv (not masked) -> [hp, u] int32."""
     hp, u, cr = rb.shape
     _, gp, _, cs = sb.shape
     ct = tc.shape[1]
     dev = rb.device
+    b = torch.bool
     _check("fused_count3_linear", torch.int32, dev, rb=(rb, (hp, u, cr)),
-           sb=(sb, (hp, gp, u, cs)), sc=(sc, (hp, gp, u, cs)),
-           tc=(tc, (gp, ct)))
-    out = torch.zeros((hp, u), dtype=torch.int32, device=dev)
-    r_sorted, t_sorted = _sorted_rows(rb), _sorted_rows(tc)
-    _launch("fused_count3_linear", "fused_linear", dev, _ptr(r_sorted),
-            _ptr(sb), _ptr(sc), _ptr(t_sorted), _SENT["s"], hp, gp, u, cr,
-            cs, ct, _ptr(out))
+           rv=(rv, (hp, u, cr), b), sb=(sb, (hp, gp, u, cs)),
+           sc=(sc, (hp, gp, u, cs)), sv=(sv, (hp, gp, u, cs), b),
+           tc=(tc, (gp, ct)), tv=(tv, (gp, ct), b))
+    out, rlen, tlen = _scratch(dev, (hp, u), (hp,), (gp,), zero=True)
+    # the pre-pass's (key, count) lists: per H (keyed by (h, b)), per g;
+    # and the global tables of the lists past the shared budgets, per
+    # (H, h) and per g (touched only for such lists)
+    rkc, rsub, tkc, rtab, ttab = _scratch(
+        dev, (hp, u * cr, 2), (hp, u * cr), (gp, ct, 2), (hp, u, 2 * cr, 2),
+        (gp, 2 * ct, 2))
+    _launch("fused_count3_linear", "fused_linear", dev, *map(_ptr, (
+        rb, rv, sb, sc, sv, tc, tv)), hp, gp, u, cr, cs, ct,
+            *map(_ptr, (rkc, rsub, rlen, tkc, tlen, rtab, ttab, out)))
     return out
 
 
@@ -320,24 +328,27 @@ def fused_count3_star(rb, sb, sc, tc) -> torch.Tensor:
     return out
 
 
-def fused_count3_cyclic_pairidx(ra, rb, sb, sc, tkey) -> torch.Tensor:
-    """ra/rb [hp,gp,uh,ug,Cr], sb/sc [gp,fp,ug,Cs] int32 (sentinel-masked),
-    tkey [hp,fp,uh,Ct] int64 sorted (c, a) pair keys -> [hp,gp,uh,ug]
-    int32."""
+def fused_count3_cyclic_pairidx(ra, rb, rv, sb, sc, sv, tc, ta,
+                                tv) -> torch.Tensor:
+    """ra/rb [hp,gp,uh,ug,Cr], sb/sc [gp,fp,ug,Cs], tc/ta [hp,fp,uh,Ct]
+    int32 keys with their bool validity rv, sv, tv (not masked) ->
+    [hp,gp,uh,ug] int32."""
     hp, gp, uh, ug, cr = ra.shape
     _, fp, _, cs = sb.shape
-    ct = tkey.shape[-1]
+    ct = tc.shape[-1]
     dev = ra.device
-    _check("fused_count3_cyclic_pairidx", torch.int32, dev,
-           ra=(ra, (hp, gp, uh, ug, cr)), rb=(rb, (hp, gp, uh, ug, cr)),
-           sb=(sb, (gp, fp, ug, cs)), sc=(sc, (gp, fp, ug, cs)),
-           tkey=(tkey, (hp, fp, uh, ct)))
+    b = torch.bool
+    r, s, t = (hp, gp, uh, ug, cr), (gp, fp, ug, cs), (hp, fp, uh, ct)
+    _check("fused_count3_cyclic_pairidx", torch.int32, dev, ra=(ra, r),
+           rb=(rb, r), rv=(rv, r, b), sb=(sb, s), sc=(sc, s), sv=(sv, s, b),
+           tc=(tc, t), ta=(ta, t), tv=(tv, t, b))
     out = torch.zeros((hp, gp, uh, ug), dtype=torch.int32, device=dev)
-    rkey = sorted_pair_keys(rb, ra).contiguous()   # each R cell by (b, a)
-    s_len = _live_len(sb, "s")
+    # the pre-pass packs each row's live pairs to its front, with counts
+    lens = _scratch(dev, r[:-1], s[:-1], t[:-1], zero=True)
+    pairs = _scratch(dev, (*r, 2), (*s, 2), (*t, 2))
     _launch("fused_count3_cyclic_pairidx", "fused_cyclic_pairidx", dev,
-            _ptr(rkey), _ptr(sb), _ptr(sc), _ptr(tkey), _ptr(s_len),
-            _SENT["s"], hp, gp, uh, ug, fp, cr, cs, ct, _ptr(out))
+            *map(_ptr, (ra, rb, rv, sb, sc, sv, tc, ta, tv)), hp, gp, uh, ug,
+            fp, cr, cs, ct, *map(_ptr, (*pairs, *lens, out)))
     return out
 
 

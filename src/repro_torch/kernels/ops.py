@@ -17,7 +17,9 @@ Three families:
 
 Each public op masks invalid slots with per-side sentinels (so an invalid
 slot can never equal anything on another side) and then dispatches on the
-device of its tensors:
+device of its tensors (the kernels of ``fused_count3_linear`` and of the
+pair-index ``fused_count3_cyclic`` read the validity masks themselves, so
+only their plain versions mask):
 
   * a CUDA tensor launches the hand-written Hopper kernel
     (``kernels.cuda``); a kernel that fails to build or launch raises —
@@ -371,16 +373,19 @@ def _fused_star_ref(rb, sb, sc, tc):
 # the ops: mask, then kernel (CUDA) or plain version (CPU)
 # --------------------------------------------------------------------------
 
+def _contiguous(*xs):
+    return [x.contiguous() for x in xs]
+
+
 def fused_count3_linear(rb, rv, sb, sc, sv, tc, tv):
-    """Fused linear-3 sweep: per-(H, h) bucket counts [hp, u] int32."""
-    rb = _mask(rb, rv, "r")
-    sb = _mask(sb, sv, "s")
-    sc = _mask(sc, sv, "s")
-    tc = _mask(tc, tv, "t")
+    """Fused linear-3 sweep: per-(H, h) bucket counts [hp, u] int32.  The
+    kernel reads the validity masks itself; the plain version masks."""
     if _on_cuda(rb, "fused_count3_linear"):
         from repro_torch.kernels import cuda
-        return cuda.fused_count3_linear(rb, sb, sc, tc)
-    return _fused_linear_ref(rb, sb, sc, tc)
+        return cuda.fused_count3_linear(*_contiguous(rb, rv, sb, sc, sv, tc,
+                                                     tv))
+    return _fused_linear_ref(_mask(rb, rv, "r"), _mask(sb, sv, "s"),
+                             _mask(sc, sv, "s"), _mask(tc, tv, "t"))
 
 
 def fused_per_r_counts(rb, rv, sb, sc, sv, tc, tv):
@@ -399,13 +404,19 @@ def fused_count3_cyclic(ra, rb, rv, sb, sc, sv, tc, ta, tv, *,
                         pair_index: bool = True):
     """Fused cyclic sweep: per-cell counts [hp, gp, uh, ug] int32.
 
-    ``pair_index=True`` (the session's path) probes a sorted (c, a)-pair
-    index of the T stream (``cuda.fused_count3_cyclic_pairidx``).
-    ``pair_index=False`` is the all-pairs contraction Σ (M1ᵀ·M2) ⊙ M3 of
-    the reference's MXU kernel (``cuda.fused_count3_cyclic``, a merge join
-    per R slot).  On the CPU both forms compute the same per-cell counts,
-    so both take the one plain version.
+    ``pair_index=True`` (the session's path) probes a (c, a)-pair index of
+    the T stream: on the card a count table in shared memory
+    (``cuda.fused_count3_cyclic_pairidx``, which reads the validity masks
+    itself).  ``pair_index=False`` is the all-pairs contraction
+    Σ (M1ᵀ·M2) ⊙ M3 of the reference's MXU kernel
+    (``cuda.fused_count3_cyclic``, a merge join per R slot).  On the CPU
+    both forms compute the same per-cell counts, so both take the one plain
+    version.
     """
+    if pair_index and _on_cuda(ra, "fused_count3_cyclic"):
+        from repro_torch.kernels import cuda
+        return cuda.fused_count3_cyclic_pairidx(*_contiguous(
+            ra, rb, rv, sb, sc, sv, tc, ta, tv))
     ra = _mask(ra, rv, "r")
     rb = _mask(rb, rv, "r")
     sb = _mask(sb, sv, "s")
@@ -414,9 +425,6 @@ def fused_count3_cyclic(ra, rb, rv, sb, sc, sv, tc, ta, tv, *,
     ta = _mask(ta, tv, "t")
     if _on_cuda(ra, "fused_count3_cyclic"):
         from repro_torch.kernels import cuda
-        if pair_index:
-            return cuda.fused_count3_cyclic_pairidx(
-                ra, rb, sb, sc, sorted_pair_keys(tc, ta))
         return cuda.fused_count3_cyclic(ra, rb, sb, sc, tc, ta)
     return _fused_cyclic_pairidx_ref(ra, rb, sb, sc, tc, ta)
 

@@ -126,7 +126,8 @@ def forward(params: TransformerLM, cfg: ModelConfig, tokens):
         raise NotImplementedError(
             f"{cfg.name}: scan_group={gk} (sqrt-L remat, nested "
             "checkpoints) is not ported yet (ROADMAP Queue A, \"the "
-            "other LM families\"); the dense configs have scan_group=0")
+            "other LM families\"); of the dense configs, qwen2.5-14b and "
+            "yi-34b set it")
     dt = layers.dtype_of(cfg.dtype)
     x = layers.embed(tokens, params.embed.table, dt)
     windows, thetas = layer_schedule(cfg)

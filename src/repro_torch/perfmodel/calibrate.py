@@ -6,10 +6,10 @@ constants describe Plasticine, not the machine the bench actually runs on —
 and the ``cascade_4way`` bench showed the failure mode: the model picked
 the fused root at a scale where the measured binary tail was faster.
 
-This module closes the loop: ``benchmarks/engine_bench.py`` records, next
-to each measured time, the model's own predicted seconds for the same root
+This module closes the loop: a bench report records, next to each
+measured time, the model's own predicted seconds for the same root
 (``model_t3_s`` / ``model_tc_s`` from the planner's ``TimedChoice``).
-``calibration_from_bench`` turns one committed BENCH_engine.json into a
+``calibration_from_bench`` turns one such report into a
 :class:`Calibration` — two multiplicative scales (measured / predicted, one
 per plan family) that ``planner.choose_linear_timed`` /
 ``choose_star_timed`` apply before comparing totals.  A scale is a pure
@@ -19,6 +19,12 @@ bench pins its absolute level on THIS machine.
 Calibration is opt-in (``JoinSession(calibration=...)``): the default
 ``None`` keeps the paper's hand-set constants, so published Fig-4 model
 numbers and small-scale planning behavior are untouched.
+
+The port's files are its own: the bench report ``BENCH_torch.json``
+(``BENCH_FILE``, written by the port's bench on the card) and the snapshot
+``CALIBRATION_torch.json`` (``CALIBRATION_FILE``).  The JAX package's
+``BENCH_engine.json`` and ``CALIBRATION_engine.json`` describe another
+machine and are read or written only when a caller passes their path.
 """
 
 from __future__ import annotations
@@ -58,7 +64,8 @@ IDENTITY = Calibration()
 
 def calibration_from_bench(bench: Mapping[str, Any] | str | pathlib.Path,
                            *, shape: str = "cascade_4way") -> Calibration:
-    """Build a :class:`Calibration` from a BENCH_engine.json report.
+    """Build a :class:`Calibration` from a bench report (a path or the
+    parsed JSON; the port's is ``BENCH_FILE``).
 
     Reads the named shape's measured per-path seconds (``fused_root_s``:
     the fused root step's blocked wall time; ``binary_tail_s``: the
@@ -91,15 +98,17 @@ def calibration_from_bench(bench: Mapping[str, Any] | str | pathlib.Path,
 # persistence: the committed calibration file
 # ---------------------------------------------------------------------------
 
-# The committed snapshot next to BENCH_engine.json.  The bench refreshes it
-# after every run (``engine_bench.main`` calls ``refresh_calibration_file``)
-# so ``calibration_from_file`` never reads constants staler than the last
-# committed bench report.
-CALIBRATION_FILE = "CALIBRATION_engine.json"
+# The port's bench report and the calibration snapshot derived from it.  A
+# bench that refreshes the snapshot after every run (through
+# ``refresh_calibration_file``) keeps ``calibration_from_file`` from reading
+# constants staler than the last report.  A missing report gives the
+# identity calibration.
+BENCH_FILE = "BENCH_torch.json"
+CALIBRATION_FILE = "CALIBRATION_torch.json"
 
 
 def refresh_calibration_file(bench: Mapping[str, Any] | str | pathlib.Path
-                             = "BENCH_engine.json",
+                             = BENCH_FILE,
                              out_path: str | pathlib.Path = CALIBRATION_FILE,
                              *, shape: str = "cascade_4way") -> Calibration:
     """Re-derive the calibration from ``bench`` and persist it to

@@ -79,15 +79,27 @@ def test_wrappers_check_their_inputs(card):
     rb = torch.zeros((1, 2, 8), dtype=torch.int32, device=card)
     sb = torch.zeros((1, 1, 2, 8), dtype=torch.int32, device=card)
     tc = torch.zeros((1, 8), dtype=torch.int32, device=card)
+    rv, sv, tv = rb != 0, sb != 0, tc != 0
     with pytest.raises(TypeError, match="dtype"):
-        cuda.fused_count3_linear(rb.long(), sb, sb, tc)
+        cuda.fused_count3_linear(rb.long(), rv, sb, sb, sv, tc, tv)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.fused_count3_linear(rb, rb, sb, sb, sv, tc, tv)
     with pytest.raises(ValueError, match="shape"):
-        cuda.fused_count3_linear(rb, sb, sb[..., :4].contiguous(), tc)
+        cuda.fused_count3_linear(rb, rv, sb, sb[..., :4].contiguous(), sv,
+                                 tc, tv)
     with pytest.raises(ValueError, match="contiguous"):
-        cuda.fused_count3_linear(rb, sb, sb.transpose(2, 3).contiguous()
-                                 .transpose(2, 3), tc)
+        cuda.fused_count3_linear(rb, rv, sb, sb.transpose(2, 3).contiguous()
+                                 .transpose(2, 3), sv, tc, tv)
     with pytest.raises(ValueError, match="cpu"):
-        cuda.fused_count3_linear(rb, sb, sb, tc.cpu())
+        cuda.fused_count3_linear(rb, rv, sb, sb, sv, tc.cpu(), tv)
+    r = torch.zeros((1, 1, 1, 1, 8), dtype=torch.int32, device=card)
+    s = torch.zeros((1, 1, 1, 8), dtype=torch.int32, device=card)
+    t = torch.zeros((1, 1, 1, 8), dtype=torch.int32, device=card)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.fused_count3_cyclic_pairidx(r, r, r, s, s, s != 0, t, t, t != 0)
+    with pytest.raises(ValueError, match="shape"):
+        cuda.fused_count3_cyclic_pairidx(r, r, r != 0, s, s, s != 0, t,
+                                         t[..., :4].contiguous(), t != 0)
 
 
 def test_flash_and_radix_launch_their_kernels_on_cuda(card):

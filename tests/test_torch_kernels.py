@@ -123,6 +123,114 @@ def test_fused_cyclic_pairidx_matches_reference(shape, hot):
                                                  pair_index=False)))
 
 
+def _hard_layout(rng, kind, sides, d):
+    """Seeded keys and validity of one join layout, as the card's layouts
+    (``chip_smoke.hard_layout``) make them, small enough for interpret
+    mode.  ``sides`` maps each side to (its shape, its key columns);
+    "distinct": the first key column of R and T holds distinct keys in
+    every row, 90% live; "hot": every key 7 and every slot live, so the
+    cell counts pass 2^32 and wrap; "dead": whole rows and buckets dead on
+    every side; "long" / "unaligned": uniform keys with a hot key, 80%
+    live; any other kind ("a200", "a600"): uniform keys, 80% live."""
+    keys, valid = {}, {}
+    for side, (shape, cols) in sides.items():
+        for n, col in enumerate(cols):
+            if kind == "hot":
+                k = np.full(shape, 7, np.int32)
+            elif kind == "distinct" and n == 0 and side in "rt":
+                rows = int(np.prod(shape[:-1]))
+                k = np.stack([rng.permutation(d[col])[:shape[-1]]
+                              for _ in range(rows)]).reshape(shape)
+            else:
+                k = rng.integers(0, d[col], size=shape)
+                if kind in ("long", "unaligned"):
+                    k[rng.random(shape) < 0.3] = 3
+            keys[col] = k.astype(np.int32)
+        v = rng.random(shape) < {"hot": 1.0, "distinct": 0.9}.get(kind, 0.8)
+        if kind == "dead":
+            v[0, ...] = False
+            v[1::2, -1, ...] = False
+        valid[side] = v
+    return keys, valid
+
+
+# (hp, gp, u, Cr, Cs, Ct, kind, key range per column): every key of an R
+# and a T row distinct; one hot key with 2000 x 2200 x 1000 per cell (int32
+# wrap-around); dead rows and buckets; S blocks of 2,100 slots; capacities
+# 1, 129 and 257
+LINEAR_HARD = [
+    ((1, 2, 2, 300, 40, 600), "distinct",
+     dict(rb=2000, sb=2000, sc=2000, tc=2000)),
+    ((1, 1, 1, 2000, 1000, 2200), "hot", dict(rb=1, sb=1, sc=1, tc=1)),
+    ((3, 4, 5, 20, 9, 40), "dead", dict(rb=7, sb=7, sc=7, tc=7)),
+    ((1, 2, 3, 10, 700, 50), "long", dict(rb=9, sb=9, sc=9, tc=9)),
+    ((2, 1, 3, 1, 129, 257), "unaligned", dict(rb=3, sb=3, sc=3, tc=3)),
+]
+
+
+@pytest.mark.parametrize("case", LINEAR_HARD, ids=lambda c: c[1])
+def test_fused_linear_hard_layouts_match_reference(case):
+    (hp, gp, u, cr, cs, ct), kind, d = case
+    rng = np.random.default_rng(300 + cr + cs)
+    k, v = _hard_layout(rng, kind, {
+        "r": ((hp, u, cr), ("rb",)), "s": ((hp, gp, u, cs), ("sb", "sc")),
+        "t": ((gp, ct), ("tc",))}, d)
+    args = (k["rb"], v["r"], k["sb"], k["sc"], v["s"], k["tc"], v["t"])
+    got = ops.fused_count3_linear(*_t(*args)).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.fused_count3_linear(*_j(*args))))
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.fused_count3_linear(*_j(*args),
+                                                 use_kernel=True)))
+    if kind == "hot":   # every cell passes 2^32 and wraps as int32
+        live = int(v["s"].sum(axis=(1, 3))[0, 0])
+        assert got[0, 0] == np.int64(cr * ct * live).astype(np.int32)
+
+
+# (hp, gp, uh, ug, fp, Cr, Cs, Ct, kind, key range per column): R cells
+# and T rows of distinct b and c; a hot key with 1700 x 1700 x 1500 per
+# cell; dead rows and buckets; S buckets of 700 slots; capacities 1, 129
+# and 257; T rows of ~160 and ~420 distinct a (the card's bit rows of 8
+# words, and its multimap tier past 256 a)
+CYCLIC_HARD = [
+    ((1, 1, 1, 2, 2, 200, 300, 700), "distinct",
+     dict(rb=400, ra=5, sb=400, sc=900, tc=900, ta=5)),
+    ((1, 1, 1, 1, 1, 1700, 1700, 1500), "hot",
+     dict(rb=1, ra=1, sb=1, sc=1, tc=1, ta=1)),
+    ((2, 2, 2, 2, 2, 20, 15, 30), "dead",
+     dict(rb=4, ra=4, sb=4, sc=4, tc=4, ta=4)),
+    ((1, 1, 2, 1, 2, 10, 700, 40), "long",
+     dict(rb=5, ra=5, sb=5, sc=5, tc=5, ta=5)),
+    ((2, 1, 3, 1, 2, 1, 129, 257), "unaligned",
+     dict(rb=3, ra=3, sb=3, sc=3, tc=3, ta=3)),
+    ((1, 1, 1, 2, 1, 100, 200, 400), "a200",
+     dict(rb=20, ra=200, sb=20, sc=100, tc=100, ta=200)),
+    ((1, 1, 1, 2, 1, 100, 200, 900), "a600",
+     dict(rb=20, ra=600, sb=20, sc=100, tc=100, ta=600)),
+]
+
+
+@pytest.mark.parametrize("case", CYCLIC_HARD, ids=lambda c: c[1])
+def test_fused_cyclic_pairidx_hard_layouts_match_reference(case):
+    (hp, gp, uh, ug, fp, cr, cs, ct), kind, d = case
+    rng = np.random.default_rng(400 + cr + cs)
+    k, v = _hard_layout(rng, kind, {
+        "r": ((hp, gp, uh, ug, cr), ("rb", "ra")),
+        "s": ((gp, fp, ug, cs), ("sb", "sc")),
+        "t": ((hp, fp, uh, ct), ("tc", "ta"))}, d)
+    args = (k["ra"], k["rb"], v["r"], k["sb"], k["sc"], v["s"], k["tc"],
+            k["ta"], v["t"])
+    got = ops.fused_count3_cyclic(*_t(*args)).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.fused_count3_cyclic(*_j(*args))))
+    # the Pallas pair-index kernel in interpret mode
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.fused_count3_cyclic(*_j(*args),
+                                                 use_kernel=True)))
+    if kind == "hot":   # cr x cs x ct passes 2^32 and wraps as int32
+        assert got.reshape(-1)[0] == np.int64(cr * cs * ct).astype(np.int32)
+
+
 def test_lex_sort_pairs_matches_reference():
     rng = np.random.default_rng(8)
     tc = rng.integers(-50, 50, size=(3, 4, 37)).astype(np.int32)

@@ -164,3 +164,42 @@ def test_results_live_on_the_relations_device():
     res = JoinSession(m_budget=M_BUDGET).execute(tq, per_r=True,
                                                  key_col="src")
     assert res.per_r.counts.device == torch.device("cpu")
+
+
+def test_calibration_files_are_the_ports_own(tmp_path, monkeypatch):
+    """``refresh_calibration`` writes the port's ``CALIBRATION_torch.json``
+    (never the JAX package's ``CALIBRATION_engine.json``), reads the JAX
+    package's bench report only when its path is passed, and derives the
+    same scales as the reference; ``calibration_from_file`` reads the
+    port's file by default, and a missing report gives the identity."""
+    import pathlib
+    import shutil
+
+    from repro.perfmodel import calibrate as jcal
+    from repro_torch import perfmodel
+    from repro_torch.perfmodel import calibrate
+
+    bench = pathlib.Path(__file__).resolve().parents[1] / "BENCH_engine.json"
+    monkeypatch.chdir(tmp_path)
+    assert calibrate.BENCH_FILE == "BENCH_torch.json"
+    assert calibrate.CALIBRATION_FILE == "CALIBRATION_torch.json"
+    # no report of the port's own here: identity, and no reference file
+    sess = JoinSession(m_budget=M_BUDGET)
+    assert sess.refresh_calibration() == perfmodel.IDENTITY
+    assert not (tmp_path / "CALIBRATION_engine.json").exists()
+
+    shutil.copy(bench, tmp_path / "engine_report.json")
+    cal = sess.refresh_calibration(tmp_path / "engine_report.json")
+    assert (tmp_path / "CALIBRATION_torch.json").exists()
+    assert not (tmp_path / "CALIBRATION_engine.json").exists()
+    assert sess.calibration == cal and cal != perfmodel.IDENTITY
+    want = jcal.calibration_from_bench(str(tmp_path / "engine_report.json"))
+    assert (cal.fused3_scale, cal.cascade_scale, cal.source) == \
+        (want.fused3_scale, want.cascade_scale, want.source)
+    assert perfmodel.calibration_from_file() == cal
+    # the reference's file name is read only when passed
+    (tmp_path / "CALIBRATION_engine.json").write_text(
+        '{"fused3_scale": 3.0, "cascade_scale": 5.0}')
+    assert perfmodel.calibration_from_file() == cal
+    assert perfmodel.calibration_from_file(
+        "CALIBRATION_engine.json").fused3_scale == 3.0

@@ -447,8 +447,17 @@ def test_scan_group_is_not_ported_yet():
     cfg = dataclasses.replace(configs.smoke("gemma3-1b"), scan_group=2)
     model = zoo.build(cfg)
     params = model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
         model.forward(params, torch.zeros((1, 4), dtype=torch.int32))
+    # the message names the dense configs that set scan_group, and no
+    # longer claims that they have 0
+    msg = str(err.value)
+    assert "the other LM families" in msg
+    assert "scan_group=0" not in msg
+    assert "qwen2.5-14b" in msg and "yi-34b" in msg
+    for arch in ("qwen2.5-14b", "yi-34b"):
+        assert configs.get(arch).family == "dense"
+        assert configs.get(arch).scan_group > 0
     with torch.no_grad():
         assert model.forward(params, torch.zeros(
             (1, 4), dtype=torch.int32))[0].shape == (1, 4, cfg.vocab_size)

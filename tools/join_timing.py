@@ -1,0 +1,181 @@
+#!/usr/bin/env python3
+"""Time the linear and pair-index join kernels of one checkout on the card.
+
+    python3 tools/join_timing.py [--tree DIR] [--tag NAME] [--seed N]
+
+Imports ``repro_torch`` from ``DIR/src`` (default: this checkout) and the
+smoke's data and layout helpers from this checkout's ``chip_smoke.py``.
+Builds the smoke's data (``chip_smoke.make_data``: Q1's 4e6 edges over
+14,000 users, Q5's four 1e6-row relations over 1e6 keys), runs Q1
+(linear, ``strategy="3way"``), Q3 (triangles), Q4 (skewed linear) and Q5
+(the 4-relation chain, ``strategy="3way"``: a binary join feeding a
+linear 3-way step whose R and T rows hold ~10,000 distinct keys each)
+through ``JoinSession(m_budget=16384).execute`` once to plan them, then
+times the op as the main path calls it (``ops.fused_count3_linear`` /
+``ops.fused_count3_cyclic`` on raw columns plus validity) at four
+layouts: Q1's and Q3's round 1 (``chip_smoke.first_round_layout``), Q5's
+linear step (its arguments as the execute passed them), and "Q3 shape,
+600 a": Q3's round-1 shape filled with uniform seeded keys (``chip_smoke
+.hard_layout``) so that each T row holds ~600 distinct a (the pair-index
+kernel's multimap tier, past its bit rows' 256).  Per layout: ``op_ms``
+(median of 5 CUDA-event timings after a warm-up call), ``kernel_ms`` (the
+device time of the kernels one call launches, ``chip_smoke.kernel_ms``;
+null when the trace is incomplete), each kernel's ms by name and the
+sum of the counts (equal across trees).  Then the warm execute seconds of
+Q1, Q3, Q4 and Q5 (median of 5 after the planning call).  Prints the
+card's name and power limit first.
+
+To compare two trees on one card, run them in turns in one call, e.g. a
+parent exported with ``git archive`` into a git-ignored directory:
+``for t in build/parent . . build/parent; do python3 tools/join_timing.py
+--tree $t --tag $t; done``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+WARM = 5
+
+
+def load_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=str(ROOT))
+    ap.add_argument("--tag", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    tree = pathlib.Path(args.tree).resolve()
+    smoke = load_smoke()   # puts this checkout's src/ on sys.path ...
+    sys.path.insert(0, str(tree / "src"))   # ... behind the tree's
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("join_timing: needs a CUDA device")
+    from repro_torch.convert import relation_from_numpy
+    from repro_torch.core.query import Query
+    from repro_torch.core.session import JoinSession
+    from repro_torch.kernels import cuda, ops
+    import repro_torch
+    if pathlib.Path(repro_torch.__file__).resolve().parents[1] != \
+            tree / "src":
+        raise SystemExit(f"join_timing: imported {repro_torch.__file__}, "
+                         f"not the tree's")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    tag = args.tag or tree.name
+    build_s = cuda.build()
+    print(json.dumps({"tag": tag, "card": card, "build_s": build_s}),
+          flush=True)
+
+    data = smoke.make_data(args.seed)
+    F, F4 = relation_from_numpy(data["F"]), relation_from_numpy(data["F4"])
+    lin = [("f1.dst", "f2.src"), ("f2.dst", "f3.src")]
+    queries = {"Q1": Query({"f1": F, "f2": F, "f3": F}, lin),
+               "Q3": Query({"f1": F, "f2": F, "f3": F},
+                           lin + [("f3.dst", "f1.src")]),
+               "Q4": Query({"f1": F4, "f2": F4, "f3": F4}, lin),
+               "Q5": Query({k: relation_from_numpy(v)
+                            for k, v in data["chain"].items()},
+                           [("r1.b", "r2.b"), ("r2.c", "r3.c"),
+                            ("r3.d", "r4.d")])}
+    strategy = {"Q1": "3way", "Q3": "default", "Q4": "3way", "Q5": "3way"}
+    sess = JoinSession(m_budget=smoke.M_BUDGET)
+    results, execute = {}, {}
+    for label, q in queries.items():
+        kw = {} if strategy[label] == "default" else {
+            "strategy": strategy[label]}
+        res, _ = smoke.timed_execute(torch, sess, q, **kw)
+        results[label, strategy[label]] = res
+        warm = [smoke.timed_execute(torch, sess, q, **kw)[1]
+                for _ in range(WARM)]
+        execute[label] = {"count": int(res.count), "rounds": res.rounds,
+                          "warm_median_s": statistics.median(warm),
+                          "warm_s": warm}
+
+    def layouts():
+        """(label, op name, op args) of each timed layout."""
+        for label in ("Q1", "Q3"):
+            _, (rg, sg, tg), cols = smoke.first_round_layout(
+                results, queries, label, strategy[label])
+            if label == "Q1":
+                yield label + " round 1", "fused_count3_linear", (
+                    rg.columns[cols["rb"]], rg.valid, sg.columns[cols["sb"]],
+                    sg.columns[cols["sc"]], sg.valid, tg.columns[cols["tc"]],
+                    tg.valid)
+            else:
+                shape3 = (rg.valid.shape, sg.valid.shape, tg.valid.shape)
+                yield label + " round 1", "fused_count3_cyclic_pairidx", (
+                    rg.columns[cols["ra"]], rg.columns[cols["rb"]], rg.valid,
+                    sg.columns[cols["sb"]], sg.columns[cols["sc"]], sg.valid,
+                    tg.columns[cols["tc"]], tg.columns[cols["ta"]], tg.valid)
+            del rg, sg, tg
+        # Q5's linear step: the arguments of its call in one execute
+        calls, op = [], ops.fused_count3_linear
+
+        def capture(*a):
+            calls.append(a)
+            return op(*a)
+        ops.fused_count3_linear = capture
+        try:
+            sess.execute(queries["Q5"], strategy=strategy["Q5"])
+        finally:
+            ops.fused_count3_linear = op
+        if len(calls) != 1:
+            raise SystemExit(f"join_timing: Q5 made {len(calls)} linear "
+                             f"calls, expected 1")
+        yield "Q5 linear step", "fused_count3_linear", calls.pop()
+        gen = torch.Generator().manual_seed(args.seed + 5)
+        k, v = smoke.hard_layout(torch, gen, "a600", {
+            "r": (shape3[0], ("rb", "ra")), "s": (shape3[1], ("sb", "sc")),
+            "t": (shape3[2], ("tc", "ta"))},
+            dict(rb=100, ra=600, sb=100, sc=800, tc=800, ta=600))
+        k = {c: x.cuda() for c, x in k.items()}
+        v = {c: x.cuda() for c, x in v.items()}
+        yield "Q3 shape, 600 a", "fused_count3_cyclic_pairidx", (
+            k["ra"], k["rb"], v["r"], k["sb"], k["sc"], v["s"], k["tc"],
+            k["ta"], v["t"])
+
+    for label, name, a in layouts():
+        fn = (ops.fused_count3_linear if name == "fused_count3_linear"
+              else ops.fused_count3_cyclic)
+
+        def run(a=a, fn=fn):
+            return fn(*a)
+        valid = (a[1], a[4], a[6]) if fn is ops.fused_count3_linear else (
+            a[2], a[5], a[8])
+        shape = {side: list(x.shape) for side, x in zip("rst", valid)}
+        total = int(run().to(torch.int64).sum())
+        t0 = time.perf_counter()
+        k_ms, by_name, missing = smoke.kernel_ms(torch, run)
+        print(json.dumps({"tag": tag, "layout": label, "op": name,
+                          "shape": shape, "sum": total,
+                          "op_ms": smoke.time_ms(torch, run),
+                          "kernel_ms": k_ms, "kernel_ms_by_name": by_name,
+                          **({"kernel_ms_missing": missing} if missing
+                             else {}),
+                          "profile_s": time.perf_counter() - t0}),
+              flush=True)
+        del a, run, valid
+        torch.cuda.empty_cache()
+    print(json.dumps({"tag": tag, "execute": execute}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
