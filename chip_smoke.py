@@ -14,10 +14,11 @@ result line):
   3. kernels — each kernel against its plain PyTorch version on the card
      on seeded layouts: the join kernels exactly (unaligned capacities,
      invalid slots, hot keys, shared bucket rows, 1 x 1 edge cases; for the
-     linear and pair-index kernels also ``LINEAR_HARD`` / ``CYCLIC_HARD``:
-     rows of distinct keys past their shared-memory tables' budgets, a hot
-     key whose cell counts wrap int32, dead rows and buckets, long S
-     buckets, unaligned capacities), the
+     linear, per-R, pair-index and star kernels also ``LINEAR_HARD`` /
+     ``CYCLIC_HARD`` / ``STAR_HARD``: rows of distinct keys past their
+     shared-memory tables' budgets, a hot key whose cell counts wrap
+     int32, dead rows, buckets and chunks, long S buckets, unaligned
+     capacities), the
      radix histogram exactly (n not a multiple of the block, bucket counts
      on both sides of the shared-memory limit), the flash forward within
      ``FLASH_TOL`` (the flash kernel tests' cases, ragged S, D = 128 and
@@ -235,7 +236,7 @@ def hard_layout(torch, gen, kind, sides, d):
     every key 7 and every slot live, so per-cell counts pass 2^32;
     "dead" — uniform keys with whole rows and buckets dead on every side;
     "long" / "unaligned" — uniform keys with a hot key, 80% live; any other
-    kind ("a200", "a600") — uniform keys, 80% live.
+    kind ("a200", "a600", "chunks", "repeats") — uniform keys, 80% live.
     Returns {column: keys} and {side: validity}."""
     keys, valid = {}, {}
     for side, (shape, cols) in sides.items():
@@ -297,29 +298,67 @@ CYCLIC_HARD = [
 ]
 
 
+# (uh, ug, chunks, Cr, Cs, Ct, kind, key range per column): R and T rows
+# of distinct keys (T's ~10,800 a row, past the sweep's shared table of
+# 4,096 keys); one hot key whose cell counts wrap int32; dead rows and
+# chunks; an S cell of 9,003 slots (two splits); capacities 1, 129 and
+# 4097; three chunks of 50,000-slot cells (twelve splits) summed into each
+# cell; T rows whose lists repeat keys across segments (~12,600 entries,
+# spilled) but hold ~3,000 distinct keys, so the shared table is staged
+# from a list that repeats them
+STAR_HARD = [
+    ((2, 3, 1, 10_000, 3000, 12_000), "distinct",
+     dict(rb=40_000, sb=40_000, sc=40_000, tc=40_000)),
+    ((1, 2, 2, 3000, 2000, 30_000), "hot", dict(rb=1, sb=1, sc=1, tc=1)),
+    ((3, 4, 2, 40, 33, 500), "dead", dict(rb=13, sb=13, sc=13, tc=13)),
+    ((2, 2, 1, 50, 9003, 700), "long", dict(rb=31, sb=31, sc=31, tc=31)),
+    ((3, 2, 1, 1, 129, 4097), "unaligned", dict(rb=3, sb=3, sc=3, tc=3)),
+    ((2, 3, 3, 300, 50_000, 400), "chunks",
+     dict(rb=200, sb=200, sc=200, tc=200)),
+    ((2, 2, 1, 20_000, 3000, 20_000), "repeats",
+     dict(rb=3000, sb=3000, sc=3000, tc=3000)),
+]
+
+
 def hard_join_cases(torch, ops, gen):
-    """The redesigned linear and pair-index kernels on the layouts that
-    exercise their tiers: LINEAR_HARD and CYCLIC_HARD."""
+    """The redesigned linear, per-R, pair-index and star kernels on the
+    layouts that exercise their tiers: LINEAR_HARD (linear and per-R),
+    CYCLIC_HARD and STAR_HARD."""
     cases = []
+
+    def on_card(k, v):
+        return ({c: x.cuda() for c, x in k.items()},
+                {c: x.cuda() for c, x in v.items()})
+
     for (hp, gp, u, cr, cs, ct), kind, d in LINEAR_HARD:
-        k, v = hard_layout(torch, gen, kind, {
+        k, v = on_card(*hard_layout(torch, gen, kind, {
             "r": ((hp, u, cr), ("rb",)), "s": ((hp, gp, u, cs), ("sb", "sc")),
-            "t": ((gp, ct), ("tc",))}, d)
-        k = {c: x.cuda() for c, x in k.items()}
-        v = {c: x.cuda() for c, x in v.items()}
+            "t": ((gp, ct), ("tc",))}, d))
         args = (k["rb"], v["r"], k["sb"], k["sc"], v["s"], k["tc"], v["t"])
         m = _masked(ops, [(k["rb"], v["r"], "r"), (k["sb"], v["s"], "s"),
                           (k["sc"], v["s"], "s"), (k["tc"], v["t"], "t")])
         cases.append(("fused_count3_linear",
                       lambda a=args: ops.fused_count3_linear(*a),
                       lambda m=m: ops._fused_linear_ref(*m)))
+        cases.append(("fused_per_r_counts",
+                      lambda a=args: ops.fused_per_r_counts(*a),
+                      lambda m=m: ops._fused_per_r_ref(*m)))
+    for (uh, ug, ch, cr, cs, ct), kind, d in STAR_HARD:
+        k, v = on_card(*hard_layout(torch, gen, kind, {
+            "r": ((uh, cr), ("rb",)), "s": ((ch, uh, ug, cs), ("sb", "sc")),
+            "t": ((ug, ct), ("tc",))}, d))
+        args = (k["rb"], v["r"], k["sb"], k["sc"], v["s"], k["tc"], v["t"])
+        m = _masked(ops, [(k["rb"], v["r"], "r"), (k["sb"], v["s"], "s"),
+                          (k["sc"], v["s"], "s"), (k["tc"], v["t"], "t")])
+        cases.append(("fused_count3_star",
+                      lambda a=args: ops.fused_count3_star(*a),
+                      lambda m=m: ops._fused_star_ref(*m)))
     for (hp, gp, uh, ug, fp, cr, cs, ct), kind, d in CYCLIC_HARD:
         k, v = hard_layout(torch, gen, kind, {
             "r": ((hp, gp, uh, ug, cr), ("rb", "ra")),
             "s": ((gp, fp, ug, cs), ("sb", "sc")),
             "t": ((hp, fp, uh, ct), ("tc", "ta"))}, d)
-        k = {c: x.cuda() for c, x in k.items()}
-        v = {c: x.cuda() for c, x in v.items()}
+        k, v = on_card(k, v)
         args = (k["ra"], k["rb"], v["r"], k["sb"], k["sc"], v["s"], k["tc"],
                 k["ta"], v["t"])
         m = _masked(ops, [(k[c], v[c[0]], c[0]) for c in

@@ -1,22 +1,22 @@
-// Shared device code of the fused partition-sweep kernels (Hopper, sm_90a).
+// Shared device code of the sorted-row join kernels (Hopper, sm_90a):
+// binary searches of sorted bucket rows (bound, count_equal), the per-cell
+// atomic adds of a warp (warp_add_by_cell, also used by the linear sweep
+// of linear_sweep.cuh), and sweep3_kernel, the bucket-row linear count of
+// the scan-driver baselines (bucket_linear.cu).  The fused sweeps of the
+// session's path probe hash tables instead (smem_hash.cuh, key_lists.cuh).
 //
-// The streamed relation S of the linear and star sweeps is a slot grid
-// [P, Q, W, cs] (row-major, int32 keys, invalid slots carry the S-side
-// sentinel).  Subsets of its three outer dimensions select the R bucket
-// and the T bucket a slot probes, and the output cell it adds to:
-//
-//   linear: S [hp, gp, u, Cs];  R bucket = (H, h) (P, W);  T bucket = g (Q);  cell = (H, h)
-//   star:   S [ch, uh, ug, Cs]; R bucket = h      (Q);     T bucket = g (W);  cell = (h, g)
-//
-// Design.  The R and T bucket rows arrive sorted (the wrapper sorts each
-// row once; a dead slot holds its side's sentinel, which sorts first and
-// equals no key).  So the multiplicity of a key in its bucket is the
-// distance between two binary searches of the row: about 2*log2(C)
-// dependent loads per live S slot instead of C compares.  One thread takes
-// one S slot; the slots of a warp probe the same few rows, so the top
-// levels of their searches are shared and served from L1, and a whole row
-// set (tens of MB) stays in the 50 MB L2.  A dead S slot costs its two
-// loads and nothing else.  The per-cell sums are reduced across the
+// sweep3_kernel streams a slot grid S [P, Q, W, cs] (row-major, int32
+// keys, invalid slots carry the S-side sentinel).  Subsets of its three
+// outer dimensions select the R bucket and the T bucket a slot probes,
+// and the output cell it adds to.  The R and T bucket rows arrive sorted
+// (the wrapper sorts each row once; a dead slot holds its side's sentinel,
+// which sorts first and equals no key).  So the multiplicity of a key in
+// its bucket is the distance between two binary searches of the row:
+// about 2*log2(C) dependent loads per live S slot instead of C compares.
+// One thread takes one S slot; the slots of a warp probe the same few
+// rows, so the top levels of their searches are shared and served from
+// L1, and a whole row set stays in the 50 MB L2.  A dead S slot costs its
+// two loads and nothing else.  The per-cell sums are reduced across the
 // warp's runs of equal cells and added with one int32 atomic per run
 // (int32 sums wrap identically in any order, so the value does not depend
 // on it).  The bound is the bytes: the S grid is read once (most of the

@@ -101,18 +101,33 @@ __device__ __forceinline__ void table_clear(K* key, unsigned* cnt, int n,
   }
 }
 
+// The slot of k, claimed (hash h) if k is new.
+template <typename K>
+__device__ __forceinline__ unsigned table_claim(K* key, unsigned mask, K k,
+                                                unsigned h) {
+  for (unsigned s = h & mask;; s = (s + 1) & mask) {
+    K old = key[s];
+    if (old == empty_of(key)) old = atomicCAS(key + s, empty_of(key), k);
+    if (old == empty_of(key) || old == k) return s;
+  }
+}
+
 // cnt[k] += c, claiming k's slot (hash h) if k is new.
 template <typename K>
 __device__ __forceinline__ void table_add(K* key, unsigned* cnt,
                                           unsigned mask, K k, unsigned h,
                                           unsigned c) {
+  atomicAdd(cnt + table_claim(key, mask, k, h), c);
+}
+
+// The slot of k, or -1 when k is absent.
+template <typename K>
+__device__ __forceinline__ int table_find(const K* key, unsigned mask, K k,
+                                          unsigned h) {
   for (unsigned s = h & mask;; s = (s + 1) & mask) {
-    K old = key[s];
-    if (old == empty_of(key)) old = atomicCAS(key + s, empty_of(key), k);
-    if (old == empty_of(key) || old == k) {
-      atomicAdd(cnt + s, c);
-      return;
-    }
+    const K v = key[s];
+    if (v == k) return (int)s;
+    if (v == empty_of(key)) return -1;
   }
 }
 
@@ -122,19 +137,17 @@ __device__ __forceinline__ unsigned table_get(const K* key,
                                               const unsigned* cnt,
                                               unsigned mask, K k,
                                               unsigned h) {
-  for (unsigned s = h & mask;; s = (s + 1) & mask) {
-    const K v = key[s];
-    if (v == k) return cnt[s];
-    if (v == empty_of(key)) return 0u;
-  }
+  const int s = table_find(key, mask, k, h);
+  return s < 0 ? 0u : cnt[s];
 }
 
 // A table of int2 entries (key, count) in global memory with any number n
 // of slots: a key's probe starts at slot (h * n) >> 32 and walks forward,
 // wrapping at n.  entry_add may run in any number of threads at once;
-// entry_count after a kernel boundary.  A slot, once claimed, keeps its
-// key, so a stale read of an empty slot only sends the claim to the CAS.
-__device__ __forceinline__ void entry_add(int2* tab, unsigned n, int k,
+// entry_count after a kernel boundary; entry_add returns whether it
+// claimed a new slot.  A slot, once claimed, keeps its key, so a stale read
+// of an empty slot only sends the claim to the CAS.
+__device__ __forceinline__ bool entry_add(int2* tab, unsigned n, int k,
                                           unsigned h, unsigned c) {
   for (unsigned s = __umulhi(h, n);; s = s + 1u == n ? 0u : s + 1u) {
     int* key = &tab[s].x;
@@ -142,7 +155,7 @@ __device__ __forceinline__ void entry_add(int2* tab, unsigned n, int k,
     if (old == kEmptyKey) old = atomicCAS(key, kEmptyKey, k);
     if (old == kEmptyKey || old == k) {
       atomicAdd(reinterpret_cast<unsigned*>(&tab[s].y), c);
-      return;
+      return old == kEmptyKey;
     }
   }
 }
@@ -154,6 +167,16 @@ __device__ __forceinline__ unsigned entry_count(const int2* tab, unsigned n,
     const int2 e = tab[s];
     if (e.x == k) return (unsigned)e.y;
     if (e.x == kEmptyKey) return 0u;
+  }
+}
+
+// The slot of k in a table of entry_add, or -1 when k is absent.
+__device__ __forceinline__ int entry_slot(const int2* tab, unsigned n, int k,
+                                          unsigned h) {
+  for (unsigned s = __umulhi(h, n);; s = s + 1u == n ? 0u : s + 1u) {
+    const int x = tab[s].x;
+    if (x == k) return (int)s;
+    if (x == kEmptyKey) return -1;
   }
 }
 

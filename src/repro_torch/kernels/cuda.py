@@ -14,11 +14,13 @@ raises on the ``cudaGetLastError()`` code the C function returns, and adds
 one to its launch counter (``LAUNCHES``).  Nothing here falls back to a
 plain version: a build or launch failure raises.
 
-The linear and pair-index sweeps take the raw key columns and their bool
-validity masks: their pre-passes drop dead slots and build the tables
-they probe in shared memory, so nothing is sorted or masked around them;
-the wrappers allocate the pre-passes' scratch.  The other join kernels'
-operands arrive sentinel-masked (``ops._mask``), so a slot holding its
+The fused sweeps of the session's path (linear, per-R, star and
+pair-index) take the raw key columns and their bool validity masks:
+their pre-passes drop dead slots and build the tables they probe, in
+shared memory where they fit, so nothing is sorted or masked around
+them; the wrappers allocate the pre-passes' scratch.  The baselines'
+join kernels (the bucket-row kernels and the all-pairs cyclic sweep)
+take sentinel-masked operands (``ops._mask``), so a slot holding its
 side's sentinel is dead and equals no key; their wrappers sort each
 bucket row that the kernels binary-search (R and T rows; the all-pairs
 sweeps' packed (b, c) and (a, c) keys).
@@ -67,16 +69,15 @@ _A = ctypes.POINTER(ctypes.c_longlong)   # a host array of int64
 # source stem -> (exported function, argtypes).  Pointer and stream
 # arguments are c_void_p and sizes c_longlong, so ctypes passes no pointer
 # as a 32-bit int.
-_SWEEP_ARGS = [_P, _P, _P, _P, _C, _I, _I, _I, _I, _I, _I, _P, _C, _P]
 _MERGE_ARGS = [_P, _P, _P, _P, _C, _C, _A, _A, _A, _A, _A, _I, _I, _I, _P,
                _C, _P]
+# the linear, per-R and star sweeps: seven operands (keys and validity),
+# six sizes, seven scratch tensors and the output
+_SWEEP_ARGS = [*[_P] * 7, *[_I] * 6, *[_P] * 8, _C, _P]
 _LIBS = {
-    "fused_linear": ("rj_fused_linear", [*[_P] * 7, *[_I] * 6, *[_P] * 8, _C,
-                                         _P]),
+    "fused_linear": ("rj_fused_linear", _SWEEP_ARGS),
     "fused_star": ("rj_fused_star", _SWEEP_ARGS),
-    "fused_per_r": ("rj_fused_per_r",
-                    [_P, _P, _P, _P, _P, _C, _I, _I, _I, _I, _I, _I, _P, _P,
-                     _C, _P]),
+    "fused_per_r": ("rj_fused_per_r", _SWEEP_ARGS),
     "fused_cyclic_pairidx": ("rj_fused_cyclic_pairidx",
                              [*[_P] * 9, *[_I] * 8, *[_P] * 7, _C, _P]),
     "fused_cyclic": ("rj_fused_cyclic", _MERGE_ARGS),
@@ -266,65 +267,77 @@ def _scratch(dev: torch.device, *shapes, zero=False) -> list:
     return [make(sh, dtype=torch.int32, device=dev) for sh in shapes]
 
 
-def fused_count3_linear(rb, rv, sb, sc, sv, tc, tv) -> torch.Tensor:
-    """rb [hp,u,Cr], sb/sc [hp,gp,u,Cs], tc [gp,Ct] int32 keys with their
-    bool validity rv, sv, tv (not masked) -> [hp, u] int32."""
-    hp, u, cr = rb.shape
-    _, gp, _, cs = sb.shape
-    ct = tc.shape[1]
-    dev = rb.device
-    b = torch.bool
-    _check("fused_count3_linear", torch.int32, dev, rb=(rb, (hp, u, cr)),
-           rv=(rv, (hp, u, cr), b), sb=(sb, (hp, gp, u, cs)),
-           sc=(sc, (hp, gp, u, cs)), sv=(sv, (hp, gp, u, cs), b),
-           tc=(tc, (gp, ct)), tv=(tv, (gp, ct), b))
-    out, rlen, tlen = _scratch(dev, (hp, u), (hp,), (gp,), zero=True)
-    # the pre-pass's (key, count) lists: per H (keyed by (h, b)), per g;
-    # and the global tables of the lists past the shared budgets, per
-    # (H, h) and per g (touched only for such lists)
+def _linear_scratch(dev, hp, gp, u, cr, ct) -> list:
+    """The linear and per-R pre-passes' scratch: (key, count) lists per H
+    (keyed by (h, b), with their h) and per g, their lengths (zeroed), and
+    the global tables of the lists past the shared budgets, per (H, h) and
+    per g (touched only for such lists)."""
     rkc, rsub, tkc, rtab, ttab = _scratch(
         dev, (hp, u * cr, 2), (hp, u * cr), (gp, ct, 2), (hp, u, 2 * cr, 2),
         (gp, 2 * ct, 2))
-    _launch("fused_count3_linear", "fused_linear", dev, *map(_ptr, (
-        rb, rv, sb, sc, sv, tc, tv)), hp, gp, u, cr, cs, ct,
-            *map(_ptr, (rkc, rsub, rlen, tkc, tlen, rtab, ttab, out)))
-    return out
+    rlen, tlen = _scratch(dev, (hp,), (gp,), zero=True)
+    return [rkc, rsub, rlen, tkc, tlen, rtab, ttab]
 
 
-def fused_per_r_counts(rb, sb, sc, tc) -> torch.Tensor:
-    """rb [hp,u,Cr], sb/sc [hp,gp,u,Cs], tc [gp,Ct] int32 (sentinel-masked)
-    -> [hp, u, Cr] int32."""
+def _check_linear(op, rb, rv, sb, sc, sv, tc, tv) -> tuple:
     hp, u, cr = rb.shape
     _, gp, _, cs = sb.shape
     ct = tc.shape[1]
+    b = torch.bool
+    _check(op, torch.int32, rb.device, rb=(rb, (hp, u, cr)),
+           rv=(rv, (hp, u, cr), b), sb=(sb, (hp, gp, u, cs)),
+           sc=(sc, (hp, gp, u, cs)), sv=(sv, (hp, gp, u, cs), b),
+           tc=(tc, (gp, ct)), tv=(tv, (gp, ct), b))
+    return hp, gp, u, cr, cs, ct
+
+
+def fused_count3_linear(rb, rv, sb, sc, sv, tc, tv) -> torch.Tensor:
+    """rb [hp,u,Cr], sb/sc [hp,gp,u,Cs], tc [gp,Ct] int32 keys with their
+    bool validity rv, sv, tv (not masked) -> [hp, u] int32."""
+    op = "fused_count3_linear"
+    hp, gp, u, cr, cs, ct = _check_linear(op, rb, rv, sb, sc, sv, tc, tv)
     dev = rb.device
-    _check("fused_per_r_counts", torch.int32, dev, rb=(rb, (hp, u, cr)),
-           sb=(sb, (hp, gp, u, cs)), sc=(sc, (hp, gp, u, cs)),
-           tc=(tc, (gp, ct)))
-    out = torch.empty((hp, u, cr), dtype=torch.int32, device=dev)
-    acc = torch.zeros((hp, u, cr), dtype=torch.int32, device=dev)
-    r_sorted, t_sorted = _sorted_rows(rb), _sorted_rows(tc)
-    _launch("fused_per_r_counts", "fused_per_r", dev, _ptr(rb),
-            _ptr(r_sorted), _ptr(sb), _ptr(sc), _ptr(t_sorted), _SENT["s"],
-            hp, gp, u, cr, cs, ct, _ptr(acc), _ptr(out))
+    out = torch.zeros((hp, u), dtype=torch.int32, device=dev)
+    _launch(op, "fused_linear", dev, *map(_ptr, (rb, rv, sb, sc, sv, tc, tv)),
+            hp, gp, u, cr, cs, ct,
+            *map(_ptr, (*_linear_scratch(dev, hp, gp, u, cr, ct), out)))
     return out
 
 
-def fused_count3_star(rb, sb, sc, tc) -> torch.Tensor:
-    """rb [uh,Cr], sb/sc [ch,uh,ug,Cs], tc [ug,Ct] int32 (sentinel-masked)
-    -> [uh, ug] int32."""
+def fused_per_r_counts(rb, rv, sb, sc, sv, tc, tv) -> torch.Tensor:
+    """Same operands as ``fused_count3_linear`` -> [hp, u, Cr] int32."""
+    op = "fused_per_r_counts"
+    hp, gp, u, cr, cs, ct = _check_linear(op, rb, rv, sb, sc, sv, tc, tv)
+    dev = rb.device
+    out = torch.empty((hp, u, cr), dtype=torch.int32, device=dev)
+    _launch(op, "fused_per_r", dev, *map(_ptr, (rb, rv, sb, sc, sv, tc, tv)),
+            hp, gp, u, cr, cs, ct,
+            *map(_ptr, (*_linear_scratch(dev, hp, gp, u, cr, ct), out)))
+    return out
+
+
+def fused_count3_star(rb, rv, sb, sc, sv, tc, tv) -> torch.Tensor:
+    """rb [uh,Cr], sb/sc [ch,uh,ug,Cs], tc [ug,Ct] int32 keys with their
+    bool validity rv, sv, tv (not masked) -> [uh, ug] int32."""
+    op = "fused_count3_star"
     uh, cr = rb.shape
     ch, _, ug, cs = sb.shape
     ct = tc.shape[1]
     dev = rb.device
-    _check("fused_count3_star", torch.int32, dev, rb=(rb, (uh, cr)),
+    b = torch.bool
+    _check(op, torch.int32, dev, rb=(rb, (uh, cr)), rv=(rv, (uh, cr), b),
            sb=(sb, (ch, uh, ug, cs)), sc=(sc, (ch, uh, ug, cs)),
-           tc=(tc, (ug, ct)))
-    out = torch.zeros((uh, ug), dtype=torch.int32, device=dev)
-    r_sorted, t_sorted = _sorted_rows(rb), _sorted_rows(tc)
-    _launch("fused_count3_star", "fused_star", dev, _ptr(r_sorted), _ptr(sb),
-            _ptr(sc), _ptr(t_sorted), _SENT["s"], ch, uh, ug, cr, cs, ct,
-            _ptr(out))
+           sv=(sv, (ch, uh, ug, cs), b), tc=(tc, (ug, ct)),
+           tv=(tv, (ug, ct), b))
+    out, rlen, tlen, tdist = _scratch(dev, (uh, ug), (uh,), (ug,), (ug,),
+                                      zero=True)
+    # the pre-pass's (key, count) lists per R and T row, and their global
+    # tables (every R row's; T's past the sweep's shared table)
+    rkc, tkc, rtab, ttab = _scratch(dev, (uh, cr, 2), (ug, ct, 2),
+                                    (uh, 2 * cr, 2), (ug, 2 * ct, 2))
+    _launch(op, "fused_star", dev, *map(_ptr, (rb, rv, sb, sc, sv, tc, tv)),
+            ch, uh, ug, cr, cs, ct,
+            *map(_ptr, (rkc, rlen, tkc, tlen, tdist, rtab, ttab, out)))
     return out
 
 

@@ -17,9 +17,10 @@ Three families:
 
 Each public op masks invalid slots with per-side sentinels (so an invalid
 slot can never equal anything on another side) and then dispatches on the
-device of its tensors (the kernels of ``fused_count3_linear`` and of the
-pair-index ``fused_count3_cyclic`` read the validity masks themselves, so
-only their plain versions mask):
+device of its tensors (the kernels of the fused ops of the session's path,
+``fused_count3_linear``, ``fused_per_r_counts``, ``fused_count3_star`` and
+the pair-index ``fused_count3_cyclic``, read the validity masks
+themselves, so only their plain versions mask):
 
   * a CUDA tensor launches the hand-written Hopper kernel
     (``kernels.cuda``); a kernel that fails to build or launch raises —
@@ -389,15 +390,15 @@ def fused_count3_linear(rb, rv, sb, sc, sv, tc, tv):
 
 
 def fused_per_r_counts(rb, rv, sb, sc, sv, tc, tv):
-    """Fused per-R-slot counts [hp, u, Cr] int32 (Example 1 aggregate)."""
-    rb = _mask(rb, rv, "r")
-    sb = _mask(sb, sv, "s")
-    sc = _mask(sc, sv, "s")
-    tc = _mask(tc, tv, "t")
+    """Fused per-R-slot counts [hp, u, Cr] int32 (Example 1 aggregate); 0
+    for a dead R slot.  The kernel reads the validity masks itself; the
+    plain version masks."""
     if _on_cuda(rb, "fused_per_r_counts"):
         from repro_torch.kernels import cuda
-        return cuda.fused_per_r_counts(rb, sb, sc, tc)
-    return _fused_per_r_ref(rb, sb, sc, tc)
+        return cuda.fused_per_r_counts(*_contiguous(rb, rv, sb, sc, sv, tc,
+                                                    tv))
+    return _fused_per_r_ref(_mask(rb, rv, "r"), _mask(sb, sv, "s"),
+                            _mask(sc, sv, "s"), _mask(tc, tv, "t"))
 
 
 def fused_count3_cyclic(ra, rb, rv, sb, sc, sv, tc, ta, tv, *,
@@ -430,15 +431,15 @@ def fused_count3_cyclic(ra, rb, rv, sb, sc, sv, tc, ta, tv, *,
 
 
 def fused_count3_star(rb, rv, sb, sc, sv, tc, tv):
-    """Fused star sweep: per-PMU counts [uh, ug] int32."""
-    rb = _mask(rb, rv, "r")
-    sb = _mask(sb, sv, "s")
-    sc = _mask(sc, sv, "s")
-    tc = _mask(tc, tv, "t")
+    """Fused star sweep: per-PMU counts [uh, ug] int32, summed over the
+    fact table's chunks.  The kernel reads the validity masks itself; the
+    plain version masks."""
     if _on_cuda(rb, "fused_count3_star"):
         from repro_torch.kernels import cuda
-        return cuda.fused_count3_star(rb, sb, sc, tc)
-    return _fused_star_ref(rb, sb, sc, tc)
+        return cuda.fused_count3_star(*_contiguous(rb, rv, sb, sc, sv, tc,
+                                                   tv))
+    return _fused_star_ref(_mask(rb, rv, "r"), _mask(sb, sv, "s"),
+                           _mask(sc, sv, "s"), _mask(tc, tv, "t"))
 
 
 # --------------------------------------------------------------------------

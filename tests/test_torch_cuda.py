@@ -92,6 +92,34 @@ def test_wrappers_check_their_inputs(card):
                                  .transpose(2, 3), sv, tc, tv)
     with pytest.raises(ValueError, match="cpu"):
         cuda.fused_count3_linear(rb, rv, sb, sb, sv, tc.cpu(), tv)
+    # the per-R sweep takes the linear sweep's operands
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.fused_per_r_counts(rb, rv, sb, sb, sv.int(), tc, tv)
+    with pytest.raises(ValueError, match="shape"):
+        cuda.fused_per_r_counts(rb, rv[..., :4].contiguous(), sb, sb, sv, tc,
+                                tv)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda.fused_per_r_counts(rb.transpose(1, 2).contiguous()
+                                .transpose(1, 2), rv, sb, sb, sv, tc, tv)
+    with pytest.raises(ValueError, match="cpu"):
+        cuda.fused_per_r_counts(rb, rv, sb, sb, sv, tc, tv.cpu())
+    # star: R [uh, Cr], S [chunks, uh, ug, Cs], T [ug, Ct]
+    sr = torch.zeros((2, 8), dtype=torch.int32, device=card)
+    ss = torch.zeros((1, 2, 3, 8), dtype=torch.int32, device=card)
+    st = torch.zeros((3, 8), dtype=torch.int32, device=card)
+    srv, ssv, stv = sr != 0, ss != 0, st != 0
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.fused_count3_star(sr, srv, ss, ss.long(), ssv, st, stv)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.fused_count3_star(sr, srv, ss, ss, ssv, st, st)
+    with pytest.raises(ValueError, match="shape"):
+        cuda.fused_count3_star(sr, srv, ss, ss, ssv, st[:2].contiguous(),
+                               stv)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda.fused_count3_star(sr, srv, ss, ss, ssv.transpose(2, 3)
+                               .contiguous().transpose(2, 3), st, stv)
+    with pytest.raises(ValueError, match="cpu"):
+        cuda.fused_count3_star(sr.cpu(), srv, ss, ss, ssv, st, stv)
     r = torch.zeros((1, 1, 1, 1, 8), dtype=torch.int32, device=card)
     s = torch.zeros((1, 1, 1, 8), dtype=torch.int32, device=card)
     t = torch.zeros((1, 1, 1, 8), dtype=torch.int32, device=card)

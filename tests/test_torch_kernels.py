@@ -131,7 +131,8 @@ def _hard_layout(rng, kind, sides, d):
     every row, 90% live; "hot": every key 7 and every slot live, so the
     cell counts pass 2^32 and wrap; "dead": whole rows and buckets dead on
     every side; "long" / "unaligned": uniform keys with a hot key, 80%
-    live; any other kind ("a200", "a600"): uniform keys, 80% live."""
+    live; any other kind ("a200", "a600", "chunks"): uniform keys, 80%
+    live."""
     keys, valid = {}, {}
     for side, (shape, cols) in sides.items():
         for n, col in enumerate(cols):
@@ -184,6 +185,64 @@ def test_fused_linear_hard_layouts_match_reference(case):
                                                  use_kernel=True)))
     if kind == "hot":   # every cell passes 2^32 and wraps as int32
         live = int(v["s"].sum(axis=(1, 3))[0, 0])
+        assert got[0, 0] == np.int64(cr * ct * live).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", LINEAR_HARD, ids=lambda c: c[1])
+def test_fused_per_r_hard_layouts_match_reference(case):
+    """The per-R sweep on the linear sweep's layouts (same operands): a
+    live R slot's sum, 0 for a dead one."""
+    (hp, gp, u, cr, cs, ct), kind, d = case
+    rng = np.random.default_rng(300 + cr + cs)
+    k, v = _hard_layout(rng, kind, {
+        "r": ((hp, u, cr), ("rb",)), "s": ((hp, gp, u, cs), ("sb", "sc")),
+        "t": ((gp, ct), ("tc",))}, d)
+    args = (k["rb"], v["r"], k["sb"], k["sc"], v["s"], k["tc"], v["t"])
+    got = ops.fused_per_r_counts(*_t(*args)).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.fused_per_r_counts(*_j(*args))))
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.fused_per_r_counts(*_j(*args),
+                                                use_kernel=True)))
+    if kind == "hot":   # every live S slot of the row adds all of T
+        live = int(v["s"].sum(axis=(1, 3))[0, 0])
+        assert (got == ct * live).all()
+    if kind == "dead":
+        assert (got[~v["r"]] == 0).all()
+
+
+# (uh, ug, chunks, Cr, Cs, Ct, kind, key range per column): R and T rows
+# of distinct keys past 4,096 a row; one hot key with 2000 x 2200 x 1000
+# per cell (int32 wrap-around); dead rows and chunks; an S cell of 9,003
+# slots; capacities 1, 129 and 257; four chunks summed into each cell
+STAR_HARD = [
+    ((1, 2, 1, 4600, 300, 5000), "distinct",
+     dict(rb=10_000, sb=10_000, sc=10_000, tc=10_000)),
+    ((1, 1, 1, 2000, 1000, 2200), "hot", dict(rb=1, sb=1, sc=1, tc=1)),
+    ((3, 4, 2, 20, 9, 40), "dead", dict(rb=7, sb=7, sc=7, tc=7)),
+    ((2, 2, 1, 10, 9003, 50), "long", dict(rb=9, sb=9, sc=9, tc=9)),
+    ((3, 2, 1, 1, 129, 257), "unaligned", dict(rb=3, sb=3, sc=3, tc=3)),
+    ((2, 3, 4, 30, 70, 40), "chunks", dict(rb=11, sb=11, sc=11, tc=11)),
+]
+
+
+@pytest.mark.parametrize("case", STAR_HARD, ids=lambda c: c[1])
+def test_fused_star_hard_layouts_match_reference(case):
+    (uh, ug, ch, cr, cs, ct), kind, d = case
+    rng = np.random.default_rng(500 + cr + cs)
+    k, v = _hard_layout(rng, kind, {
+        "r": ((uh, cr), ("rb",)), "s": ((ch, uh, ug, cs), ("sb", "sc")),
+        "t": ((ug, ct), ("tc",))}, d)
+    args = (k["rb"], v["r"], k["sb"], k["sc"], v["s"], k["tc"], v["t"])
+    got = ops.fused_count3_star(*_t(*args)).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.fused_count3_star(*_j(*args))))
+    # the Pallas kernel in interpret mode
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.fused_count3_star(*_j(*args),
+                                               use_kernel=True)))
+    if kind == "hot":   # cr x ct x live passes 2^32 and wraps as int32
+        live = int(v["s"].sum())
         assert got[0, 0] == np.int64(cr * ct * live).astype(np.int32)
 
 

@@ -1,29 +1,32 @@
 #!/usr/bin/env python3
-"""Time the linear and pair-index join kernels of one checkout on the card.
+"""Time the join kernels of one checkout on the card.
 
     python3 tools/join_timing.py [--tree DIR] [--tag NAME] [--seed N]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout) and the
 smoke's data and layout helpers from this checkout's ``chip_smoke.py``.
 Builds the smoke's data (``chip_smoke.make_data``: Q1's 4e6 edges over
-14,000 users, Q5's four 1e6-row relations over 1e6 keys), runs Q1
-(linear, ``strategy="3way"``), Q3 (triangles), Q4 (skewed linear) and Q5
-(the 4-relation chain, ``strategy="3way"``: a binary join feeding a
-linear 3-way step whose R and T rows hold ~10,000 distinct keys each)
-through ``JoinSession(m_budget=16384).execute`` once to plan them, then
-times the op as the main path calls it (``ops.fused_count3_linear`` /
-``ops.fused_count3_cyclic`` on raw columns plus validity) at four
-layouts: Q1's and Q3's round 1 (``chip_smoke.first_round_layout``), Q5's
-linear step (its arguments as the execute passed them), and "Q3 shape,
-600 a": Q3's round-1 shape filled with uniform seeded keys (``chip_smoke
-.hard_layout``) so that each T row holds ~600 distinct a (the pair-index
-kernel's multimap tier, past its bit rows' 256).  Per layout: ``op_ms``
-(median of 5 CUDA-event timings after a warm-up call), ``kernel_ms`` (the
-device time of the kernels one call launches, ``chip_smoke.kernel_ms``;
-null when the trace is incomplete), each kernel's ms by name and the
-sum of the counts (equal across trees).  Then the warm execute seconds of
-Q1, Q3, Q4 and Q5 (median of 5 after the planning call).  Prints the
-card's name and power limit first.
+14,000 users, Q2's star of a 2e7-row fact table, Q5's four 1e6-row
+relations over 1e6 keys, Q6's 1e6 edges over 3,500 users), runs Q1
+(linear, ``strategy="3way"``), Q2 (star, ``"3way"``), Q3 (triangles), Q4
+(skewed linear), Q5 (the 4-relation chain, ``strategy="3way"``: a binary
+join feeding a linear 3-way step whose R and T rows hold ~10,000
+distinct keys each) and Q6 (per-R, ``per_r=True``) through
+``JoinSession(m_budget=16384).execute`` once to plan them, then times
+the op as the main path calls it (``ops.fused_*`` on raw columns plus
+validity) at these layouts: the linear op at Q1's round 1
+(``chip_smoke.first_round_layout``) and at Q5's linear step (its
+arguments as the execute passed them); the per-R op at Q6's and Q1's
+round 1; the star op at Q2's round 1; the pair-index op at Q3's round 1
+and at "Q3 shape, 600 a": Q3's round-1 shape filled with uniform seeded
+keys (``chip_smoke.hard_layout``) so that each T row holds ~600
+distinct a (the pair-index kernel's multimap tier, past its bit rows'
+256).  Per layout: ``op_ms`` (median of 5 CUDA-event timings after a
+warm-up call), ``kernel_ms`` (the device time of the kernels one call
+launches, ``chip_smoke.kernel_ms``; null when the trace is incomplete),
+each kernel's ms by name and the sum of the counts (equal across trees).
+Then the warm execute seconds of Q1-Q6 (median of 5 after the planning
+call).  Prints the card's name and power limit first.
 
 To compare two trees on one card, run them in turns in one call, e.g. a
 parent exported with ``git archive`` into a git-ignored directory:
@@ -85,21 +88,29 @@ def main() -> int:
 
     data = smoke.make_data(args.seed)
     F, F4 = relation_from_numpy(data["F"]), relation_from_numpy(data["F4"])
+    F6 = relation_from_numpy(data["F6"])
     lin = [("f1.dst", "f2.src"), ("f2.dst", "f3.src")]
     queries = {"Q1": Query({"f1": F, "f2": F, "f3": F}, lin),
+               "Q2": Query({k: relation_from_numpy(v)
+                            for k, v in data["star"].items()},
+                           [("r.b", "s.b"), ("s.c", "t.c")]),
                "Q3": Query({"f1": F, "f2": F, "f3": F},
                            lin + [("f3.dst", "f1.src")]),
                "Q4": Query({"f1": F4, "f2": F4, "f3": F4}, lin),
                "Q5": Query({k: relation_from_numpy(v)
                             for k, v in data["chain"].items()},
                            [("r1.b", "r2.b"), ("r2.c", "r3.c"),
-                            ("r3.d", "r4.d")])}
-    strategy = {"Q1": "3way", "Q3": "default", "Q4": "3way", "Q5": "3way"}
+                            ("r3.d", "r4.d")]),
+               "Q6": Query({"f1": F6, "f2": F6, "f3": F6}, lin)}
+    strategy = {"Q1": "3way", "Q2": "3way", "Q3": "default", "Q4": "3way",
+                "Q5": "3way", "Q6": "default"}
+    extra = {"Q6": dict(per_r=True, key_col="src")}
     sess = JoinSession(m_budget=smoke.M_BUDGET)
     results, execute = {}, {}
     for label, q in queries.items():
         kw = {} if strategy[label] == "default" else {
             "strategy": strategy[label]}
+        kw.update(extra.get(label, {}))
         res, _ = smoke.timed_execute(torch, sess, q, **kw)
         results[label, strategy[label]] = res
         warm = [smoke.timed_execute(torch, sess, q, **kw)[1]
@@ -108,23 +119,30 @@ def main() -> int:
                           "warm_median_s": statistics.median(warm),
                           "warm_s": warm}
 
+    def raw(label, names):
+        """The raw columns named by ``names`` and the three validity masks
+        of ``label``'s round-1 layout, in the op's argument order."""
+        _, (rg, sg, tg), cols = smoke.first_round_layout(
+            results, queries, label, strategy[label])
+        side = {"r": rg, "s": sg, "t": tg}
+        out = []
+        for i, n in enumerate(names):
+            out.append(side[n[0]].columns[cols[n]])
+            if i + 1 == len(names) or names[i + 1][0] != n[0]:
+                out.append(side[n[0]].valid)   # after the side's last column
+        return tuple(out)
+
     def layouts():
         """(label, op name, op args) of each timed layout."""
-        for label in ("Q1", "Q3"):
-            _, (rg, sg, tg), cols = smoke.first_round_layout(
-                results, queries, label, strategy[label])
-            if label == "Q1":
-                yield label + " round 1", "fused_count3_linear", (
-                    rg.columns[cols["rb"]], rg.valid, sg.columns[cols["sb"]],
-                    sg.columns[cols["sc"]], sg.valid, tg.columns[cols["tc"]],
-                    tg.valid)
-            else:
-                shape3 = (rg.valid.shape, sg.valid.shape, tg.valid.shape)
-                yield label + " round 1", "fused_count3_cyclic_pairidx", (
-                    rg.columns[cols["ra"]], rg.columns[cols["rb"]], rg.valid,
-                    sg.columns[cols["sb"]], sg.columns[cols["sc"]], sg.valid,
-                    tg.columns[cols["tc"]], tg.columns[cols["ta"]], tg.valid)
-            del rg, sg, tg
+        lin_cols = ("rb", "sb", "sc", "tc")
+        yield "Q1 round 1", "fused_count3_linear", raw("Q1", lin_cols)
+        yield "Q1 round 1", "fused_per_r_counts", raw("Q1", lin_cols)
+        yield "Q6 round 1", "fused_per_r_counts", raw("Q6", lin_cols)
+        yield "Q2 round 1", "fused_count3_star", raw("Q2", lin_cols)
+        a = raw("Q3", ("ra", "rb", "sb", "sc", "tc", "ta"))
+        shape3 = (a[2].shape, a[5].shape, a[8].shape)
+        yield "Q3 round 1", "fused_count3_cyclic_pairidx", a
+        del a
         # Q5's linear step: the arguments of its call in one execute
         calls, op = [], ops.fused_count3_linear
 
@@ -151,14 +169,16 @@ def main() -> int:
             k["ra"], k["rb"], v["r"], k["sb"], k["sc"], v["s"], k["tc"],
             k["ta"], v["t"])
 
+    op_of = {"fused_count3_linear": ops.fused_count3_linear,
+             "fused_per_r_counts": ops.fused_per_r_counts,
+             "fused_count3_star": ops.fused_count3_star,
+             "fused_count3_cyclic_pairidx": ops.fused_count3_cyclic}
     for label, name, a in layouts():
-        fn = (ops.fused_count3_linear if name == "fused_count3_linear"
-              else ops.fused_count3_cyclic)
+        fn = op_of[name]
 
         def run(a=a, fn=fn):
             return fn(*a)
-        valid = (a[1], a[4], a[6]) if fn is ops.fused_count3_linear else (
-            a[2], a[5], a[8])
+        valid = [x for x in a if x.dtype == torch.bool]
         shape = {side: list(x.shape) for side, x in zip("rst", valid)}
         total = int(run().to(torch.int64).sum())
         t0 = time.perf_counter()
