@@ -15,10 +15,11 @@ result line):
      on seeded layouts: the join kernels exactly (unaligned capacities,
      invalid slots, hot keys, shared bucket rows, 1 x 1 edge cases; for the
      linear, per-R, pair-index and star kernels also ``LINEAR_HARD`` /
-     ``CYCLIC_HARD`` / ``STAR_HARD``: rows of distinct keys past their
-     shared-memory tables' budgets, a hot key whose cell counts wrap
-     int32, dead rows, buckets and chunks, long S buckets, unaligned
-     capacities), the
+     ``CYCLIC_HARD`` / ``STAR_HARD``, and for the bucket-row linear and
+     per-R kernels ``BUCKET_HARD`` in both scans' layouts: rows of distinct
+     keys past their shared-memory tables' budgets, a hot key whose cell
+     counts wrap int32, dead rows, buckets and chunks, long S buckets,
+     unaligned capacities), the
      radix histogram exactly (n not a multiple of the block, bucket counts
      on both sides of the shared-memory limit), the flash forward within
      ``FLASH_TOL`` (the flash kernel tests' cases, ragged S, D = 128 and
@@ -44,7 +45,8 @@ result line):
      dead) at 4,096 and 65,536 buckets, exact against the plain version,
      the counter zeroed before the phase;
   7. timings — each join kernel at its layout (the main path's first
-     round; the baselines' first step) and the radix kernel at Q1's
+     round; the baselines' first step, and the linear scan kernel also at
+     B2's, printed) and the radix kernel at Q1's
      keys, against its plain version (exact) and its bound: ``ms`` one op
      call as the main path makes it, ``kernel_ms`` the device time of the
      kernels that call launches (``torch.profiler`` after its warm-up
@@ -369,10 +371,61 @@ def hard_join_cases(torch, ops, gen):
     return cases
 
 
+# (scan layout, its sizes, kind, key range per column): the linear
+# scans' rows R [1, u, Cr] shared along g, S [gp, u, Cs], T [gp, 1, Ct]
+# shared along h; the star scan's R [uh, 1, Cr], S [uh, ug, Cs], T
+# [1, ug, Ct].  Kinds as ``hard_layout``'s, on the distinct rows (dead:
+# the whole shared R row h = 0 and T row 0, every bucket of g = 0 or h = 0,
+# and the last slot or bucket of every second row); "shared_r": keys of
+# three values, so one R slot of a row shared along g gets different sums
+# in different g buckets.  R lists of ~2,700 and ~9,000 keys and T rows
+# of ~8,100 and ~10,800 distinct keys pass the sweeps' shared budgets
+# (128 list entries, 2,048 and 4,096 keys); hot keys wrap the count (and,
+# at Cs x Ct = 4.5e9, the per-R sums); S rows of 20,003 and 9,000 slots
+# take the split sweep (from 8,192); capacities 1 and 4,097.
+BUCKET_HARD = [
+    ("linear", (3, 4, 3000, 700, 9000), "distinct",
+     dict(rb=20_000, sb=20_000, sc=20_000, tc=20_000)),
+    ("star", (2, 3, 10_000, 3000, 12_000), "distinct",
+     dict(rb=40_000, sb=40_000, sc=40_000, tc=40_000)),
+    ("linear", (2, 2, 3000, 60, 30_000), "hot", dict(rb=1, sb=1, sc=1, tc=1)),
+    ("star", (1, 2, 3000, 9000, 500_000), "hot",
+     dict(rb=1, sb=1, sc=1, tc=1)),
+    ("linear", (4, 5, 40, 33, 500), "dead", dict(rb=13, sb=13, sc=13, tc=13)),
+    ("star", (3, 4, 40, 33, 500), "dead", dict(rb=13, sb=13, sc=13, tc=13)),
+    ("linear", (2, 3, 50, 3001, 700), "long", dict(rb=31, sb=31, sc=31, tc=31)),
+    ("star", (2, 2, 50, 20_003, 700), "long",
+     dict(rb=31, sb=31, sc=31, tc=31)),
+    ("linear", (3, 5, 1, 129, 4097), "unaligned", dict(rb=3, sb=3, sc=3, tc=3)),
+    ("star", (3, 2, 4097, 9000, 1), "unaligned", dict(rb=3, sb=3, sc=3, tc=3)),
+    ("linear", (4, 3, 20, 50, 60), "shared_r", dict(rb=3, sb=3, sc=3, tc=3)),
+]
+
+
+def bucket_layout(torch, gen, layout, sizes, kind, d):
+    """The seven operands (rb, rv, sb, sc, sv, tc, tv) of a ``BUCKET_HARD``
+    case on the CPU, shaped as its scan passes them.  The keys and
+    validity come from ``hard_layout`` on the distinct rows (R [n, Cr], S
+    [P, Q, Cs], T [m, Ct]); the shared rows get their size-1 dimension
+    after."""
+    a, b, cr, cs, ct = sizes
+    n_r, n_t = (b, a) if layout == "linear" else (a, b)
+    k, v = hard_layout(torch, gen, kind, {
+        "r": ((n_r, cr), ("rb",)), "s": ((a, b, cs), ("sb", "sc")),
+        "t": ((n_t, ct), ("tc",))}, d)
+    if layout == "linear":   # R [1, u] shared along g, T [gp, 1] along h
+        r_of, t_of = (lambda x: x[None]), (lambda x: x[:, None])
+    else:                    # R [uh, 1] shared along g, T [1, ug] along h
+        r_of, t_of = (lambda x: x[:, None]), (lambda x: x[None])
+    return (r_of(k["rb"]), r_of(v["r"]), k["sb"], k["sc"], v["s"],
+            t_of(k["tc"]), t_of(v["t"]))
+
+
 def bucket_cases(torch, ops, gen):
     """The bucket-row kernels of the baselines, on [*batch, C] rows whose
     size-1 batch dimensions share one row (as the scan drivers pass them)
-    and on plain [B, C] rows."""
+    and on plain [B, C] rows; the linear and per-R kernels also on
+    ``BUCKET_HARD``."""
     cases = []
     # (ka batch, kb batch, Ca, Cb, key range, hot)
     for ba, bb, ca, cb, d, hot in [((7,), (7,), 37, 130, 11, True),
@@ -398,6 +451,18 @@ def bucket_cases(torch, ops, gen):
         sc, _ = _grid(torch, gen, (*bs, cs), d, hot)
         tc, tv = _grid(torch, gen, (*bt, ct), d, hot)
         args = (rb, rv, sb, sc, sv, tc, tv)
+        m = _masked(ops, [(rb, rv, "r"), (sb, sv, "s"), (sc, sv, "s"),
+                          (tc, tv, "t")])
+        cases.append(("bucket_count3_linear",
+                      lambda a=args: ops.bucket_count3_linear(*a),
+                      lambda m=m: ops._bucket_linear_ref(*m)))
+        cases.append(("bucket_per_r_counts",
+                      lambda a=args: ops.bucket_per_r_counts(*a),
+                      lambda m=m: ops._bucket_per_r_ref(*m)))
+    for layout, sizes, kind, d in BUCKET_HARD:
+        args = tuple(x.cuda() for x in bucket_layout(torch, gen, layout,
+                                                     sizes, kind, d))
+        rb, rv, sb, sc, sv, tc, tv = args
         m = _masked(ops, [(rb, rv, "r"), (sb, sv, "s"), (sc, sv, "s"),
                           (tc, tv, "t")])
         cases.append(("bucket_count3_linear",
@@ -1264,6 +1329,7 @@ def baseline_phase(torch, data, main_rows, queries, want, key_sums, seed):
     def b2():
         res, plan = reference.star3_count_auto(st["r"], st["s"], st["t"],
                                                plan0, **STAR)
+        layouts["star"] = plan
         return {"count": int(res.count), "overflowed": bool(res.overflowed),
                 "tuples_read": int(res.tuples_read),
                 "retries": retries(plan0, plan), "plan": list(plan)}
@@ -1384,7 +1450,7 @@ def baseline_phase(torch, data, main_rows, queries, want, key_sums, seed):
     for name in cuda.BASELINE_KERNELS:
         if launches[name] <= 0:
             fail(f"{name} was never launched in the baseline phase")
-    layouts["relations"] = {"F": F, "F6": F6}
+    layouts["relations"] = {"F": F, "F6": F6, "star": st}
     return rows, launches, layouts
 
 
@@ -1394,7 +1460,7 @@ def baseline_kernel_phase(torch, ops, errs, launches, layouts):
     against its plain version and its bound (as in ``kernel_phase``; the
     all-pairs cyclic kernels add, per live R slot, the steps of its merge
     over the S run with b = r.b and the T run with a = r.a)."""
-    from repro_torch.core import cyclic3, linear3, partition
+    from repro_torch.core import cyclic3, linear3, partition, star3
     lines = []
 
     def live(x, side):
@@ -1432,6 +1498,28 @@ def baseline_kernel_phase(torch, ops, errs, launches, layouts):
         record(name, f"first H partition of the final plan {list(plan)}",
                lambda k=kern, a=args: k(*a), lambda p=plain, m=m: p(*m),
                nbytes(*m) + out_b, n_steps)
+        del args, m
+
+    # the linear scan kernel also at B2's first S chunk, the star scan's
+    # layout (printed, not in the kernels line)
+    plan = layouts["star"]
+    st = rels["star"]
+    rg, sg, tg = star3.layouts(st["r"], st["s"], st["t"], plan, **STAR)
+    args = (rg.columns["b"][:, None], rg.valid[:, None], sg.columns["b"][0],
+            sg.columns["c"][0], sg.valid[0], tg.columns["c"][None],
+            tg.valid[None])
+    rb, rv, sb, sc, sv, tc, tv = args
+    m = _masked(ops, [(rb, rv, "r"), (sb, sv, "s"), (sc, sv, "s"),
+                      (tc, tv, "t")])
+    n_s = live(m[1], "s")                                  # [uh, ug]
+    lg_r, lg_t = steps(m[0], "r"), steps(m[3], "t")        # [uh, 1], [1, ug]
+    record("bucket_count3_linear",
+           f"B2's first S chunk of the final plan {list(plan)}",
+           lambda: ops.bucket_count3_linear(*args),
+           lambda: ops._bucket_linear_ref(*m),
+           nbytes(*m) + n_s.numel() * 4,
+           int((n_s * 2 * (lg_r + lg_t)).sum()), line=False)
+    del args, m, rg, sg, tg
 
     # the all-pairs cyclic kernels at B4's final plan (the fused sweep also
     # at Q3's graph, printed, not in the kernels line)

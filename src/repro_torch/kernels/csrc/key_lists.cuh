@@ -1,18 +1,22 @@
-// The pre-pass of the linear, per-R and star join sweeps (Hopper, sm_90a):
-// each probed bucket row becomes a compact (key, count) list, and a list
+// The pre-pass of the hash-table join sweeps (Hopper, sm_90a): the fused
+// linear, per-R and star sweeps and the bucket-row sweeps of the baselines.
+// Each probed bucket row becomes a compact (key, count) list, and a list
 // longer than its sweep's shared budget also a hash table in global memory.
 //
 //   count_keys: the live slots of each row of keys [rows, c] (validity read
-//     here, nothing masked) become (key, count) entries at the front of
-//     the row's list, in any order.  Block = (row, segment of kCountSeg
-//     slots): a segment counts its keys in a shared table (lanes with equal
+//     here, nothing masked; a key is loaded only where its slot is live, so
+//     a row's dead tail costs its validity bytes) become (key, count)
+//     entries at the front of the row's list, in any order.  Block = (row,
+//     segment of kCountSeg slots): a segment with no live slot ends at
+//     once; otherwise it counts its keys in a shared table (lanes with equal
 //     keys combine first), so a key of several segments appears once for
-//     each, and a list is about as long as its row's keys are distinct
-//     per segment;
+//     each, and a list is about as long as its row's keys are distinct per
+//     segment;
 //   spill: the lists longer than a budget go into global tables of
 //     smem_hash.cuh's entry_add (twice the row's slots, so at most half
 //     full), merging a key's entries; spill_fill_kernel can also count the
-//     distinct keys of each such row.
+//     distinct keys of each such row.  clear_tables empties those tables
+//     alone, for a caller that fills them otherwise.
 #pragma once
 
 #include <algorithm>
@@ -53,12 +57,17 @@ count_keys_kernel(const int* __restrict__ keys,
   const int k1 = (int)min(c, (long long)k0 + kCountSeg);
   bool live[kCountItems];
   int x[kCountItems];
+  bool any = false;
 #pragma unroll
   for (int it = 0; it < kCountItems; ++it) {
     const int k = k0 + it * kListThreads + threadIdx.x;
     live[it] = k < k1 && valid[base + k] != 0;
-    x[it] = k < k1 ? keys[base + k] : 0;
+    any |= live[it];
   }
+#pragma unroll
+  for (int it = 0; it < kCountItems; ++it)
+    x[it] = live[it] ? keys[base + k0 + it * kListThreads + threadIdx.x] : 0;
+  if (!__syncthreads_or(any)) return;  // uniform: a dead segment adds nothing
   table_clear(key, cnt, slots, threadIdx.x, kListThreads);
   if (threadIdx.x == 0) n_used = 0;
   __syncthreads();
@@ -105,44 +114,61 @@ count_keys_kernel(const int* __restrict__ keys,
 constexpr int kSpillItems = 8;  // entries a thread of a spill kernel takes
 constexpr int kSpillSeg = kSpillItems * kListThreads;
 
+constexpr int kSpillCtas = 16;  // CTAs a row of a spill kernel, at most
+
 // Empty the global tables of every row whose list is longer than budget:
-// row r owns tab[r * span, (r + 1) * span).  Block = (row, segment).
+// row r owns tab[r * span, (r + 1) * span).  Block = (row, j): segments j,
+// j + per_row, ... of the row, so a row that does not spill costs one
+// load of each of its per_row CTAs.
 __global__ void __launch_bounds__(kListThreads)
 spill_clear_kernel(const int* __restrict__ len, int budget, long long span,
-                   unsigned segs, int2* __restrict__ tab) {
-  const long long row = blockIdx.x / segs;
+                   unsigned per_row, int2* __restrict__ tab) {
+  const long long row = blockIdx.x / per_row;
   if (len[row] <= budget) return;
-  const long long k0 = row * span + (long long)(blockIdx.x % segs) * kSpillSeg;
-  const long long k1 = min(k0 + kSpillSeg, (row + 1) * span);
-  for (long long k = k0 + threadIdx.x; k < k1; k += kListThreads)
-    tab[k] = make_int2(kEmptyKey, 0);
+  const long long end = (row + 1) * span;
+  for (long long k0 = row * span + (long long)(blockIdx.x % per_row) *
+                                       kSpillSeg;
+       k0 < end; k0 += (long long)per_row * kSpillSeg) {
+    const long long k1 = min(k0 + kSpillSeg, end);
+    for (long long k = k0 + threadIdx.x; k < k1; k += kListThreads)
+      tab[k] = make_int2(kEmptyKey, 0);
+  }
 }
 
 // Put the (key, count) list of every row longer than budget into its
 // global table: one table of cap slots per sub-row (sub: the list's sub-row
 // index beside each entry, or null for one table a row).  Lists have row
 // stride c, tables of a row span sub_rows * cap.  distinct (or null) counts
-// the keys of each row's tables.  Block = (row, segment).
+// the keys of each row's tables.  Block = (row, j) as spill_clear_kernel's.
 __global__ void __launch_bounds__(kListThreads)
 spill_fill_kernel(const int2* __restrict__ list, const int* __restrict__ sub,
                   const int* __restrict__ len, long long c, int budget,
-                  int sub_rows, unsigned cap, unsigned segs,
+                  int sub_rows, unsigned cap, unsigned per_row,
                   int2* __restrict__ tab, int* __restrict__ distinct) {
-  const long long row = blockIdx.x / segs;
+  const long long row = blockIdx.x / per_row;
   const int n = len[row];
   if (n <= budget) return;
-  const int k0 = (int)(blockIdx.x % segs) * kSpillSeg;
+  for (int k0 = (int)(blockIdx.x % per_row) * kSpillSeg; k0 < n;
+       k0 += (int)per_row * kSpillSeg) {
 #pragma unroll
-  for (int it = 0; it < kSpillItems; ++it) {
-    const int k = k0 + it * kListThreads + threadIdx.x;
-    if (k >= n) break;
-    const int2 e = list[row * c + k];  // (key, count)
-    const int h = sub != nullptr ? sub[row * c + k] : 0;
-    const bool claimed =
-        entry_add(tab + (row * sub_rows + h) * (long long)cap, cap, e.x,
-                  hash_key(e.x), (unsigned)e.y);
-    if (claimed && distinct != nullptr) atomicAdd(distinct + row, 1);
+    for (int it = 0; it < kSpillItems; ++it) {
+      const int k = k0 + it * kListThreads + threadIdx.x;
+      if (k >= n) break;
+      const int2 e = list[row * c + k];  // (key, count)
+      const int h = sub != nullptr ? sub[row * c + k] : 0;
+      const bool claimed =
+          entry_add(tab + (row * sub_rows + h) * (long long)cap, cap, e.x,
+                    hash_key(e.x), (unsigned)e.y);
+      if (claimed && distinct != nullptr) atomicAdd(distinct + row, 1);
+    }
   }
+}
+
+// CTAs a row of a spill kernel over n items: one per segment of
+// kSpillSeg, at most kSpillCtas.
+inline long long spill_ctas(long long n) {
+  return std::max(1LL, std::min((long long)kSpillCtas,
+                                (n + kSpillSeg - 1) / kSpillSeg));
 }
 
 inline cudaError_t count_keys(const int* keys, const unsigned char* valid,
@@ -165,6 +191,19 @@ inline cudaError_t count_keys(const int* keys, const unsigned char* valid,
   return cudaGetLastError();
 }
 
+// Empty the global tables (span slots a row) of the rows whose list is
+// longer than budget.
+inline cudaError_t clear_tables(const int* len, long long rows, int budget,
+                                long long span, int2* tab,
+                                cudaStream_t stream) {
+  const long long per_row = spill_ctas(span);
+  if (rows * per_row > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  if (rows == 0 || span == 0) return cudaSuccess;
+  spill_clear_kernel<<<(unsigned)(rows * per_row), kListThreads, 0,
+                       stream>>>(len, budget, span, (unsigned)per_row, tab);
+  return cudaGetLastError();
+}
+
 // Empty and fill the global tables of the lists longer than budget: rows
 // lists of stride c, tables of span slots a row (sub_rows of cap each);
 // distinct as spill_fill_kernel's.
@@ -172,15 +211,13 @@ inline cudaError_t spill(const int2* list, const int* sub, const int* len,
                          long long rows, long long c, int budget,
                          int sub_rows, unsigned cap, int2* tab,
                          int* distinct, cudaStream_t stream) {
-  const long long span = (long long)sub_rows * cap;
-  const long long clear_segs = (span + kSpillSeg - 1) / kSpillSeg;
-  const long long fill_segs = (c + kSpillSeg - 1) / kSpillSeg;
-  if (rows * clear_segs > 0x7fffffffLL || rows * fill_segs > 0x7fffffffLL)
-    return cudaErrorInvalidConfiguration;
-  spill_clear_kernel<<<(unsigned)(rows * clear_segs), kListThreads, 0,
-                       stream>>>(len, budget, span, (unsigned)clear_segs, tab);
-  spill_fill_kernel<<<(unsigned)(rows * fill_segs), kListThreads, 0, stream>>>(
-      list, sub, len, c, budget, sub_rows, cap, (unsigned)fill_segs, tab,
+  const long long per_row = spill_ctas(c);
+  if (rows * per_row > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  cudaError_t err = clear_tables(len, rows, budget, (long long)sub_rows * cap,
+                                 tab, stream);
+  if (err != cudaSuccess || rows == 0 || c == 0) return err;
+  spill_fill_kernel<<<(unsigned)(rows * per_row), kListThreads, 0, stream>>>(
+      list, sub, len, c, budget, sub_rows, cap, (unsigned)per_row, tab,
       distinct);
   return cudaGetLastError();
 }

@@ -18,14 +18,16 @@
 //      keys are all distinct costs one global probe per S slot, not a pass
 //      per chunk;
 //   2. one CTA per (g, range of H) loads g's list into a shared count
-//      table once (or reads g's global table);
+//      table once (or reads g's global table; stage_list, shared with the
+//      other sweeps in sweep_common.cuh);
 //   3. each warp takes one H at a time: it loads H's list into a table of
 //      its own (or reads H's global tables), streams the u x Cs S slots of
-//      (H, g) (contiguous, read coalesced), queues the live ones in shared
-//      memory and probes both tables for 32 queued slots at a time, so
-//      every lane carries a live slot.  Count: wr * wt goes to out[H, h]
-//      with one atomic per run of equal cells in the warp.  Per-R: the
-//      R lists carry 0 in their count words, which become accumulators;
+//      (H, g) (contiguous, read coalesced; queue_live), queues the live
+//      ones in shared memory and probes both tables for 32 queued slots at
+//      a time, so every lane carries a live slot.  Count: wr * wt goes to
+//      out[H, h] with one atomic per run of equal cells in the warp.
+//      Per-R: the R lists carry 0 in their count words, which become
+//      accumulators;
 //      wt goes to the key's slot of the warp's table (lanes with the same
 //      slot combine first), and after the H each slot's sum goes to the
 //      count word of its key's first list entry, one atomic per slot; a
@@ -39,7 +41,7 @@
 #include <algorithm>
 
 #include "fused_common.cuh"
-#include "key_lists.cuh"
+#include "sweep_common.cuh"
 
 namespace rj {
 
@@ -74,16 +76,6 @@ struct Probe {
   int2* r_rows;           // H's global tables, r_cap slots each, or null
   unsigned r_cap;
 };
-
-// *p += v for every lane whose p is set; lanes with the same p combine
-// first, so an address takes one atomic.  Every lane of the warp calls.
-__device__ __forceinline__ void warp_add_at(unsigned* p, unsigned v) {
-  const unsigned peers =
-      __match_any_sync(0xffffffffu, reinterpret_cast<unsigned long long>(p));
-  const unsigned sum = __reduce_add_sync(peers, v);
-  if (p != nullptr && (int)(threadIdx.x & 31) == __ffs(peers) - 1)
-    atomicAdd(p, sum);
-}
 
 // The queued slots head .. head + n - 1 (n <= 32): one per lane, both
 // tables probed; count: wr * wt added to out[H, h]; per-R: wt added to
@@ -178,24 +170,9 @@ linear_sweep_kernel(int2* __restrict__ rkc, const int* __restrict__ rsub,
   p.t_cap = t_cap;
   p.r_cap = r_cap;
 
-  if (p.t_glob == nullptr) {
-    table_clear(t_key, t_cnt, tslots, threadIdx.x, kLinThreads);
-    __syncthreads();
-    for (int k0 = 0; k0 < n_t; k0 += kRounds * kLinThreads) {
-      int2 e[kRounds];  // (c, count)
-#pragma unroll
-      for (int it = 0; it < kRounds; ++it) {
-        const int k = k0 + it * kLinThreads + threadIdx.x;
-        e[it] = k < n_t ? tkc[(long long)g * ct + k] : make_int2(0, 0);
-      }
-#pragma unroll
-      for (int it = 0; it < kRounds; ++it)
-        if (e[it].y != 0)
-          table_add(t_key, t_cnt, p.t_mask, e[it].x, hash_key(e[it].x),
-                    (unsigned)e[it].y);
-    }
-    __syncthreads();
-  }
+  if (p.t_glob == nullptr)
+    stage_list<kRounds>(tkc + (long long)g * ct, n_t, t_key, t_cnt, tslots,
+                        threadIdx.x, kLinThreads);
 
   for (int H = h0 + warp; H < h1; H += kLinWarps) {  // warp-uniform
     const int n_r = rlen[H];
@@ -233,43 +210,11 @@ linear_sweep_kernel(int2* __restrict__ rkc, const int* __restrict__ rsub,
       }
       __syncwarp();
     }
-    int head = 0, tail = 0;
-    for (int k0 = 0; k0 < n_blk; k0 += kRounds * 32) {
-      // kRounds rounds of slots loaded at once (keys of dead slots too:
-      // they share the live slots' cache lines)
-      bool live[kRounds];
-      int b[kRounds], c[kRounds];
-#pragma unroll
-      for (int it = 0; it < kRounds; ++it) {
-        const int k = k0 + it * 32 + lane;
-        live[it] = k < n_blk && sv[sbase + k] != 0;
-        b[it] = k < n_blk ? sb[sbase + k] : 0;
-        c[it] = k < n_blk ? sc[sbase + k] : 0;
-      }
-#pragma unroll
-      for (int it = 0; it < kRounds; ++it) {
-        const unsigned m = __ballot_sync(0xffffffffu, live[it]);
-        if (live[it]) {
-          const int q = (tail + __popc(m & lanemask_lt())) & (kQueue - 1);
-          w.qk[q] = k0 + it * 32 + lane;
-          w.qb[q] = b[it];
-          w.qc[q] = c[it];
-        }
-        tail += __popc(m);
-        if (tail - head >= 32) {
-          __syncwarp();
-          probe_queued<kPerR>(w, p, head, 32, cs, (long long)H * u, out);
-          head += 32;
-          __syncwarp();
-        }
-      }
-    }
-    if (tail > head) {
-      __syncwarp();
-      probe_queued<kPerR>(w, p, head, tail - head, cs, (long long)H * u,
-                          out);
-    }
-    __syncwarp();
+    queue_live<kRounds, kQueue>(
+        sb, sc, sv, sbase, 0, n_blk, kRounds * 32, w.qk, w.qb, w.qc,
+        [&](int head, int n) {
+          probe_queued<kPerR>(w, p, head, n, cs, (long long)H * u, out);
+        });
     if (kPerR && p.r_rows == nullptr) {
       // each key's sum to its first list entry; then the table is free
       for (int s = lane; s < w_slots; s += 32) {

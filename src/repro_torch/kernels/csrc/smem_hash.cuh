@@ -143,21 +143,32 @@ __device__ __forceinline__ unsigned table_get(const K* key,
 
 // A table of int2 entries (key, count) in global memory with any number n
 // of slots: a key's probe starts at slot (h * n) >> 32 and walks forward,
-// wrapping at n.  entry_add may run in any number of threads at once;
-// entry_count after a kernel boundary; entry_add returns whether it
-// claimed a new slot.  A slot, once claimed, keeps its key, so a stale read
-// of an empty slot only sends the claim to the CAS.
-__device__ __forceinline__ bool entry_add(int2* tab, unsigned n, int k,
-                                          unsigned h, unsigned c) {
+// wrapping at n.  entry_claim and entry_add may run in any number of
+// threads at once; entry_count after a kernel boundary.  A slot, once
+// claimed, keeps its key, so a stale read of an empty slot only sends the
+// claim to the CAS.
+// The slot of k, claimed (hash h) if k is new; *claimed says whether this
+// call claimed it.
+__device__ __forceinline__ unsigned entry_claim(int2* tab, unsigned n, int k,
+                                                unsigned h, bool* claimed) {
   for (unsigned s = __umulhi(h, n);; s = s + 1u == n ? 0u : s + 1u) {
     int* key = &tab[s].x;
     int old = *key;
     if (old == kEmptyKey) old = atomicCAS(key, kEmptyKey, k);
     if (old == kEmptyKey || old == k) {
-      atomicAdd(reinterpret_cast<unsigned*>(&tab[s].y), c);
-      return old == kEmptyKey;
+      *claimed = old == kEmptyKey;
+      return s;
     }
   }
+}
+
+// count[k] += c; returns whether it claimed a new slot.
+__device__ __forceinline__ bool entry_add(int2* tab, unsigned n, int k,
+                                          unsigned h, unsigned c) {
+  bool claimed;
+  const unsigned s = entry_claim(tab, n, k, h, &claimed);
+  atomicAdd(reinterpret_cast<unsigned*>(&tab[s].y), c);
+  return claimed;
 }
 
 // The count of k in a table of entry_add (0 when k is absent).

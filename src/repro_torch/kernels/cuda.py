@@ -15,15 +15,16 @@ one to its launch counter (``LAUNCHES``).  Nothing here falls back to a
 plain version: a build or launch failure raises.
 
 The fused sweeps of the session's path (linear, per-R, star and
-pair-index) take the raw key columns and their bool validity masks:
-their pre-passes drop dead slots and build the tables they probe, in
-shared memory where they fit, so nothing is sorted or masked around
-them; the wrappers allocate the pre-passes' scratch.  The baselines'
-join kernels (the bucket-row kernels and the all-pairs cyclic sweep)
-take sentinel-masked operands (``ops._mask``), so a slot holding its
-side's sentinel is dead and equals no key; their wrappers sort each
-bucket row that the kernels binary-search (R and T rows; the all-pairs
-sweeps' packed (b, c) and (a, c) keys).
+pair-index) and the bucket-row linear and per-R sweeps of the baselines
+take the raw key columns and their bool validity masks: their pre-passes
+drop dead slots and build the tables they probe, in shared memory where
+they fit, so nothing is sorted or masked around them; the wrappers
+allocate the pre-passes' scratch.  The other join kernels of the
+baselines (the bucket-row pair count and cyclic kernels and the
+all-pairs cyclic sweep) take sentinel-masked operands (``ops._mask``),
+so a slot holding its side's sentinel is dead and equals no key; their
+wrappers sort each bucket row that the kernels binary-search (the pair
+count's kb rows; the all-pairs sweeps' packed (b, c) and (a, c) keys).
 
 The flash forward (``flash_fwd``, the LM's prefill and training
 attention) takes f32 or bf16 q, k, v through their strides and returns
@@ -35,8 +36,8 @@ None is masked with sentinels.
 The bucket-row wrappers (``bucket_*``) take ``[*batch, C]`` rows whose
 batch shapes broadcast: an operand of size 1 along a batch dimension is
 one row shared along it, passed to the kernel once with a zero row
-stride (or without that dimension's bit in its span mask) and sorted once
-per launch, never copied per bucket.
+stride (or without that dimension's bit in its span mask) and listed or
+sorted once per launch, never copied per bucket.
 """
 
 from __future__ import annotations
@@ -74,6 +75,9 @@ _MERGE_ARGS = [_P, _P, _P, _P, _C, _C, _A, _A, _A, _A, _A, _I, _I, _I, _P,
 # the linear, per-R and star sweeps: seven operands (keys and validity),
 # six sizes, seven scratch tensors and the output
 _SWEEP_ARGS = [*[_P] * 7, *[_I] * 6, *[_P] * 8, _C, _P]
+# the bucket-row sweeps: seven operands, the batch [P, Q, W] and three
+# capacities, the R and T span masks, three scratch tensors and the output
+_BUCKET_ARGS = [*[_P] * 7, *[_I] * 6, _C, _C, *[_P] * 4, _C, _P]
 _LIBS = {
     "fused_linear": ("rj_fused_linear", _SWEEP_ARGS),
     "fused_star": ("rj_fused_star", _SWEEP_ARGS),
@@ -82,12 +86,8 @@ _LIBS = {
                              [*[_P] * 9, *[_I] * 8, *[_P] * 7, _C, _P]),
     "fused_cyclic": ("rj_fused_cyclic", _MERGE_ARGS),
     "pair_count": ("rj_pair_count", [_P, _P, _C, _I, _I, _I, _P, _C, _P]),
-    "bucket_linear": ("rj_bucket_linear",
-                      [_P, _P, _P, _P, _C, _I, _I, _I, _I, _I, _I, _C, _C,
-                       _P, _C, _P]),
-    "bucket_per_r": ("rj_bucket_per_r",
-                     [_P, _P, _P, _P, _P, _C, _I, _I, _I, _I, _I, _I, _C, _C,
-                      _P, _P, _C, _P]),
+    "bucket_linear": ("rj_bucket_linear", _BUCKET_ARGS),
+    "bucket_per_r": ("rj_bucket_per_r", _BUCKET_ARGS),
     "bucket_cyclic": ("rj_bucket_cyclic", _MERGE_ARGS),
     "flash_fwd": ("rj_flash_fwd",
                   [_P, _P, _P, _P, _P, _P, _C, *[_I] * 15, _C, _C,
@@ -464,46 +464,50 @@ def bucket_pair_count(ka, kb) -> torch.Tensor:
     return out
 
 
-def _linear_rows(op: str, rb, sb, sc, tc):
-    """Shared set-up of the bucket-row linear and per-R kernels: the batch
-    padded to three dimensions [P, Q, W], S spanning all of it, the R and
-    T span masks and their sorted rows."""
+def _launch_bucket_sweep(op: str, stem: str, rb, rv, sb, sc, sv, tc, tv,
+                         per_r: bool) -> torch.Tensor:
+    """Shared set-up of the bucket-row linear and per-R sweeps: the batch
+    padded to three dimensions [P, Q, W], S spanning all of it, R and T
+    rows with their span masks, and the pre-pass's scratch sized per
+    distinct R and T row."""
     batch, dims = _padded_batch(op, 3, rb, sb, sc, tc)
-    sb, sc = _full_rows(sb, batch), _full_rows(sc, batch)
-    _check_rows(op, rb.device, rb=rb, sb=sb, sc=sc, tc=tc)
-    if sb.shape != sc.shape:
-        raise ValueError(f"{op}: sb {tuple(sb.shape)} and sc "
-                         f"{tuple(sc.shape)} differ")
-    return (batch, dims, sb, sc, _span_mask(rb, 3), _span_mask(tc, 3),
-            _sorted_rows(rb), _sorted_rows(tc))
-
-
-def bucket_count3_linear(rb, sb, sc, tc) -> torch.Tensor:
-    """rb [*batch, Cr], sb/sc [*batch, Cs], tc [*batch, Ct] int32
-    (sentinel-masked; at most three batch dimensions) -> [*batch] int32."""
-    op = "bucket_count3_linear"
-    batch, dims, sb, sc, r_mask, t_mask, r_sorted, t_sorted = _linear_rows(
-        op, rb, sb, sc, tc)
-    out = torch.zeros(batch, dtype=torch.int32, device=rb.device)
-    _launch(op, "bucket_linear", rb.device, _ptr(r_sorted), _ptr(sb),
-            _ptr(sc), _ptr(t_sorted), _SENT["s"], *dims, rb.shape[-1],
-            sb.shape[-1], tc.shape[-1], r_mask, t_mask, _ptr(out))
+    cr, cs, ct = rb.shape[-1], sb.shape[-1], tc.shape[-1]
+    b = torch.bool
+    dev = rb.device
+    _check(op, torch.int32, dev, rb=(rb, rb.shape), rv=(rv, rb.shape, b),
+           sb=(sb, (*batch, cs)), sc=(sc, (*batch, cs)),
+           sv=(sv, (*batch, cs), b), tc=(tc, tc.shape),
+           tv=(tv, tc.shape, b))
+    n_r, n_t = rb.shape[:-1].numel(), tc.shape[:-1].numel()
+    # rlen, tlen, tdist; the (key, count) lists; their global tables (the
+    # kernel zeroes the lengths and a count output itself: no fill kernel)
+    lens = torch.empty(n_r + 2 * n_t, dtype=torch.int32, device=dev)
+    lists = torch.empty(max(1, 2 * (n_r * cr + n_t * ct)), dtype=torch.int32,
+                        device=dev)
+    tabs = torch.empty(max(1, 4 * (n_r * cr + n_t * ct)), dtype=torch.int32,
+                       device=dev)
+    out = torch.empty((*batch, cr) if per_r else batch, dtype=torch.int32,
+                      device=dev)
+    _launch(op, stem, dev, *map(_ptr, (rb, rv, sb, sc, sv, tc, tv)), *dims,
+            cr, cs, ct, _span_mask(rb, 3), _span_mask(tc, 3), _ptr(lens),
+            _ptr(lists), _ptr(tabs), _ptr(out))
     return out
 
 
-def bucket_per_r_counts(rb, sb, sc, tc) -> torch.Tensor:
-    """Same operands as ``bucket_count3_linear`` -> [*batch, Cr] int32."""
-    op = "bucket_per_r_counts"
-    batch, dims, sb, sc, r_mask, t_mask, r_sorted, t_sorted = _linear_rows(
-        op, rb, sb, sc, tc)
-    cr = rb.shape[-1]
-    out = torch.empty((*batch, cr), dtype=torch.int32, device=rb.device)
-    acc = torch.zeros((*batch, cr), dtype=torch.int32, device=rb.device)
-    _launch(op, "bucket_per_r", rb.device, _ptr(rb), _ptr(r_sorted),
-            _ptr(sb), _ptr(sc), _ptr(t_sorted), _SENT["s"], *dims, cr,
-            sb.shape[-1], tc.shape[-1], r_mask, t_mask, _ptr(acc),
-            _ptr(out))
-    return out
+def bucket_count3_linear(rb, rv, sb, sc, sv, tc, tv) -> torch.Tensor:
+    """rb [*batch, Cr], sb/sc [*batch, Cs], tc [*batch, Ct] int32 keys with
+    their bool validity rv, sv, tv of the same shapes (not masked; at most
+    three batch dimensions, S spanning all of them) -> [*batch] int32."""
+    return _launch_bucket_sweep("bucket_count3_linear", "bucket_linear", rb,
+                                rv, sb, sc, sv, tc, tv, per_r=False)
+
+
+def bucket_per_r_counts(rb, rv, sb, sc, sv, tc, tv) -> torch.Tensor:
+    """Same operands as ``bucket_count3_linear`` -> [*batch, Cr] int32 (0
+    for a dead R slot).  Nothing is allocated beside the output but the
+    pre-pass's lists and tables."""
+    return _launch_bucket_sweep("bucket_per_r_counts", "bucket_per_r", rb,
+                                rv, sb, sc, sv, tc, tv, per_r=True)
 
 
 def bucket_count3_cyclic(ra, rb, sb, sc, tc, ta) -> torch.Tensor:

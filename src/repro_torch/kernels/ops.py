@@ -19,8 +19,9 @@ Each public op masks invalid slots with per-side sentinels (so an invalid
 slot can never equal anything on another side) and then dispatches on the
 device of its tensors (the kernels of the fused ops of the session's path,
 ``fused_count3_linear``, ``fused_per_r_counts``, ``fused_count3_star`` and
-the pair-index ``fused_count3_cyclic``, read the validity masks
-themselves, so only their plain versions mask):
+the pair-index ``fused_count3_cyclic``, and of the bucket-row
+``bucket_count3_linear`` and ``bucket_per_r_counts``, read the validity
+masks themselves, so only their plain versions mask):
 
   * a CUDA tensor launches the hand-written Hopper kernel
     (``kernels.cuda``); a kernel that fails to build or launch raises —
@@ -460,28 +461,27 @@ def bucket_pair_count(ka, va, kb, vb):
 
 def bucket_count3_linear(rb, rv, sb, sc, sv, tc, tv):
     """Per-bucket linear 3-way counts [*batch] int32 (Algorithm 1's inner
-    join)."""
-    rb = _mask(rb, rv, "r")
-    sb = _mask(sb, sv, "s")
-    sc = _mask(sc, sv, "s")
-    tc = _mask(tc, tv, "t")
+    join).  Each validity has its keys' shape; on the card S spans the
+    whole batch.  The kernel reads the validity masks itself; the plain
+    version masks."""
     if _on_cuda(rb, "bucket_count3_linear"):
         from repro_torch.kernels import cuda
-        return cuda.bucket_count3_linear(rb, sb, sc, tc)
-    return _bucket_linear_ref(rb, sb, sc, tc)
+        return cuda.bucket_count3_linear(*_contiguous(rb, rv, sb, sc, sv, tc,
+                                                      tv))
+    return _bucket_linear_ref(_mask(rb, rv, "r"), _mask(sb, sv, "s"),
+                              _mask(sc, sv, "s"), _mask(tc, tv, "t"))
 
 
 def bucket_per_r_counts(rb, rv, sb, sc, sv, tc, tv):
     """Per-R-slot counts [*batch, Cr] int32 (Example 1's per-user
-    aggregate), at the caller's Cr."""
-    rb = _mask(rb, rv, "r")
-    sb = _mask(sb, sv, "s")
-    sc = _mask(sc, sv, "s")
-    tc = _mask(tc, tv, "t")
+    aggregate), at the caller's Cr; 0 for a dead R slot.  Operands as
+    ``bucket_count3_linear``'s."""
     if _on_cuda(rb, "bucket_per_r_counts"):
         from repro_torch.kernels import cuda
-        return cuda.bucket_per_r_counts(rb, sb, sc, tc)
-    return _bucket_per_r_ref(rb, sb, sc, tc)
+        return cuda.bucket_per_r_counts(*_contiguous(rb, rv, sb, sc, sv, tc,
+                                                     tv))
+    return _bucket_per_r_ref(_mask(rb, rv, "r"), _mask(sb, sv, "s"),
+                             _mask(sc, sv, "s"), _mask(tc, tv, "t"))
 
 
 def bucket_count3_cyclic(ra, rb, rv, sb, sc, sv, tc, ta, tv):

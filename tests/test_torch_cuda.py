@@ -130,6 +130,73 @@ def test_wrappers_check_their_inputs(card):
                                          t[..., :4].contiguous(), t != 0)
 
 
+def test_bucket_wrappers_check_their_inputs(card):
+    """The bucket-row linear and per-R wrappers take raw keys and bool
+    validity of the keys' shapes, contiguous, on the card, with S
+    spanning the whole batch."""
+    from repro_torch.kernels import cuda
+    rb = torch.zeros((1, 4, 8), dtype=torch.int32, device=card)
+    sb = torch.zeros((3, 4, 5), dtype=torch.int32, device=card)
+    tc = torch.zeros((3, 1, 9), dtype=torch.int32, device=card)
+    rv, sv, tv = rb != 0, sb != 0, tc != 0
+    for fn in (cuda.bucket_count3_linear, cuda.bucket_per_r_counts):
+        with pytest.raises(TypeError, match="dtype"):
+            fn(rb, rv.int(), sb, sb, sv, tc, tv)
+        with pytest.raises(TypeError, match="dtype"):
+            fn(rb, rv, sb.long(), sb, sv, tc, tv)
+        with pytest.raises(ValueError, match="shape"):
+            fn(rb, rv, sb, sb, sv, tc, tv[..., :4].contiguous())
+        with pytest.raises(ValueError, match="shape"):   # S shared along g
+            fn(rb, rv, sb[:1].contiguous(), sb[:1].contiguous(),
+               sv[:1].contiguous(), tc, tv)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(rb, rv, sb, sb.transpose(1, 2).contiguous().transpose(1, 2),
+               sv, tc, tv)
+        with pytest.raises(ValueError, match="cpu"):
+            fn(rb, rv, sb, sb, sv, tc.cpu(), tv)
+
+
+def _bucket_rows(gen, shape, d, live, card):
+    """Keys of [0, d) and validity whose live slots fill the front of each
+    row (``live`` of them), as a bucketized layout holds them."""
+    keys = torch.randint(0, d, shape, generator=gen, dtype=torch.int32)
+    valid = torch.arange(shape[-1]).expand(shape) < live
+    return keys.to(card), valid.contiguous().to(card)
+
+
+# the linear scans' rows at a B1-like first step (T rows 10% live, ~57
+# distinct keys a row, R rows of ~1 key) and the star scan's at a
+# B2-like chunk (cells long enough to be split, R and T rows past the
+# shared tables)
+@pytest.mark.parametrize("layout", ["linear", "star"])
+def test_bucket_sweeps_launch_their_kernels_on_cuda(card, layout):
+    from repro_torch.kernels import cuda
+    gen = torch.Generator().manual_seed(9)
+    if layout == "linear":
+        gp, u, cr, cs, ct = 40, 64, 2560, 32, 20_000
+        rb, rv = _bucket_rows(gen, (1, u, cr), 2, 250, card)
+        sb, sv = _bucket_rows(gen, (gp, u, cs), 60, 16, card)
+        sc, _ = _bucket_rows(gen, (gp, u, cs), 60, 16, card)
+        tc, tv = _bucket_rows(gen, (gp, 1, ct), 60, 2000, card)
+    else:
+        uh, ug, cr, cs, ct = 4, 4, 12_000, 60_000, 12_000
+        rb, rv = _bucket_rows(gen, (uh, 1, cr), 100_000, 10_000, card)
+        sb, sv = _bucket_rows(gen, (uh, ug, cs), 100_000, 50_000, card)
+        sc, _ = _bucket_rows(gen, (uh, ug, cs), 100_000, 50_000, card)
+        tc, tv = _bucket_rows(gen, (1, ug, ct), 100_000, 10_000, card)
+    args = (rb, rv, sb, sc, sv, tc, tv)
+    m = [ops._mask(x, v, side) for x, v, side in
+         ((rb, rv, "r"), (sb, sv, "s"), (sc, sv, "s"), (tc, tv, "t"))]
+    before = dict(cuda.LAUNCHES)
+    got = ops.bucket_count3_linear(*args)
+    got_r = ops.bucket_per_r_counts(*args)
+    for name in ("bucket_count3_linear", "bucket_per_r_counts"):
+        assert cuda.LAUNCHES[name] == before[name] + 1
+    assert torch.equal(got, ops._bucket_linear_ref(*m))
+    assert torch.equal(got_r, ops._bucket_per_r_ref(*m))
+    assert int(got.to(torch.int64).sum()) > 0
+
+
 def test_flash_and_radix_launch_their_kernels_on_cuda(card):
     from repro_torch.kernels import cuda
     from repro_torch.kernels import flash_attention as fa

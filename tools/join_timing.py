@@ -26,7 +26,15 @@ warm-up call), ``kernel_ms`` (the device time of the kernels one call
 launches, ``chip_smoke.kernel_ms``; null when the trace is incomplete),
 each kernel's ms by name and the sum of the counts (equal across trees).
 Then the warm execute seconds of Q1-Q6 (median of 5 after the planning
-call).  Prints the card's name and power limit first.
+call).  Then the baselines B1 (``linear3_count_auto`` on Q1's graph), B2
+(``star3_count_auto`` on Q2's data) and B3 (``linear3_per_r_counts_auto``
+on Q6's graph): their counts, final plans and warm seconds (median of 3
+after a cold run), and the bucket-row ops at their layouts as the scan
+scans call them: ``bucket_count3_linear`` at B1's first H partition and
+at B2's first S chunk, ``bucket_per_r_counts`` at B3's first H
+partition, each with its ``op_ms``, ``kernel_ms`` and kernel ms by name,
+and the names of any sort or elementwise kernel one call launched
+(``sorts_and_masks``).  Prints the card's name and power limit first.
 
 To compare two trees on one card, run them in turns in one call, e.g. a
 parent exported with ``git archive`` into a git-ignored directory:
@@ -38,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import itertools
 import json
 import pathlib
 import statistics
@@ -169,11 +178,75 @@ def main() -> int:
             k["ra"], k["rb"], v["r"], k["sb"], k["sc"], v["s"], k["tc"],
             k["ta"], v["t"])
 
+    def baselines():
+        """B1-B3 timed warm, then (label, op name, op args) of the bucket
+        ops at their first step's layout of the final plans."""
+        from repro_torch.core import linear3, reference, star3
+        F6_ = queries["Q6"].relations["f1"]
+        st = queries["Q2"].relations
+        n1, n6 = len(data["F"]["src"]), len(data["F6"]["src"])
+        plan1 = linear3.default_plan(n1, n1, n1, m_budget=smoke.M_BUDGET)
+        plan6 = linear3.default_plan(n6, n6, n6, m_budget=smoke.M_BUDGET)
+        plan2 = star3.default_plan(*(len(data["star"][k][c]) for k, c in
+                                     (("r", "b"), ("s", "b"), ("t", "c"))))
+
+        def b1():
+            res, plan = reference.linear3_count_auto(F, F, F, plan1,
+                                                     **smoke.LIN)
+            return int(res.count), bool(res.overflowed), plan
+
+        def b2():
+            res, plan = reference.star3_count_auto(st["r"], st["s"], st["t"],
+                                                   plan2, **smoke.STAR)
+            return int(res.count), bool(res.overflowed), plan
+
+        def b3():
+            (_, counts, valid), plan = reference.linear3_per_r_counts_auto(
+                F6_, F6_, F6_, plan6, key_col="src", **smoke.LIN)
+            return int(counts[valid].sum()), False, plan
+
+        final, rows = {}, {}
+        for label, fn in (("B1", b1), ("B2", b2), ("B3", b3)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            count, overflowed, plan = fn()
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+            warm = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                warm.append(time.perf_counter() - t0)
+            final[label] = plan
+            rows[label] = {"count": count, "overflowed": overflowed,
+                           "plan": list(plan), "cold_s": cold,
+                           "warm_median_s": statistics.median(warm),
+                           "warm_s": warm}
+        print(json.dumps({"tag": tag, "baselines": rows}), flush=True)
+        for label, rel in (("B1", F), ("B3", F6_)):
+            rg, sg, tg = linear3.layouts(rel, rel, rel, final[label],
+                                         **smoke.LIN)
+            name = ("bucket_count3_linear" if label == "B1"
+                    else "bucket_per_r_counts")
+            yield f"{label} first step", name, linear3._partition_rows(
+                rg, sg, tg, 0, **smoke.LIN)
+            del rg, sg, tg
+        rg, sg, tg = star3.layouts(st["r"], st["s"], st["t"], final["B2"],
+                                   **smoke.STAR)
+        yield "B2 first chunk", "bucket_count3_linear", (
+            rg.columns["b"][:, None], rg.valid[:, None], sg.columns["b"][0],
+            sg.columns["c"][0], sg.valid[0], tg.columns["c"][None],
+            tg.valid[None])
+
     op_of = {"fused_count3_linear": ops.fused_count3_linear,
              "fused_per_r_counts": ops.fused_per_r_counts,
              "fused_count3_star": ops.fused_count3_star,
-             "fused_count3_cyclic_pairidx": ops.fused_count3_cyclic}
-    for label, name, a in layouts():
+             "fused_count3_cyclic_pairidx": ops.fused_count3_cyclic,
+             "bucket_count3_linear": ops.bucket_count3_linear,
+             "bucket_per_r_counts": ops.bucket_per_r_counts}
+    for label, name, a in itertools.chain(layouts(), baselines()):
         fn = op_of[name]
 
         def run(a=a, fn=fn):
@@ -187,6 +260,10 @@ def main() -> int:
                           "shape": shape, "sum": total,
                           "op_ms": smoke.time_ms(torch, run),
                           "kernel_ms": k_ms, "kernel_ms_by_name": by_name,
+                          "sorts_and_masks": [
+                              k for k in by_name
+                              if "sort" in k.lower()
+                              or "elementwise" in k.lower()],
                           **({"kernel_ms_missing": missing} if missing
                              else {}),
                           "profile_s": time.perf_counter() - t0}),
