@@ -14,12 +14,14 @@ result line):
   3. kernels — each kernel against its plain PyTorch version on the card
      on seeded layouts: the join kernels exactly (unaligned capacities,
      invalid slots, hot keys, shared bucket rows, 1 x 1 edge cases; for the
-     linear, per-R, pair-index and star kernels also ``LINEAR_HARD`` /
-     ``CYCLIC_HARD`` / ``STAR_HARD``, and for the bucket-row linear and
-     per-R kernels ``BUCKET_HARD`` in both scans' layouts: rows of distinct
-     keys past their shared-memory tables' budgets, a hot key whose cell
-     counts wrap int32, dead rows, buckets and chunks, long S buckets,
-     unaligned capacities), the
+     linear, per-R, pair-index, all-pairs cyclic and star kernels also
+     ``LINEAR_HARD`` / ``CYCLIC_HARD`` / ``STAR_HARD``, for the bucket-row
+     linear and per-R kernels ``BUCKET_HARD`` in both scans' layouts, and
+     for the bucket-row cyclic kernel ``BUCKET_CYCLIC_HARD`` in the cyclic
+     scan's layout and with one T row shared by every bucket: rows of
+     distinct keys past their shared-memory tables' budgets, a hot key
+     whose cell counts wrap int32, dead rows, buckets and chunks, long S
+     buckets, unaligned capacities), the
      radix histogram exactly (n not a multiple of the block, bucket counts
      on both sides of the shared-memory limit), the flash forward within
      ``FLASH_TOL`` (the flash kernel tests' cases, ragged S, D = 128 and
@@ -45,12 +47,14 @@ result line):
      dead) at 4,096 and 65,536 buckets, exact against the plain version,
      the counter zeroed before the phase;
   7. timings — each join kernel at its layout (the main path's first
-     round; the baselines' first step, and the linear scan kernel also at
-     B2's, printed) and the radix kernel at Q1's
+     round; the baselines' first step, and, printed, the linear scan
+     kernel also at B2's and both all-pairs cyclic kernels also at B4q3's)
+     and the radix kernel at Q1's
      keys, against its plain version (exact) and its bound: ``ms`` one op
      call as the main path makes it, ``kernel_ms`` the device time of the
      kernels that call launches (``torch.profiler`` after its warm-up
-     step; null when the trace is incomplete);
+     step; null when the trace is incomplete; ``sorts_and_masks`` names
+     any sort or elementwise kernel among them);
   8. serve — the dense LM served at full width through
      ``repro_torch.launch.serve``: S1 qwen2-1.5b (batch 8, prompt 1024,
      32 generated tokens, 16 requests), S2 gemma3-1b (batch 4, prompt 2048,
@@ -368,6 +372,10 @@ def hard_join_cases(torch, ops, gen):
         cases.append(("fused_count3_cyclic_pairidx",
                       lambda a=args: ops.fused_count3_cyclic(*a),
                       lambda m=m: ops._fused_cyclic_pairidx_ref(*m)))
+        cases.append(("fused_count3_cyclic",
+                      lambda a=args: ops.fused_count3_cyclic(
+                          *a, pair_index=False),
+                      lambda m=m: ops._fused_cyclic_pairidx_ref(*m)))
     return cases
 
 
@@ -421,11 +429,56 @@ def bucket_layout(torch, gen, layout, sizes, kind, d):
             t_of(k["tc"]), t_of(v["t"]))
 
 
+# (layout, (fp, uh, ug, Cr, Cs, Ct), kind, key range per column): the
+# cyclic scan's (f, a, b) grid of one (H, G) cell, R [uh, ug] shared along
+# f, S [fp, 1, ug] along a and T [fp, uh, 1] along b ("scan"), or one T
+# row [1, 1, 1] shared by every bucket ("shared_t": its cells cut over
+# CTAs).  Kinds as ``hard_layout``'s, on the distinct rows: T rows of
+# ~9,000 distinct (c, a) pairs and R rows of ~2,250 distinct b past the
+# table and multimap budgets; a hot key with 2048 x 2100 x 1100 a bucket
+# (int32 wrap); dead rows shared along f, a and b; S rows of 4,000 slots;
+# capacities 1, 513 and 4,099; the shared T row of ~600 distinct a (a first
+# chunk in the multimap tier) and of ~200 (8-word bit rows) over 60 buckets.
+BUCKET_CYCLIC_HARD = [
+    ("scan", (2, 3, 2, 2500, 3000, 10_000), "distinct",
+     dict(rb=5000, ra=40, sb=5000, sc=12_000, tc=12_000, ta=40)),
+    ("scan", (1, 1, 2, 2048, 2100, 1100), "hot",
+     dict(rb=1, ra=1, sb=1, sc=1, tc=1, ta=1)),
+    ("scan", (3, 2, 3, 50, 40, 60), "dead",
+     dict(rb=6, ra=6, sb=6, sc=6, tc=6, ta=6)),
+    ("scan", (2, 2, 2, 30, 4000, 200), "long",
+     dict(rb=9, ra=9, sb=9, sc=9, tc=9, ta=9)),
+    ("scan", (2, 3, 1, 1, 513, 4099), "unaligned",
+     dict(rb=4, ra=4, sb=4, sc=4, tc=4, ta=4)),
+    ("shared_t", (2, 2, 2, 300, 1000, 5300), "a600",
+     dict(rb=50, ra=600, sb=50, sc=500, tc=500, ta=600)),
+    ("shared_t", (3, 4, 5, 40, 50, 2000), "a200",
+     dict(rb=20, ra=200, sb=20, sc=100, tc=100, ta=200)),
+]
+
+
+def bucket_cyclic_layout(torch, gen, layout, sizes, kind, d):
+    """The nine operands (ra, rb, rv, sb, sc, sv, tc, ta, tv) of a
+    ``BUCKET_CYCLIC_HARD`` case on the CPU, shaped as the scan passes them:
+    keys and validity from ``hard_layout`` on the distinct rows, the shared
+    rows' size-1 dimensions added after."""
+    fp, uh, ug, cr, cs, ct = sizes
+    t_rows = (fp, uh) if layout == "scan" else (1,)
+    k, v = hard_layout(torch, gen, kind, {
+        "r": ((uh, ug, cr), ("rb", "ra")), "s": ((fp, ug, cs), ("sb", "sc")),
+        "t": ((*t_rows, ct), ("tc", "ta"))}, d)
+
+    def t_of(x):   # T [fp, uh, 1] shared along b, or [1, 1, 1]
+        return x[:, :, None] if layout == "scan" else x[:, None, None]
+    return (k["ra"], k["rb"], v["r"], k["sb"][:, None], k["sc"][:, None],
+            v["s"][:, None], t_of(k["tc"]), t_of(k["ta"]), t_of(v["t"]))
+
+
 def bucket_cases(torch, ops, gen):
     """The bucket-row kernels of the baselines, on [*batch, C] rows whose
     size-1 batch dimensions share one row (as the scan drivers pass them)
     and on plain [B, C] rows; the linear and per-R kernels also on
-    ``BUCKET_HARD``."""
+    ``BUCKET_HARD``, the cyclic kernel on ``BUCKET_CYCLIC_HARD``."""
     cases = []
     # (ka batch, kb batch, Ca, Cb, key range, hot)
     for ba, bb, ca, cb, d, hot in [((7,), (7,), 37, 130, 11, True),
@@ -486,6 +539,14 @@ def bucket_cases(torch, ops, gen):
         args = (ra, rb, rv, sb, sc, sv, tc, ta, tv)
         m = _masked(ops, [(ra, rv, "r"), (rb, rv, "r"), (sb, sv, "s"),
                           (sc, sv, "s"), (tc, tv, "t"), (ta, tv, "t")])
+        cases.append(("bucket_count3_cyclic",
+                      lambda a=args: ops.bucket_count3_cyclic(*a),
+                      lambda m=m: ops._bucket_cyclic_ref(*m)))
+    for layout, sizes, kind, d in BUCKET_CYCLIC_HARD:
+        args = tuple(x.cuda() for x in bucket_cyclic_layout(
+            torch, gen, layout, sizes, kind, d))
+        m = _masked(ops, [(args[i], args[3 * (i // 3) + 2], "rst"[i // 3])
+                          for i in (0, 1, 3, 4, 6, 7)])
         cases.append(("bucket_count3_cyclic",
                       lambda a=args: ops.bucket_count3_cyclic(*a),
                       lambda m=m: ops._bucket_cyclic_ref(*m)))
@@ -1032,6 +1093,39 @@ def search_steps(torch, n):
     return torch.ceil(torch.log2(n.to(torch.float64) + 1)).to(torch.int64)
 
 
+def cyclic_table_ops(torch, ops, ra, sb, tc, ta):
+    """The triangle sweep's bit-row formulation over the fused grid (masked
+    R [hp, gp, uh, ug, Cr], S [gp, fp, ug, Cs], T [hp, fp, uh, Ct]), one
+    operation per table probe or row word: two probes per live T entry
+    (its a and c), and for every (cell, f) whose R cell, S bucket and T
+    row all hold live entries, two per R entry (its a and b) and, per S
+    entry, two probes (its b and c rows) and the W words of the rows' AND
+    (W = 4 where the T row has at most 128 distinct a, else 8).  The scan's
+    (f, a, b) grid of one (H, G) cell is the fused grid with hp = gp = 1."""
+    n_s = n_live(torch, ops, sb, "s", -1)               # [gp, fp, ug]
+    n_r = n_live(torch, ops, ra, "r", -1)               # [hp, gp, uh, ug]
+    n_t = n_live(torch, ops, tc, "t", -1)               # [hp, fp, uh]
+    # [i, j, a, b, f]: the (cell, f) passes the kernel makes
+    s5 = n_s.permute(0, 2, 1)[None, :, None, :, :]     # [1, gp, 1, ug, fp]
+    t5 = n_t.permute(0, 2, 1)[:, None, :, None, :]     # [hp, 1, uh, 1, fp]
+    r5 = n_r[..., None]
+    active = ((r5 > 0) & (s5 > 0) & (t5 > 0)).to(torch.int64)
+    ta_sorted = torch.sort(ta, dim=-1).values          # [hp, fp, uh, ct]
+    dead_t = ops._SENT["t"]
+    n_a = (((ta_sorted[..., 1:] != ta_sorted[..., :-1])
+            & (ta_sorted[..., 1:] != dead_t)).sum(-1)
+           + (ta_sorted[..., 0] != dead_t))
+    words = torch.where(n_a <= 128, 4, 8).permute(0, 2, 1)[:, None, :, None, :]
+    return int(2 * n_t.sum() + (active * 2 * r5).sum()
+               + (active * s5 * (2 + words)).sum())
+
+
+def sorts_and_masks(by_name):
+    """The sort and elementwise kernels among a trace's kernels by name."""
+    return [k for k in by_name
+            if "sort" in k.lower() or "elementwise" in k.lower()]
+
+
 def record_kernel(torch, lines, errs, launches, name, shape_note, kern,
                   plain, out_bytes, steps, line=True, rate=INT32_OPS_PER_S,
                   library=None, extra=None):
@@ -1041,7 +1135,8 @@ def record_kernel(torch, lines, errs, launches, name, shape_note, kern,
     is the larger of ``out_bytes`` (inputs read once, output written once)
     over the HBM rate and ``steps`` operations over ``rate``.  ``ms`` is
     one call of the op as the main path makes it; ``kernel_ms`` the device
-    time of the kernels that call launches (``kernel_ms_by_name`` each)."""
+    time of the kernels that call launches (``kernel_ms_by_name`` each,
+    the sort and elementwise ones among them in ``sorts_and_masks``)."""
     from repro_torch.kernels import cuda
     got = kern()
     want = plain()
@@ -1058,6 +1153,7 @@ def record_kernel(torch, lines, errs, launches, name, shape_note, kern,
              "replaces": replaces, "launches": launches[name],
              "max_abs_err": errs[name], "ms": ms, "kernel_ms": k_ms,
              "kernel_ms_by_name": k_by_name,
+             "sorts_and_masks": sorts_and_masks(k_by_name),
              **({"kernel_ms_missing": k_missing} if k_missing else {}),
              "plain_ms": plain_ms,
              "bound_ms": 1e3 * max(t_bytes, t_ops),
@@ -1162,13 +1258,8 @@ def kernel_phase(torch, ops, errs, launches, results, queries):
     # Q3: cyclic.  The sorted formulation: every live S slot of bucket
     # (j, f, b) is visited by the hp * uh cells (i, a): two searches of the
     # R cell (i, j, a, b) and two of the T row (i, f, a) per visit, and two
-    # steps per matching pair.  The kernel's bit-row formulation, one
-    # operation per table probe or row word: two probes per live T entry
-    # (its a and c), and for every (cell, f) whose R cell, S bucket and T
-    # row all hold live entries, two per R entry (its a and b) and, per S
-    # entry, two probes (its b and c rows) and the W words of the rows'
-    # AND (W = 4 where the T row has at most 128 distinct a, else 8).  The
-    # bound takes the smaller count.
+    # steps per matching pair.  The kernel's bit-row formulation:
+    # ``cyclic_table_ops``.  The bound takes the smaller count.
     _, (rg, sg, tg), cols = first_round_layout(results, queries, "Q3",
                                                "default")
     names = ("ra", "rb", "sb", "sc", "tc", "ta")
@@ -1193,20 +1284,7 @@ def kernel_phase(torch, ops, errs, launches, results, queries):
     r_visit = int((lg_r * n_s.sum(1)[None, :, None, :]).sum())
     t_visit = int((lg_t * n_s.sum((0, 2))[None, :, None]).sum())
     search_ops = 2 * (r_visit + t_visit) + 2 * pairs
-    # [i, j, a, b, f]: the (cell, f) passes the kernel makes
-    s5 = n_s.permute(0, 2, 1)[None, :, None, :, :]     # [1, gp, 1, ug, fp]
-    t5 = n_t.permute(0, 2, 1)[:, None, :, None, :]     # [hp, 1, uh, 1, fp]
-    r5 = n_r[..., None]
-    active = ((r5 > 0) & (s5 > 0) & (t5 > 0)).to(torch.int64)
-    ta_sorted = torch.sort(m[5], dim=-1).values          # [hp, fp, uh, ct]
-    dead_t = ops._SENT["t"]
-    n_a = (((ta_sorted[..., 1:] != ta_sorted[..., :-1])
-            & (ta_sorted[..., 1:] != dead_t)).sum(-1)
-           + (ta_sorted[..., 0] != dead_t))
-    words = torch.where(n_a <= 128, 4, 8).permute(0, 2, 1)[:, None, :, None, :]
-    table_ops = int(2 * n_t.sum() + (active * 2 * r5).sum()
-                    + (active * s5 * (2 + words)).sum())
-    del ta_sorted
+    table_ops = cyclic_table_ops(torch, ops, m[0], m[2], m[4], m[5])
     record("fused_count3_cyclic_pairidx",
            f"Q3 round 1: hp={hp} gp={gp} uh={uh} ug={ug} fp={fp} Cr={cr} "
            f"Cs={cs} Ct={ct}; matching (s, r) pairs={pairs}",
@@ -1521,8 +1599,13 @@ def baseline_kernel_phase(torch, ops, errs, launches, layouts):
            int((n_s * 2 * (lg_r + lg_t)).sum()), line=False)
     del args, m, rg, sg, tg
 
-    # the all-pairs cyclic kernels at B4's final plan (the fused sweep also
-    # at Q3's graph, printed, not in the kernels line)
+    # the all-pairs cyclic kernels at B4's and B4q3's final plans: the
+    # bucket-row kernel at the first (H, G) cell on its (f, a, b) grid, the
+    # fused sweep whole (B4q3's records printed, not in the kernels line).
+    # Their bound takes, as the pair-index kernel's does, the smaller of
+    # the merge formulation's steps (``ops_search``, the rule of these rows
+    # before they ran the pair-index sweep) and the bit-row formulation's
+    # operations (``cyclic_table_ops``, ``ops_tables``), both printed.
     def merge_steps(ra, rb, sb, ta, batch):
         """Per R-slot visit: two searches of its S row and two of its T row,
         then one step per entry of its S run (b = r.b) and T run
@@ -1543,36 +1626,40 @@ def baseline_kernel_phase(torch, ops, errs, launches, layouts):
             (raw[0], raw[2], "r"), (raw[1], raw[2], "r"),
             (raw[3], raw[5], "s"), (raw[4], raw[5], "s"),
             (raw[6], raw[8], "t"), (raw[7], raw[8], "t")])
-        if label == "B4":
-            # bucket-row: the first (H, G) cell on its (f, a, b) grid
-            cell = [ra[0, 0], rb[0, 0], sb[0][:, None], sc[0][:, None],
-                    tc[0][..., None, :], ta[0][..., None, :]]
-            batch = ops.batch_shape(*cell)
-            masks = [raw[2][0, 0], raw[5][0][:, None],
-                     raw[8][0][..., None, :]]
-            record("bucket_count3_cyclic",
-                   f"first (H, G) cell of the final plan {list(plan)}",
-                   lambda: ops.bucket_count3_cyclic(
-                       raw[0][0, 0], raw[1][0, 0], masks[0],
-                       raw[3][0][:, None], raw[4][0][:, None], masks[1],
-                       raw[6][0][..., None, :], raw[7][0][..., None, :],
-                       masks[2]),
-                   lambda: ops._bucket_cyclic_ref(*cell),
-                   nbytes(*cell) + math.prod(batch) * 4,
-                   merge_steps(cell[0], cell[1], cell[2], cell[5], batch))
+        # bucket-row: the first (H, G) cell as the scan passes it, R
+        # [uh, ug], S [fp, 1, ug] and T [fp, uh, 1]
+        cell_raw = [x[0, 0] for x in raw[:3]] + [
+            x[0][:, None] for x in raw[3:6]] + [
+            x[0][..., None, :] for x in raw[6:]]
+        cell = [ra[0, 0], rb[0, 0], sb[0][:, None], sc[0][:, None],
+                tc[0][..., None, :], ta[0][..., None, :]]
+        batch = ops.batch_shape(*cell)
+        search = merge_steps(cell[0], cell[1], cell[2], cell[5], batch)
+        tables = cyclic_table_ops(torch, ops, ra[:1, :1], sb[:1], tc[:1],
+                                  ta[:1])
+        record("bucket_count3_cyclic",
+               f"{label}: first (H, G) cell of the final plan {list(plan)}",
+               lambda c=cell_raw: ops.bucket_count3_cyclic(*c),
+               lambda c=cell: ops._bucket_cyclic_ref(*c),
+               nbytes(*cell) + math.prod(batch) * 4, min(search, tables),
+               line=label == "B4",
+               extra={"ops_search": search, "ops_tables": tables})
+        del cell_raw, cell
         # fused: the whole sweep, S rows (j, f, b), T rows (i, f, a) per f
         hp, gp, uh, ug, _ = ra.shape
-        fused_steps = sum(
+        search = sum(
             merge_steps(ra, rb, sb[:, f][None, :, None],
                         ta[:, f][:, None, :, None], (hp, gp, uh, ug))
             for f in range(plan.f_parts))
+        tables = cyclic_table_ops(torch, ops, ra, sb, tc, ta)
         record("fused_count3_cyclic", f"{label} at the final plan "
                f"{list(plan)}",
                lambda raw=raw: ops.fused_count3_cyclic(*raw, pair_index=False),
                lambda m=(ra, rb, sb, sc, tc, ta):
                    ops._fused_cyclic_pairidx_ref(*m),
                nbytes(ra, rb, sb, sc, tc, ta) + hp * gp * uh * ug * 4,
-               fused_steps, line=label == "B4")
+               min(search, tables), line=label == "B4",
+               extra={"ops_search": search, "ops_tables": tables})
         del raw, ra, rb, sb, sc, tc, ta, rg, sg, tg
 
     # the pair count at B6's layout

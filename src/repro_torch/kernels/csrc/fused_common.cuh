@@ -1,9 +1,9 @@
 // Shared device code of the sorted-row join kernels (Hopper, sm_90a):
-// binary searches of sorted bucket rows (bound, used by the all-pairs
-// merge of cyclic_allpairs.cuh; count_equal, by pair_count.cu) and the
-// per-cell atomic adds of a warp (warp_add_by_cell, also used by the fused
-// linear sweep of linear_sweep.cuh).  The other join sweeps probe hash
-// tables instead (smem_hash.cuh, key_lists.cuh, sweep_common.cuh).
+// binary searches of sorted bucket rows (bound and count_equal, used by
+// pair_count.cu) and the per-cell atomic adds of a warp
+// (warp_add_by_cell, also used by the fused linear sweep of
+// linear_sweep.cuh).  The other join sweeps probe hash tables instead
+// (smem_hash.cuh, key_lists.cuh, sweep_common.cuh, cyclic_sweep.cu).
 //
 // warp_add_by_cell reduces a warp's per-cell sums across its runs of equal
 // cells and adds each run with one int32 atomic (int32 sums wrap

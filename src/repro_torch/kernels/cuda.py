@@ -15,16 +15,17 @@ one to its launch counter (``LAUNCHES``).  Nothing here falls back to a
 plain version: a build or launch failure raises.
 
 The fused sweeps of the session's path (linear, per-R, star and
-pair-index) and the bucket-row linear and per-R sweeps of the baselines
-take the raw key columns and their bool validity masks: their pre-passes
-drop dead slots and build the tables they probe, in shared memory where
-they fit, so nothing is sorted or masked around them; the wrappers
-allocate the pre-passes' scratch.  The other join kernels of the
-baselines (the bucket-row pair count and cyclic kernels and the
-all-pairs cyclic sweep) take sentinel-masked operands (``ops._mask``),
-so a slot holding its side's sentinel is dead and equals no key; their
-wrappers sort each bucket row that the kernels binary-search (the pair
-count's kb rows; the all-pairs sweeps' packed (b, c) and (a, c) keys).
+pair-index), the all-pairs cyclic sweep and the bucket-row linear, per-R
+and cyclic sweeps of the baselines take the raw key columns and their
+bool validity masks: their pre-passes drop dead slots and build the
+tables they probe, in shared memory where they fit, so nothing is
+sorted or masked around them; the wrappers allocate the pre-passes'
+scratch.  The three triangle ops run one sweep, one library
+(``csrc/cyclic_sweep.cu``), over a batch described by its dimensions and
+each operand's row strides; each op keeps its own launch counter.
+The bucket-row pair count alone takes sentinel-masked operands
+(``ops._mask``), so a slot holding its side's sentinel is dead and equals
+no key; its wrapper sorts the kb rows that the kernel binary-searches.
 
 The flash forward (``flash_fwd``, the LM's prefill and training
 attention) takes f32 or bf16 q, k, v through their strides and returns
@@ -37,7 +38,7 @@ The bucket-row wrappers (``bucket_*``) take ``[*batch, C]`` rows whose
 batch shapes broadcast: an operand of size 1 along a batch dimension is
 one row shared along it, passed to the kernel once with a zero row
 stride (or without that dimension's bit in its span mask) and listed or
-sorted once per launch, never copied per bucket.
+packed once per launch, never copied per bucket.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ import time
 
 import torch
 
-from repro_torch.kernels.ops import _SENT, sorted_pair_keys
+from repro_torch.kernels.ops import _SENT
 
 _HERE = pathlib.Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -70,8 +71,9 @@ _A = ctypes.POINTER(ctypes.c_longlong)   # a host array of int64
 # source stem -> (exported function, argtypes).  Pointer and stream
 # arguments are c_void_p and sizes c_longlong, so ctypes passes no pointer
 # as a 32-bit int.
-_MERGE_ARGS = [_P, _P, _P, _P, _C, _C, _A, _A, _A, _A, _A, _I, _I, _I, _P,
-               _C, _P]
+# the triangle sweeps: nine operands (keys and validity), the batch and
+# four stride arrays, three capacities, two scratch tensors and the output
+_CYCLIC_ARGS = [*[_P] * 9, _C, *[_A] * 5, *[_I] * 3, *[_P] * 3, _C, _P]
 # the linear, per-R and star sweeps: seven operands (keys and validity),
 # six sizes, seven scratch tensors and the output
 _SWEEP_ARGS = [*[_P] * 7, *[_I] * 6, *[_P] * 8, _C, _P]
@@ -82,13 +84,10 @@ _LIBS = {
     "fused_linear": ("rj_fused_linear", _SWEEP_ARGS),
     "fused_star": ("rj_fused_star", _SWEEP_ARGS),
     "fused_per_r": ("rj_fused_per_r", _SWEEP_ARGS),
-    "fused_cyclic_pairidx": ("rj_fused_cyclic_pairidx",
-                             [*[_P] * 9, *[_I] * 8, *[_P] * 7, _C, _P]),
-    "fused_cyclic": ("rj_fused_cyclic", _MERGE_ARGS),
+    "cyclic_sweep": ("rj_cyclic_sweep", _CYCLIC_ARGS),
     "pair_count": ("rj_pair_count", [_P, _P, _C, _I, _I, _I, _P, _C, _P]),
     "bucket_linear": ("rj_bucket_linear", _BUCKET_ARGS),
     "bucket_per_r": ("rj_bucket_per_r", _BUCKET_ARGS),
-    "bucket_cyclic": ("rj_bucket_cyclic", _MERGE_ARGS),
     "flash_fwd": ("rj_flash_fwd",
                   [_P, _P, _P, _P, _P, _P, _C, *[_I] * 15, _C, _C,
                    ctypes.c_float, _C, _P]),
@@ -121,7 +120,7 @@ SOURCES = {
     "fused_count3_star": ("src/repro_torch/kernels/csrc/fused_star.cu",
                           "src/repro/kernels/bucket_join.py:425"),
     "fused_count3_cyclic_pairidx": (
-        "src/repro_torch/kernels/csrc/fused_cyclic_pairidx.cu",
+        "src/repro_torch/kernels/csrc/cyclic_sweep.cu",
         "src/repro/kernels/bucket_join.py:377"),
     "fused_per_r_counts": ("src/repro_torch/kernels/csrc/fused_per_r.cu",
                            "src/repro/kernels/bucket_join.py:275"),
@@ -131,9 +130,9 @@ SOURCES = {
                              "src/repro/kernels/bucket_join.py:87"),
     "bucket_per_r_counts": ("src/repro_torch/kernels/csrc/bucket_per_r.cu",
                             "src/repro/kernels/bucket_join.py:124"),
-    "bucket_count3_cyclic": ("src/repro_torch/kernels/csrc/bucket_cyclic.cu",
+    "bucket_count3_cyclic": ("src/repro_torch/kernels/csrc/cyclic_sweep.cu",
                              "src/repro/kernels/bucket_join.py:164"),
-    "fused_count3_cyclic": ("src/repro_torch/kernels/csrc/fused_cyclic.cu",
+    "fused_count3_cyclic": ("src/repro_torch/kernels/csrc/cyclic_sweep.cu",
                             "src/repro/kernels/bucket_join.py:317"),
     "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
                   "src/repro/kernels/flash_attention.py:110"),
@@ -341,72 +340,73 @@ def fused_count3_star(rb, rv, sb, sc, sv, tc, tv) -> torch.Tensor:
     return out
 
 
+def _i64s(vals) -> ctypes.Array:
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _launch_cyclic(op: str, keys: tuple, dims: tuple, strides: tuple,
+                   out_shape: tuple) -> torch.Tensor:
+    """Launch the triangle sweep (``csrc/cyclic_sweep.cu``) for ``op`` over
+    the batch ``dims`` with the row strides of R, S, T and the output per
+    dimension (``strides``, 0 where a row is shared along it; the first
+    dimension is the slowest the CTAs walk).  ``keys`` are the nine checked operands;
+    the pre-pass's scratch is sized per distinct row, and the C code
+    zeroes the lengths and the output itself (no fill kernel)."""
+    ra, _, _, sb, _, _, tc, _, _ = keys
+    dev = ra.device
+    cr, cs, ct = ra.shape[-1], sb.shape[-1], tc.shape[-1]
+    n_r, n_s, n_t = (x.shape[:-1].numel() for x in (ra, sb, tc))
+    pairs = torch.empty(max(1, 2 * (n_r * cr + n_s * cs + n_t * ct)),
+                        dtype=torch.int32, device=dev)
+    lens = torch.empty(max(1, n_r + n_s + n_t), dtype=torch.int32,
+                       device=dev)
+    out = torch.empty(out_shape, dtype=torch.int32, device=dev)
+    _launch(op, "cyclic_sweep", dev, *map(_ptr, keys), len(dims),
+            _i64s(dims), *map(_i64s, strides), cr, cs, ct, _ptr(pairs),
+            _ptr(lens), _ptr(out))
+    return out
+
+
+def _fused_cyclic(op: str, ra, rb, rv, sb, sc, sv, tc, ta,
+                  tv) -> torch.Tensor:
+    """The fused triangle grid: R cells (i, j, a, b), S rows (j, f, b), T
+    rows (i, f, a), walked as the batch (f, i, j, a, b): one CTA per T row
+    (f, i, a), f slowest, over the cells (j, b); the output ignores f."""
+    hp, gp, uh, ug, cr = ra.shape
+    _, fp, _, cs = sb.shape
+    ct = tc.shape[-1]
+    b = torch.bool
+    r, s, t = (hp, gp, uh, ug, cr), (gp, fp, ug, cs), (hp, fp, uh, ct)
+    _check(op, torch.int32, ra.device, ra=(ra, r), rb=(rb, r), rv=(rv, r, b),
+           sb=(sb, s), sc=(sc, s), sv=(sv, s, b), tc=(tc, t), ta=(ta, t),
+           tv=(tv, t, b))
+    cells = (0, gp * uh * ug, uh * ug, ug, 1)
+    return _launch_cyclic(
+        op, (ra, rb, rv, sb, sc, sv, tc, ta, tv), (fp, hp, gp, uh, ug),
+        (cells, (ug, 0, fp * ug, 0, 1), (uh, fp * uh, 0, 1, 0), cells),
+        (hp, gp, uh, ug))
+
+
 def fused_count3_cyclic_pairidx(ra, rb, rv, sb, sc, sv, tc, ta,
                                 tv) -> torch.Tensor:
     """ra/rb [hp,gp,uh,ug,Cr], sb/sc [gp,fp,ug,Cs], tc/ta [hp,fp,uh,Ct]
     int32 keys with their bool validity rv, sv, tv (not masked) ->
     [hp,gp,uh,ug] int32."""
-    hp, gp, uh, ug, cr = ra.shape
-    _, fp, _, cs = sb.shape
-    ct = tc.shape[-1]
-    dev = ra.device
-    b = torch.bool
-    r, s, t = (hp, gp, uh, ug, cr), (gp, fp, ug, cs), (hp, fp, uh, ct)
-    _check("fused_count3_cyclic_pairidx", torch.int32, dev, ra=(ra, r),
-           rb=(rb, r), rv=(rv, r, b), sb=(sb, s), sc=(sc, s), sv=(sv, s, b),
-           tc=(tc, t), ta=(ta, t), tv=(tv, t, b))
-    out = torch.zeros((hp, gp, uh, ug), dtype=torch.int32, device=dev)
-    # the pre-pass packs each row's live pairs to its front, with counts
-    lens = _scratch(dev, r[:-1], s[:-1], t[:-1], zero=True)
-    pairs = _scratch(dev, (*r, 2), (*s, 2), (*t, 2))
-    _launch("fused_count3_cyclic_pairidx", "fused_cyclic_pairidx", dev,
-            *map(_ptr, (ra, rb, rv, sb, sc, sv, tc, ta, tv)), hp, gp, uh, ug,
-            fp, cr, cs, ct, *map(_ptr, (*pairs, *lens, out)))
-    return out
+    return _fused_cyclic("fused_count3_cyclic_pairidx", ra, rb, rv, sb, sc,
+                         sv, tc, ta, tv)
+
+
+def fused_count3_cyclic(ra, rb, rv, sb, sc, sv, tc, ta, tv) -> torch.Tensor:
+    """The all-pairs form of the triangle sweep, on the pair-index sweep's
+    tables: same operands, counts and kernel as
+    ``fused_count3_cyclic_pairidx``, its own launch counter."""
+    return _fused_cyclic("fused_count3_cyclic", ra, rb, rv, sb, sc, sv, tc,
+                         ta, tv)
 
 
 # --------------------------------------------------------------------------
-# the all-pairs cyclic sweep and the bucket-row kernels of the baselines
+# the bucket-row kernels of the baselines
 # --------------------------------------------------------------------------
-
-def _i64s(vals) -> ctypes.Array:
-    return (ctypes.c_longlong * len(vals))(*vals)
-
-
-def _launch_merge(op: str, stem: str, ra, rb, sb, sc, tc, ta, dims, r, s, t,
-                  o, out) -> None:
-    """Sort each distinct S row by (b, c) and T row by (a, c) and launch
-    the merge-join body of ``cyclic_allpairs.cuh`` over the batch ``dims``
-    with the given row strides per dimension."""
-    skey = sorted_pair_keys(sb, sc).contiguous()
-    tkey = sorted_pair_keys(ta, tc).contiguous()
-    _launch(op, stem, ra.device, _ptr(ra), _ptr(rb), _ptr(skey), _ptr(tkey),
-            _SENT["r"], len(dims), _i64s(dims), _i64s(r), _i64s(s),
-            _i64s(t), _i64s(o), ra.shape[-1], sb.shape[-1], tc.shape[-1],
-            _ptr(out))
-
-
-def fused_count3_cyclic(ra, rb, sb, sc, tc, ta) -> torch.Tensor:
-    """The all-pairs form of the triangle sweep: ra/rb [hp,gp,uh,ug,Cr],
-    sb/sc [gp,fp,ug,Cs], tc/ta [hp,fp,uh,Ct] int32 (sentinel-masked) ->
-    [hp,gp,uh,ug] int32."""
-    hp, gp, uh, ug, cr = ra.shape
-    _, fp, _, cs = sb.shape
-    ct = tc.shape[-1]
-    dev = ra.device
-    _check("fused_count3_cyclic", torch.int32, dev,
-           ra=(ra, (hp, gp, uh, ug, cr)), rb=(rb, (hp, gp, uh, ug, cr)),
-           sb=(sb, (gp, fp, ug, cs)), sc=(sc, (gp, fp, ug, cs)),
-           tc=(tc, (hp, fp, uh, ct)), ta=(ta, (hp, fp, uh, ct)))
-    out = torch.zeros((hp, gp, uh, ug), dtype=torch.int32, device=dev)
-    # batch (i, j, a, b, f): R rows and output cells (i, j, a, b), S rows
-    # (j, f, b), T rows (i, f, a); the sum over f is in the atomics
-    cells = (gp * uh * ug, uh * ug, ug, 1, 0)
-    _launch_merge("fused_count3_cyclic", "fused_cyclic", ra, rb, sb, sc, tc,
-                  ta, (hp, gp, uh, ug, fp), cells, (0, fp * ug, 0, 1, ug),
-                  (fp * uh, 0, 1, 0, uh), cells, out)
-    return out
-
 
 def _padded_batch(op: str, nd: int, *rows) -> tuple[tuple, tuple]:
     """The common batch shape of bucket-row operands ``[*batch, C]``, as it
@@ -510,23 +510,24 @@ def bucket_per_r_counts(rb, rv, sb, sc, sv, tc, tv) -> torch.Tensor:
                                 rv, sb, sc, sv, tc, tv, per_r=True)
 
 
-def bucket_count3_cyclic(ra, rb, sb, sc, tc, ta) -> torch.Tensor:
+def bucket_count3_cyclic(ra, rb, rv, sb, sc, sv, tc, ta,
+                         tv) -> torch.Tensor:
     """ra/rb [*batch, Cr], sb/sc [*batch, Cs], tc/ta [*batch, Ct] int32
-    (sentinel-masked; at most five batch dimensions; size-1 dimensions
-    share one row) -> [*batch] int32."""
+    keys with their bool validity rv, sv, tv of the same shapes (not
+    masked; at most five batch dimensions; size-1 dimensions share one
+    row) -> [*batch] int32.  One CTA per distinct T row (or split of its
+    buckets) walks the buckets it serves."""
     op = "bucket_count3_cyclic"
-    rows = dict(ra=ra, rb=rb, sb=sb, sc=sc, tc=tc, ta=ta)
-    batch, dims = _padded_batch(op, 5, *rows.values())
-    _check_rows(op, ra.device, **rows)
-    for a, b in (("ra", "rb"), ("sb", "sc"), ("tc", "ta")):
-        if rows[a].shape != rows[b].shape:
-            raise ValueError(f"{op}: {a} {tuple(rows[a].shape)} and {b} "
-                             f"{tuple(rows[b].shape)} differ")
-    out = torch.zeros(batch, dtype=torch.int32, device=ra.device)
-    _launch_merge(op, "bucket_cyclic", ra, rb, sb, sc, tc, ta, dims,
-                  *(_row_strides(_shape_nd(x, 5)) for x in (ra, sb, tc)),
-                  _row_strides(dims), out)
-    return out
+    batch, dims = _padded_batch(op, 5, ra, sb, tc)
+    b = torch.bool
+    _check(op, torch.int32, ra.device, ra=(ra, ra.shape), rb=(rb, ra.shape),
+           rv=(rv, ra.shape, b), sb=(sb, sb.shape), sc=(sc, sb.shape),
+           sv=(sv, sb.shape, b), tc=(tc, tc.shape), ta=(ta, tc.shape),
+           tv=(tv, tc.shape, b))
+    return _launch_cyclic(
+        op, (ra, rb, rv, sb, sc, sv, tc, ta, tv), dims,
+        (*(_row_strides(_shape_nd(x, 5)) for x in (ra, sb, tc)),
+         _row_strides(dims)), batch)
 
 
 # --------------------------------------------------------------------------

@@ -15,13 +15,14 @@ Three families:
     and across rows).  ``[B, C]`` operands are the reference's contract;
   * ``radix_histogram``: the per-bucket counts of a hashed key stream.
 
-Each public op masks invalid slots with per-side sentinels (so an invalid
-slot can never equal anything on another side) and then dispatches on the
-device of its tensors (the kernels of the fused ops of the session's path,
-``fused_count3_linear``, ``fused_per_r_counts``, ``fused_count3_star`` and
-the pair-index ``fused_count3_cyclic``, and of the bucket-row
-``bucket_count3_linear`` and ``bucket_per_r_counts``, read the validity
-masks themselves, so only their plain versions mask):
+Each public op dispatches on the device of its tensors, and its plain
+version masks invalid slots with per-side sentinels (so an invalid slot
+can never equal anything on another side).  Every join kernel but the
+pair count's reads the validity masks itself, so only ``bucket_pair_count``
+masks before it launches; the others pass the raw keys and validity
+(``fused_count3_linear``, ``fused_per_r_counts``, ``fused_count3_star``,
+``fused_count3_cyclic`` in both forms, ``bucket_count3_linear``,
+``bucket_per_r_counts`` and ``bucket_count3_cyclic``):
 
   * a CUDA tensor launches the hand-written Hopper kernel
     (``kernels.cuda``); a kernel that fails to build or launch raises —
@@ -406,29 +407,23 @@ def fused_count3_cyclic(ra, rb, rv, sb, sc, sv, tc, ta, tv, *,
                         pair_index: bool = True):
     """Fused cyclic sweep: per-cell counts [hp, gp, uh, ug] int32.
 
-    ``pair_index=True`` (the session's path) probes a (c, a)-pair index of
-    the T stream: on the card a count table in shared memory
-    (``cuda.fused_count3_cyclic_pairidx``, which reads the validity masks
-    itself).  ``pair_index=False`` is the all-pairs contraction
-    Σ (M1ᵀ·M2) ⊙ M3 of the reference's MXU kernel
-    (``cuda.fused_count3_cyclic``, a merge join per R slot).  On the CPU
-    both forms compute the same per-cell counts, so both take the one plain
-    version.
+    ``pair_index=True`` (the session's path) is the reference's (c, a)-pair
+    index of the T stream (``cuda.fused_count3_cyclic_pairidx``);
+    ``pair_index=False`` the all-pairs contraction Σ (M1ᵀ·M2) ⊙ M3 of its
+    MXU kernel (``cuda.fused_count3_cyclic``).  Both forms compute the same
+    per-cell counts: on the card both kernels run the one sweep over
+    shared-memory tables and read the validity masks themselves, each with
+    its own launch counter; on the CPU both take the one plain version,
+    which masks.
     """
-    if pair_index and _on_cuda(ra, "fused_count3_cyclic"):
-        from repro_torch.kernels import cuda
-        return cuda.fused_count3_cyclic_pairidx(*_contiguous(
-            ra, rb, rv, sb, sc, sv, tc, ta, tv))
-    ra = _mask(ra, rv, "r")
-    rb = _mask(rb, rv, "r")
-    sb = _mask(sb, sv, "s")
-    sc = _mask(sc, sv, "s")
-    tc = _mask(tc, tv, "t")
-    ta = _mask(ta, tv, "t")
     if _on_cuda(ra, "fused_count3_cyclic"):
         from repro_torch.kernels import cuda
-        return cuda.fused_count3_cyclic(ra, rb, sb, sc, tc, ta)
-    return _fused_cyclic_pairidx_ref(ra, rb, sb, sc, tc, ta)
+        fn = (cuda.fused_count3_cyclic_pairidx if pair_index
+              else cuda.fused_count3_cyclic)
+        return fn(*_contiguous(ra, rb, rv, sb, sc, sv, tc, ta, tv))
+    return _fused_cyclic_pairidx_ref(
+        _mask(ra, rv, "r"), _mask(rb, rv, "r"), _mask(sb, sv, "s"),
+        _mask(sc, sv, "s"), _mask(tc, tv, "t"), _mask(ta, tv, "t"))
 
 
 def fused_count3_star(rb, rv, sb, sc, sv, tc, tv):
@@ -485,17 +480,16 @@ def bucket_per_r_counts(rb, rv, sb, sc, sv, tc, tv):
 
 
 def bucket_count3_cyclic(ra, rb, rv, sb, sc, sv, tc, ta, tv):
-    """Per-bucket triangle counts [*batch] int32 (the all-pairs form)."""
-    ra = _mask(ra, rv, "r")
-    rb = _mask(rb, rv, "r")
-    sb = _mask(sb, sv, "s")
-    sc = _mask(sc, sv, "s")
-    tc = _mask(tc, tv, "t")
-    ta = _mask(ta, tv, "t")
+    """Per-bucket triangle counts [*batch] int32 (the all-pairs form).
+    Each validity has its keys' shape.  The kernel reads the validity
+    masks itself; the plain version masks."""
     if _on_cuda(ra, "bucket_count3_cyclic"):
         from repro_torch.kernels import cuda
-        return cuda.bucket_count3_cyclic(ra, rb, sb, sc, tc, ta)
-    return _bucket_cyclic_ref(ra, rb, sb, sc, tc, ta)
+        return cuda.bucket_count3_cyclic(*_contiguous(ra, rb, rv, sb, sc, sv,
+                                                      tc, ta, tv))
+    return _bucket_cyclic_ref(
+        _mask(ra, rv, "r"), _mask(rb, rv, "r"), _mask(sb, sv, "s"),
+        _mask(sc, sv, "s"), _mask(tc, tv, "t"), _mask(ta, tv, "t"))
 
 
 def bucket_count3_cyclic_pairidx(ra, rb, rv, sb, sc, sv, tcs, tas):

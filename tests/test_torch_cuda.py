@@ -197,6 +197,94 @@ def test_bucket_sweeps_launch_their_kernels_on_cuda(card, layout):
     assert int(got.to(torch.int64).sum()) > 0
 
 
+# B4's layouts (1e5 edges over 350 users, final plan [2, 4, 8, 8, 4, 496,
+# 1960, 3912]): the scan's first (H, G) cell, R [8, 8] shared along f, S
+# [4, 1, 8] along a and T [4, 8, 1] along b, and the fused grid
+@pytest.mark.parametrize("form", ["bucket", "fused"])
+def test_cyclic_ops_launch_only_their_sweep_on_cuda(card, form):
+    """Each all-pairs triangle op launches its own kernel, counted on its
+    own counter, and no sort or elementwise kernel: the pre-pass packs the
+    raw keys with their validity, the lengths and the output are zeroed by
+    memsets."""
+    from repro_torch.kernels import cuda
+    smoke = _smoke()
+    gen = torch.Generator().manual_seed(13)
+    hp, gp, uh, ug, fp, cr, cs, ct = 2, 4, 8, 8, 4, 496, 1960, 3912
+
+    def rows(shape, live):
+        k = [_bucket_rows(gen, shape, 350, live, card)[0] for _ in range(2)]
+        return (*k, _bucket_rows(gen, shape, 350, live, card)[1])
+    if form == "bucket":
+        name, r, s, t = ("bucket_count3_cyclic", (uh, ug, cr),
+                         (fp, 1, ug, cs), (fp, uh, 1, ct))
+        op, plain = ops.bucket_count3_cyclic, ops._bucket_cyclic_ref
+    else:
+        name, r, s, t = ("fused_count3_cyclic", (hp, gp, uh, ug, cr),
+                         (gp, fp, ug, cs), (hp, fp, uh, ct))
+        op, plain = ops.fused_count3_cyclic, ops._fused_cyclic_pairidx_ref
+    ra, rb, rv = rows(r, 200)
+    sb, sc, sv = rows(s, 780)
+    tc, ta, tv = rows(t, 1560)
+    args = (ra, rb, rv, sb, sc, sv, tc, ta, tv)
+    kw = {} if form == "bucket" else {"pair_index": False}
+    before = dict(cuda.LAUNCHES)
+    got = op(*args, **kw)
+    assert {k: cuda.LAUNCHES[k] - before[k] for k in cuda.KERNELS
+            if cuda.LAUNCHES[k] != before[k]} == {name: 1}
+    m = [ops._mask(x, v, side) for x, v, side in
+         ((ra, rv, "r"), (rb, rv, "r"), (sb, sv, "s"), (sc, sv, "s"),
+          (tc, tv, "t"), (ta, tv, "t"))]
+    assert torch.equal(got, plain(*m))
+    assert int(got.to(torch.int64).sum()) > 0
+    _, by_name, missing = smoke.kernel_ms(torch, lambda: op(*args, **kw))
+    assert missing is None, missing
+    assert smoke.sorts_and_masks(by_name) == [], by_name
+    assert any("cyclic_sweep_kernel" in k for k in by_name), by_name
+
+
+def test_cyclic_wrappers_check_their_inputs(card):
+    """The bucket-row and all-pairs triangle wrappers take raw keys and
+    bool validity of the keys' shapes, contiguous, on the card."""
+    from repro_torch.kernels import cuda
+    r = torch.zeros((3, 2, 8), dtype=torch.int32, device=card)
+    s = torch.zeros((4, 1, 2, 8), dtype=torch.int32, device=card)
+    t = torch.zeros((4, 3, 1, 8), dtype=torch.int32, device=card)
+    rv, sv, tv = r != 0, s != 0, t != 0
+    fn = cuda.bucket_count3_cyclic
+    assert fn(r, r, rv, s, s, sv, t, t, tv).shape == (4, 3, 2)
+    with pytest.raises(TypeError, match="dtype"):
+        fn(r, r, rv.int(), s, s, sv, t, t, tv)
+    with pytest.raises(TypeError, match="dtype"):
+        fn(r, r, rv, s.long(), s, sv, t, t, tv)
+    with pytest.raises(ValueError, match="shape"):
+        fn(r, r, rv, s, s, sv, t, t[..., :4].contiguous(), tv)
+    with pytest.raises(RuntimeError):   # batches that do not broadcast
+        fn(r, r, rv, s, s, sv, t[:2].contiguous(), t[:2].contiguous(),
+           tv[:2].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(r.transpose(1, 2).contiguous().transpose(1, 2), r, rv, s, s, sv,
+           t, t, tv)
+    with pytest.raises(ValueError, match="cpu"):
+        fn(r, r, rv, s, s, sv.cpu(), t, t, tv)
+    fr = torch.zeros((1, 2, 2, 3, 8), dtype=torch.int32, device=card)
+    fs = torch.zeros((2, 4, 3, 8), dtype=torch.int32, device=card)
+    ft = torch.zeros((1, 4, 2, 8), dtype=torch.int32, device=card)
+    frv, fsv, ftv = fr != 0, fs != 0, ft != 0
+    fn = cuda.fused_count3_cyclic
+    assert fn(fr, fr, frv, fs, fs, fsv, ft, ft, ftv).shape == (1, 2, 2, 3)
+    with pytest.raises(TypeError, match="dtype"):
+        fn(fr, fr, frv, fs, fs, fsv, ft, ft, ft)
+    with pytest.raises(TypeError, match="dtype"):
+        fn(fr, fr.long(), frv, fs, fs, fsv, ft, ft, ftv)
+    with pytest.raises(ValueError, match="shape"):
+        fn(fr, fr, frv, fs, fs[:1].contiguous(), fsv, ft, ft, ftv)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(fr, fr, frv, fs, fs, fsv.transpose(2, 3).contiguous()
+           .transpose(2, 3), ft, ft, ftv)
+    with pytest.raises(ValueError, match="cpu"):
+        fn(fr.cpu(), fr, frv, fs, fs, fsv, ft, ft, ftv)
+
+
 def test_flash_and_radix_launch_their_kernels_on_cuda(card):
     from repro_torch.kernels import cuda
     from repro_torch.kernels import flash_attention as fa

@@ -34,7 +34,18 @@ scans call them: ``bucket_count3_linear`` at B1's first H partition and
 at B2's first S chunk, ``bucket_per_r_counts`` at B3's first H
 partition, each with its ``op_ms``, ``kernel_ms`` and kernel ms by name,
 and the names of any sort or elementwise kernel one call launched
-(``sorts_and_masks``).  Prints the card's name and power limit first.
+(``sorts_and_masks``).  Then the all-pairs triangle baselines on B4's
+graph (``chip_smoke``'s 1e5 edges over 350 users) and on Q3's (B4q3):
+the warm seconds (median of 3 after a cold run) of the scan
+(``cyclic3_count_auto(pair_index=False)``) and of the fused all-pairs
+sweep (``engine.cyclic3_count_fused(pair_index=False)``) at the scan's
+final plan; where a warm scan's time goes (``scan_breakdown``: its wall
+seconds, the host seconds inside the layouts and inside the bucket-row
+op's calls, the device ms of its kernels by name); and, at that plan,
+``bucket_count3_cyclic`` at the first (H, G) cell as the scan passes it
+and ``fused_count3_cyclic(pair_index=False)`` over the whole sweep, timed
+as above.  Prints the card's name
+and power limit first.
 
 To compare two trees on one card, run them in turns in one call, e.g. a
 parent exported with ``git archive`` into a git-ignored directory:
@@ -240,13 +251,120 @@ def main() -> int:
             sg.columns["c"][0], sg.valid[0], tg.columns["c"][None],
             tg.valid[None])
 
+    def scan_breakdown(scan):
+        """Where a warm triangle scan's time goes: per scan (median of
+        WARM), its wall seconds, the host seconds spent inside
+        ``cyclic3.layouts`` and inside the bucket-row op's calls (neither
+        synchronises: the host's own time, or its waits where the code
+        itself waits on the card), and the op's calls; then the device ms
+        of one scan's kernels, in all and by name (``kernel_ms``), and
+        their share of the wall time."""
+        from repro_torch.core import cyclic3
+        spent = {}
+        lay0, op0 = cyclic3.layouts, ops.bucket_count3_cyclic
+
+        def timed(key, fn):
+            def wrap(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    spent[key + "_s"] += time.perf_counter() - t0
+                    spent[key + "_calls"] += 1
+            return wrap
+        cyclic3.layouts = timed("layouts", lay0)
+        ops.bucket_count3_cyclic = timed("op", op0)
+        runs = []
+        try:
+            for _ in range(WARM):
+                spent.update(layouts_s=0.0, layouts_calls=0, op_s=0.0,
+                             op_calls=0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                scan()
+                torch.cuda.synchronize()
+                runs.append({"wall_s": time.perf_counter() - t0, **spent})
+        finally:
+            cyclic3.layouts, ops.bucket_count3_cyclic = lay0, op0
+        out = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+        k_ms, by_name, missing = smoke.kernel_ms(torch, scan, reps=3)
+        out.update(device_ms=k_ms, device_share=(
+            k_ms / (1e3 * out["wall_s"]) if k_ms is not None else None),
+            device_ms_by_name=dict(sorted(by_name.items(),
+                                          key=lambda kv: -kv[1])[:8]),
+            **({"device_ms_missing": missing} if missing else {}))
+        return out
+
+    def cyclic_baselines():
+        """B4 and B4q3's scan and fused all-pairs sweep timed warm, then
+        (label, op name, op args) of the all-pairs ops at their layouts."""
+        import numpy as np
+        from repro_torch.core import cyclic3, engine, reference
+        rng = np.random.default_rng(args.seed + 1)
+        G = {c: rng.integers(0, smoke.B4_USERS, smoke.B4_EDGES).astype(
+            np.int32) for c in ("src", "dst")}
+        rows, cells, breakdown = {}, [], {}
+        for label, rel, n in (("B4", relation_from_numpy(G), smoke.B4_EDGES),
+                              ("B4q3", F, len(data["F"]["src"]))):
+            plan0 = cyclic3.default_plan(n, n, n, m_budget=smoke.M_BUDGET)
+            final = {}
+
+            def scan(rel=rel, plan0=plan0, final=final):
+                res, final["plan"] = reference.cyclic3_count_auto(
+                    rel, rel, rel, plan0, pair_index=False, **smoke.CYC)
+                return int(res.count), bool(res.overflowed)
+
+            def fused(rel=rel, final=final):
+                res = engine.cyclic3_count_fused(
+                    rel, rel, rel, final["plan"], pair_index=False,
+                    **smoke.CYC)
+                return int(res.count), bool(res.overflowed)
+            for form, fn in (("scan", scan), ("fused all-pairs", fused)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                count, overflowed = fn()
+                torch.cuda.synchronize()
+                cold = time.perf_counter() - t0
+                warm = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    warm.append(time.perf_counter() - t0)
+                rows[f"{label} {form}"] = {
+                    "count": count, "overflowed": overflowed,
+                    "plan": list(final["plan"]), "cold_s": cold,
+                    "warm_median_s": statistics.median(warm), "warm_s": warm}
+            cells.append((label, rel, final["plan"]))
+            breakdown[label] = scan_breakdown(scan)
+        print(json.dumps({"tag": tag, "baselines": rows}), flush=True)
+        print(json.dumps({"tag": tag, "scan_breakdown": breakdown}),
+              flush=True)
+        for label, rel, plan in cells:
+            rg, sg, tg = cyclic3.layouts(rel, rel, rel, plan, **smoke.CYC)
+            raw = [rg.columns[smoke.CYC["ra"]], rg.columns[smoke.CYC["rb"]],
+                   rg.valid, sg.columns[smoke.CYC["sb"]],
+                   sg.columns[smoke.CYC["sc"]], sg.valid,
+                   tg.columns[smoke.CYC["tc"]], tg.columns[smoke.CYC["ta"]],
+                   tg.valid]
+            yield f"{label} first cell", "bucket_count3_cyclic", tuple(
+                [x[0, 0] for x in raw[:3]] + [x[0][:, None] for x in raw[3:6]]
+                + [x[0][..., None, :] for x in raw[6:]])
+            yield f"{label} sweep", "fused_count3_cyclic", tuple(raw)
+            del rg, sg, tg, raw
+
     op_of = {"fused_count3_linear": ops.fused_count3_linear,
              "fused_per_r_counts": ops.fused_per_r_counts,
              "fused_count3_star": ops.fused_count3_star,
              "fused_count3_cyclic_pairidx": ops.fused_count3_cyclic,
              "bucket_count3_linear": ops.bucket_count3_linear,
-             "bucket_per_r_counts": ops.bucket_per_r_counts}
-    for label, name, a in itertools.chain(layouts(), baselines()):
+             "bucket_per_r_counts": ops.bucket_per_r_counts,
+             "bucket_count3_cyclic": ops.bucket_count3_cyclic,
+             "fused_count3_cyclic": lambda *a: ops.fused_count3_cyclic(
+                 *a, pair_index=False)}
+    for label, name, a in itertools.chain(layouts(), baselines(),
+                                          cyclic_baselines()):
         fn = op_of[name]
 
         def run(a=a, fn=fn):
@@ -260,10 +378,7 @@ def main() -> int:
                           "shape": shape, "sum": total,
                           "op_ms": smoke.time_ms(torch, run),
                           "kernel_ms": k_ms, "kernel_ms_by_name": by_name,
-                          "sorts_and_masks": [
-                              k for k in by_name
-                              if "sort" in k.lower()
-                              or "elementwise" in k.lower()],
+                          "sorts_and_masks": smoke.sorts_and_masks(by_name),
                           **({"kernel_ms_missing": missing} if missing
                              else {}),
                           "profile_s": time.perf_counter() - t0}),
