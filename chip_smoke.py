@@ -21,9 +21,13 @@ result line):
      scan's layout and with one T row shared by every bucket: rows of
      distinct keys past their shared-memory tables' budgets, a hot key
      whose cell counts wrap int32, dead rows, buckets and chunks, long S
-     buckets, unaligned capacities), the
-     radix histogram exactly (n not a multiple of the block, bucket counts
-     on both sides of the shared-memory limit), the flash forward within
+     buckets, unaligned capacities), the pair count exactly on
+     ``PAIR_HARD`` (rows of distinct keys past its shared budget, B6-like
+     rows, a hot key whose count wraps int32, dead rows, shared rows,
+     capacities 1, 257 and 4,099, keys just above the sentinels), the
+     radix histogram exactly on ``RADIX_HARD`` (each of its three paths,
+     the cluster path among them, unaligned views, one hot bucket, dead
+     streams, negative keys), the flash forward within
      ``FLASH_TOL`` (the flash kernel tests' cases, ragged S, D = 128 and
      256, bf16 and f32, strided views), the flash backward within
      ``FLASH_BWD_TOL`` against its plain version and against autograd of
@@ -54,7 +58,8 @@ result line):
      call as the main path makes it, ``kernel_ms`` the device time of the
      kernels that call launches (``torch.profiler`` after its warm-up
      step; null when the trace is incomplete; ``sorts_and_masks`` names
-     any sort or elementwise kernel among them);
+     any sort or elementwise kernel among them, and must be empty for the
+     pair count and the radix histogram);
   8. serve — the dense LM served at full width through
      ``repro_torch.launch.serve``: S1 qwen2-1.5b (batch 8, prompt 1024,
      32 generated tokens, 16 requests), S2 gemma3-1b (batch 4, prompt 2048,
@@ -474,6 +479,54 @@ def bucket_cyclic_layout(torch, gen, layout, sizes, kind, d):
             v["s"][:, None], t_of(k["tc"]), t_of(k["ta"]), t_of(v["t"]))
 
 
+# (kind, ka batch, kb batch, Ca, Cb, key range): the pair count's tiers.
+# "distinct": rows of distinct keys, 90% live, so the listed (shorter) b
+# rows hold ~4,500 distinct keys, past the sweep's shared budget (2,048):
+# global tables; "repeats": 1,000 distinct keys in rows of 300,000 slots,
+# lists of ~147,000 entries staged in the shared table, and streamed rows
+# of 400,000 slots cut into splits; "b6": B6's rows (4,896 slots, ~4 keys,
+# 20% live); "hot": one key in every slot of 70,000 a side, a count of
+# 4.9e9 that wraps int32, summed over splits; "dead": whole rows and
+# buckets dead; capacities 1, 257 and 4,099 with Ca != Cb; rows shared
+# along size-1 batch dimensions; keys just above the sentinels.
+PAIR_HARD = [
+    ("distinct", (3,), (3,), 6000, 5000, 20_000),
+    ("repeats", (2,), (2,), 300_000, 400_000, 1000),
+    ("b6", (64,), (64,), 4896, 4896, 4),
+    ("hot", (1,), (1,), 70_000, 70_000, 1),
+    ("dead", (6, 5), (6, 5), 40, 33, 13),
+    ("uniform", (7,), (7,), 1, 257, 3),
+    ("uniform", (3,), (3,), 4099, 257, 50),
+    ("uniform", (2,), (2,), 257, 4099, 50),
+    ("uniform", (3, 1), (1, 4), 500, 300, 50),
+    ("uniform", (1,), (5,), 700, 900, 60),
+    ("sentinel", (4,), (4,), 300, 200, 6),
+]
+
+
+def pair_layout(torch, ops, gen, kind, ba, bb, ca, cb, d):
+    """(ka, va, kb, vb) of one ``PAIR_HARD`` case on the CPU."""
+    out = []
+    for batch, c in ((ba, ca), (bb, cb)):
+        shape = (*batch, c)
+        if kind == "hot":
+            keys = torch.full(shape, 7, dtype=torch.int32)
+        elif kind == "distinct":
+            keys = _distinct_rows(torch, gen, shape, d)
+        else:
+            keys = torch.randint(0, d, shape, generator=gen,
+                                 dtype=torch.int32)
+            if kind == "sentinel":
+                keys += ops.SENT_BASE + 6
+        p = {"hot": 1.0, "distinct": 0.9, "b6": 0.2}.get(kind, 0.8)
+        valid = torch.rand(shape, generator=gen) < p
+        if kind == "dead":   # a whole leading row, the last bucket of every
+            valid[0] = False  # second one
+            valid[1::2, -1] = False
+        out += [keys, valid]
+    return out
+
+
 def bucket_cases(torch, ops, gen):
     """The bucket-row kernels of the baselines, on [*batch, C] rows whose
     size-1 batch dimensions share one row (as the scan drivers pass them)
@@ -487,6 +540,13 @@ def bucket_cases(torch, ops, gen):
                                    ((1,), (1,), 1, 1, 2, False)]:
         ka, va = _grid(torch, gen, (*ba, ca), d, hot)
         kb, vb = _grid(torch, gen, (*bb, cb), d, hot)
+        m = _masked(ops, [(ka, va, "a"), (kb, vb, "b")])
+        cases.append(("bucket_pair_count",
+                      lambda a=(ka, va, kb, vb): ops.bucket_pair_count(*a),
+                      lambda m=m: ops._bucket_pair_ref(*m)))
+    for case in PAIR_HARD:
+        ka, va, kb, vb = (x.cuda() for x in pair_layout(torch, ops, gen,
+                                                        *case))
         m = _masked(ops, [(ka, va, "a"), (kb, vb, "b")])
         cases.append(("bucket_pair_count",
                       lambda a=(ka, va, kb, vb): ops.bucket_pair_count(*a),
@@ -553,11 +613,54 @@ def bucket_cases(torch, ops, gen):
     return cases
 
 
+# (n, n_buckets, kind, key offset, validity offset): the radix kernel's
+# paths by n_buckets, copies in shared memory up to 32,768 buckets, slices
+# of a cluster (2, 4 and 8 CTAs) up to 262,144, global atomics above; n
+# of 1, 3, 4,097 and 2^20 + 5 (a scalar head and tail); views starting at
+# offsets 1-3 into their storage, and one whose validity is at another
+# phase than its keys (streamed scalar); "uniform" keys over all of
+# int32, "negative" keys, "hot" every key 7 (one bucket), "dead" every row
+# dead.
+RADIX_HARD = [
+    (1, 1, "uniform", 0, 0),
+    (3, 12_288, "negative", 1, 1),
+    (4097, 12_289, "hot", 2, 2),
+    (2**20 + 5, 4096, "uniform", 3, 3),
+    (2**20 + 5, 32_768, "hot", 1, 1),
+    (2**20 + 5, 32_769, "uniform", 0, 0),
+    (2**20 + 5, 65_536, "hot", 2, 2),
+    (2**20 + 5, 65_536, "dead", 0, 0),
+    (2**20 + 5, 100_003, "negative", 1, 1),
+    (2**20 + 5, 262_143, "uniform", 3, 3),
+    (2**20 + 5, 300_007, "hot", 0, 0),
+    (100_003, 4096, "uniform", 1, 2),
+]
+
+
+def radix_stream(torch, gen, n, kind):
+    """keys (n + 3,) int32 and valid (n + 3,) bool of one ``RADIX_HARD``
+    case on the CPU; the case reads a view of n at its offsets."""
+    lo, hi = {"negative": (-2**31, 0)}.get(kind, (-2**31, 2**31 - 1))
+    keys = torch.randint(lo, hi, (n + 3,), generator=gen, dtype=torch.int32)
+    if kind == "hot":
+        keys.fill_(7)
+    valid = torch.rand(n + 3, generator=gen) < (0.0 if kind == "dead"
+                                                 else 0.9)
+    return keys, valid
+
+
 def radix_cases(torch, ops, gen):
     """The radix histogram: n not a multiple of the block, keys over the
-    whole int32 range and a hot key, bucket counts from 16 to past the
-    shared-memory histogram's 12,288."""
+    whole int32 range and a hot key, bucket counts from 16 to 100,003; then
+    ``RADIX_HARD``, the views taken on the card."""
     cases = []
+
+    def case(keys, valid, nb):
+        cases.append(("radix_histogram",
+                      lambda k=keys, v=valid, nb=nb: ops.radix_histogram(
+                          k, v, n_buckets=nb),
+                      lambda k=keys, v=valid, nb=nb: ops._radix_histogram_ref(
+                          k, v, nb)))
     for n, nb, hot in [(1, 16, False), (1000, 16, True), (4097, 1000, False),
                        (100_003, 4096, True), (100_003, 12_288, False),
                        (100_003, 12_289, True), (1 << 20, 65_536, False),
@@ -567,12 +670,10 @@ def radix_cases(torch, ops, gen):
         if hot:
             keys[torch.rand(n, generator=gen) < 0.5] = 7
         valid = torch.rand(n, generator=gen) < 0.9
-        keys, valid = keys.cuda(), valid.cuda()
-        cases.append(("radix_histogram",
-                      lambda k=keys, v=valid, nb=nb: ops.radix_histogram(
-                          k, v, n_buckets=nb),
-                      lambda k=keys, v=valid, nb=nb: ops._radix_histogram_ref(
-                          k, v, nb)))
+        case(keys.cuda(), valid.cuda(), nb)
+    for n, nb, kind, k_off, v_off in RADIX_HARD:
+        keys, valid = (x.cuda() for x in radix_stream(torch, gen, n, kind))
+        case(keys[k_off:k_off + n], valid[v_off:v_off + n], nb)
     return cases
 
 
@@ -1128,7 +1229,7 @@ def sorts_and_masks(by_name):
 
 def record_kernel(torch, lines, errs, launches, name, shape_note, kern,
                   plain, out_bytes, steps, line=True, rate=INT32_OPS_PER_S,
-                  library=None, extra=None):
+                  library=None, extra=None, clean=False):
     """Hold one kernel against its plain version at a layout, time both
     (and ``library``, one PyTorch call computing the same function, where
     there is one), and put its entry in the ``kernels`` line.  Its bound
@@ -1136,7 +1237,8 @@ def record_kernel(torch, lines, errs, launches, name, shape_note, kern,
     over the HBM rate and ``steps`` operations over ``rate``.  ``ms`` is
     one call of the op as the main path makes it; ``kernel_ms`` the device
     time of the kernels that call launches (``kernel_ms_by_name`` each,
-    the sort and elementwise ones among them in ``sorts_and_masks``)."""
+    the sort and elementwise ones among them in ``sorts_and_masks``,
+    which must be empty where ``clean``)."""
     from repro_torch.kernels import cuda
     got = kern()
     want = plain()
@@ -1162,6 +1264,9 @@ def record_kernel(torch, lines, errs, launches, name, shape_note, kern,
              "ops": steps, "ops_per_s": rate, "bytes": out_bytes,
              **(extra or {})}
     log(f"[kernel] {json.dumps(entry)}")
+    if clean and entry["sorts_and_masks"]:
+        fail(f"{name} ({shape_note}) launched a sort or an elementwise "
+             f"kernel: {entry['sorts_and_masks']}")
     if line:
         lines.append(entry)
 
@@ -1662,20 +1767,33 @@ def baseline_kernel_phase(torch, ops, errs, launches, layouts):
                extra={"ops_search": search, "ops_tables": tables})
         del raw, ra, rb, sb, sc, tc, ta, rg, sg, tg
 
-    # the pair count at B6's layout
+    # the pair count at B6's layout.  Its bound's bytes are what the
+    # kernel's inputs need: both validity grids at 1 B a slot and the live
+    # keys at 4 B each (a dead slot's key is never read), and the counts
+    # written once; the masked grids' 4 B a slot, the rule of PRs 12-19,
+    # is printed beside (``bytes_masked``).  Its operations are the
+    # smaller of the sorted formulation's search steps (``ops_search``:
+    # two searches of the kb row per live ka slot) and the table
+    # formulation's (``ops_tables``: one insert per live slot of the
+    # listed side, one probe per live slot of the other).
     n_buckets, cap = layouts["pair"]
     F = rels["F"]
     b = partition.bucketize(F, "dst", n_buckets, cap, fn="h")
     p = partition.bucketize(F, "src", n_buckets, cap, fn="h")
     ka, kb = _masked(ops, [(b.columns["dst"], b.valid, "a"),
                            (p.columns["src"], p.valid, "b")])
+    search = int((live(ka, "a") * 2 * steps(kb, "b")).sum())
+    tables = int(live(ka, "a").sum() + live(kb, "b").sum())
     record("bucket_pair_count",
            f"B6: {n_buckets} buckets x {cap} slots a side",
            lambda: ops.bucket_pair_count(b.columns["dst"], b.valid,
                                          p.columns["src"], p.valid),
            lambda: ops._bucket_pair_ref(ka, kb),
-           nbytes(ka, kb) + n_buckets * 4,
-           int((live(ka, "a") * 2 * steps(kb, "b")).sum()))
+           nbytes(b.valid, p.valid) + 4 * tables + n_buckets * 4,
+           min(search, tables),
+           extra={"ops_search": search, "ops_tables": tables,
+                  "bytes_masked": nbytes(ka, kb) + n_buckets * 4},
+           clean=True)
     return lines
 
 
@@ -1729,7 +1847,9 @@ def radix_kernel_phase(torch, ops, errs, launches, keys, valid):
     """The radix kernel at Q1's keys: bound by the bytes (4 B key + 1 B
     validity per row, the histogram written once) or RADIX_OPS_PER_KEY
     integer operations per live key; library: ``hash_bucket`` and
-    ``torch.bincount``, the plain version's two calls on the live keys."""
+    ``torch.bincount``, the plain version's two calls on the live keys.
+    The 4,096-bucket record goes in the kernels line, the 65,536-bucket
+    one (the cluster path) is printed beside it."""
     from repro_torch.core import hashing
     lines = []
     n, n_live = keys.numel(), int(valid.sum())
@@ -1740,7 +1860,7 @@ def radix_kernel_phase(torch, ops, errs, launches, keys, valid):
             lambda nb=nb: ops.radix_histogram(keys, valid, n_buckets=nb),
             lambda nb=nb: ops._radix_histogram_ref(keys, valid, nb),
             5 * n + 4 * nb, RADIX_OPS_PER_KEY * n_live,
-            line=nb == RADIX_BUCKETS[0],
+            line=nb == RADIX_BUCKETS[0], clean=True,
             library=lambda nb=nb: torch.bincount(
                 hashing.hash_bucket(keys[valid], nb, "H"), minlength=nb))
     return lines

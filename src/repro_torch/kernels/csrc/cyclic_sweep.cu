@@ -663,7 +663,7 @@ __device__ __forceinline__ unsigned count_cell(int stride, const int2* r_row,
 // The multimap tier's cell as a call of its own: inlined beside the bit
 // rows' it shares the kernel's 64 registers with them and spills in its
 // loop (about 1% slower at "Q3 shape, 600 a" on an NVIDIA H100 80GB HBM3
-// at 700 W, tools/cyclic_variants.py).
+// at 700 W, tools/kernel_variants.py --stem cyclic_sweep).
 __device__ __noinline__ unsigned count_cell_multimaps(int stride,
                                                       const int2* r_row,
                                                       int cur_r,

@@ -1,9 +1,7 @@
-// Shared device code of the sorted-row join kernels (Hopper, sm_90a):
-// binary searches of sorted bucket rows (bound and count_equal, used by
-// pair_count.cu) and the per-cell atomic adds of a warp
-// (warp_add_by_cell, also used by the fused linear sweep of
-// linear_sweep.cuh).  The other join sweeps probe hash tables instead
-// (smem_hash.cuh, key_lists.cuh, sweep_common.cuh, cyclic_sweep.cu).
+// Shared device code of the fused linear sweep (linear_sweep.cuh): the
+// per-cell atomic adds of a warp (warp_add_by_cell).  The join sweeps
+// probe hash tables (smem_hash.cuh, key_lists.cuh, sweep_common.cuh,
+// cyclic_sweep.cu); no kernel binary-searches a sorted row any more.
 //
 // warp_add_by_cell reduces a warp's per-cell sums across its runs of equal
 // cells and adds each run with one int32 atomic (int32 sums wrap
@@ -18,31 +16,6 @@
 #include "error_string.cuh"
 
 namespace rj {
-
-constexpr int kThreads = 256;
-
-// First index of row[0, n) whose entry is >= key (< key: strict = false)
-// or > key (strict = true).
-template <typename K>
-__device__ __forceinline__ long long bound(const K* __restrict__ row,
-                                          long long lo, long long n, K key,
-                                          bool strict) {
-  long long hi = n;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    const K v = __ldg(row + mid);
-    if (v < key || (strict && v == key)) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// Occurrences of key in the sorted row[0, n).
-__device__ __forceinline__ unsigned count_equal(const int* __restrict__ row,
-                                                long long n, int key) {
-  const long long lo = bound(row, 0LL, n, key, false);
-  if (lo == n || __ldg(row + lo) != key) return 0u;
-  return (unsigned)(bound(row, lo + 1, n, key, true) - lo);
-}
 
 // Add v to out[cell] for every lane of the warp; a lane with cell < 0 adds
 // nothing.  Lanes with the same cell in a contiguous run are summed first

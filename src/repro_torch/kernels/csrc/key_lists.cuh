@@ -14,14 +14,17 @@
 //     segment;
 //   spill: the lists longer than a budget go into global tables of
 //     smem_hash.cuh's entry_add (twice the row's slots, so at most half
-//     full), merging a key's entries; spill_fill_kernel can also count the
-//     distinct keys of each such row.  clear_tables empties those tables
-//     alone, for a caller that fills them otherwise.
+//     full), merging a key's entries, and can count the distinct keys of
+//     each such row.  Its grid follows the rows and their length: few
+//     long rows, up to kSpillCtas CTAs a row; many, a wave of CTAs walking
+//     them, one a row, clear and fill in one launch.  clear_tables
+//     empties those tables alone, for a caller that fills them otherwise.
 #pragma once
 
 #include <algorithm>
 
 #include "error_string.cuh"
+#include "occupancy.cuh"
 #include "smem_hash.cuh"
 
 namespace rj {
@@ -171,6 +174,48 @@ inline long long spill_ctas(long long n) {
                                 (n + kSpillSeg - 1) / kSpillSeg));
 }
 
+// Empty and fill the global tables of the rows whose list is longer than
+// budget, as the two kernels above do, one CTA a row (its barrier orders
+// the clear before the fill) and a wave of them walking the rows, so a row
+// that does not spill costs one load.
+__global__ void __launch_bounds__(kListThreads)
+spill_rows_kernel(const int2* __restrict__ list, const int* __restrict__ sub,
+                  const int* __restrict__ len, long long rows, long long c,
+                  int budget, int sub_rows, unsigned cap,
+                  int2* __restrict__ tab, int* __restrict__ distinct) {
+  const long long span = (long long)sub_rows * cap;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const int n = len[row];
+    if (n <= budget) continue;  // uniform
+    int2* t = tab + row * span;
+    for (long long k = threadIdx.x; k < span; k += kListThreads)
+      t[k] = make_int2(kEmptyKey, 0);
+    __syncthreads();
+    for (int k = threadIdx.x; k < n; k += kListThreads) {
+      const int2 e = list[row * c + k];  // (key, count)
+      const int h = sub != nullptr ? sub[row * c + k] : 0;
+      if (entry_add(t + (long long)h * cap, cap, e.x, hash_key(e.x),
+                    (unsigned)e.y) &&
+          distinct != nullptr)
+        atomicAdd(distinct + row, 1);
+    }
+  }
+}
+
+// CTAs a row of the per-row spill kernels over rows of n items:
+// spill_ctas(n), at most the card's wave (*wave CTAs) over the rows.
+inline cudaError_t spill_per_row(long long rows, long long n,
+                                 long long* per_row, long long* wave) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = resident_ctas((const void*)spill_rows_kernel, kListThreads, 0, 1,
+                        device, wave);
+  if (err == cudaSuccess)
+    *per_row = std::max(1LL, std::min(spill_ctas(n), *wave / rows));
+  return err;
+}
+
 inline cudaError_t count_keys(const int* keys, const unsigned char* valid,
                               long long rows, long long c, int sub,
                               bool with_counts, int2* out, int* out_sub,
@@ -196,9 +241,11 @@ inline cudaError_t count_keys(const int* keys, const unsigned char* valid,
 inline cudaError_t clear_tables(const int* len, long long rows, int budget,
                                 long long span, int2* tab,
                                 cudaStream_t stream) {
-  const long long per_row = spill_ctas(span);
-  if (rows * per_row > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   if (rows == 0 || span == 0) return cudaSuccess;
+  long long per_row = 0, wave = 0;
+  cudaError_t err = spill_per_row(rows, span, &per_row, &wave);
+  if (err != cudaSuccess) return err;
+  if (rows * per_row > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   spill_clear_kernel<<<(unsigned)(rows * per_row), kListThreads, 0,
                        stream>>>(len, budget, span, (unsigned)per_row, tab);
   return cudaGetLastError();
@@ -206,16 +253,29 @@ inline cudaError_t clear_tables(const int* len, long long rows, int budget,
 
 // Empty and fill the global tables of the lists longer than budget: rows
 // lists of stride c, tables of span slots a row (sub_rows of cap each);
-// distinct as spill_fill_kernel's.
+// distinct as spill_fill_kernel's.  Up to kSpillCtas CTAs a row clear
+// and then fill them where the rows leave the card room for more than
+// one CTA each (Q2's 8 star rows of 31,256 slots take 16); otherwise
+// (B6's 4,096 pair lists, few of which spill, or short lists) a wave of
+// spill_rows_kernel walks the rows, one CTA a row doing both.
 inline cudaError_t spill(const int2* list, const int* sub, const int* len,
                          long long rows, long long c, int budget,
                          int sub_rows, unsigned cap, int2* tab,
                          int* distinct, cudaStream_t stream) {
-  const long long per_row = spill_ctas(c);
+  if (rows == 0 || c == 0) return cudaSuccess;
+  const long long span = (long long)sub_rows * cap;
+  long long per_row = 0, wave = 0;
+  cudaError_t err = spill_per_row(rows, c, &per_row, &wave);
+  if (err != cudaSuccess) return err;
+  if (per_row == 1) {
+    spill_rows_kernel<<<(unsigned)std::min(rows, wave), kListThreads, 0,
+                        stream>>>(list, sub, len, rows, c, budget, sub_rows,
+                                  cap, tab, distinct);
+    return cudaGetLastError();
+  }
   if (rows * per_row > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  cudaError_t err = clear_tables(len, rows, budget, (long long)sub_rows * cap,
-                                 tab, stream);
-  if (err != cudaSuccess || rows == 0 || c == 0) return err;
+  err = clear_tables(len, rows, budget, span, tab, stream);
+  if (err != cudaSuccess) return err;
   spill_fill_kernel<<<(unsigned)(rows * per_row), kListThreads, 0, stream>>>(
       list, sub, len, c, budget, sub_rows, cap, (unsigned)per_row, tab,
       distinct);

@@ -14,31 +14,31 @@ raises on the ``cudaGetLastError()`` code the C function returns, and adds
 one to its launch counter (``LAUNCHES``).  Nothing here falls back to a
 plain version: a build or launch failure raises.
 
-The fused sweeps of the session's path (linear, per-R, star and
-pair-index), the all-pairs cyclic sweep and the bucket-row linear, per-R
-and cyclic sweeps of the baselines take the raw key columns and their
-bool validity masks: their pre-passes drop dead slots and build the
-tables they probe, in shared memory where they fit, so nothing is
-sorted or masked around them; the wrappers allocate the pre-passes'
-scratch.  The three triangle ops run one sweep, one library
+Every join kernel (the fused sweeps of the session's path, linear,
+per-R, star and pair-index; the all-pairs cyclic sweep; the bucket-row
+pair count, linear, per-R and cyclic sweeps of the baselines) takes the
+raw key columns and their bool validity masks: its pre-pass drops dead
+slots and builds the tables it probes, in shared memory where they fit,
+so nothing is sorted or masked around it; the wrappers allocate the
+pre-passes' scratch.  The three triangle ops run one sweep, one library
 (``csrc/cyclic_sweep.cu``), over a batch described by its dimensions and
 each operand's row strides; each op keeps its own launch counter.
-The bucket-row pair count alone takes sentinel-masked operands
-(``ops._mask``), so a slot holding its side's sentinel is dead and equals
-no key; its wrapper sorts the kb rows that the kernel binary-searches.
 
 The flash forward (``flash_fwd``, the LM's prefill and training
 attention) takes f32 or bf16 q, k, v through their strides and returns
 o, m, l; the flash backward (``flash_bwd``) takes q, k, v, do through
 their strides with o, m, l and returns dq, dk, dv; the radix histogram
-(``radix_histogram``) takes an int32 key stream and its bool validity.
-None is masked with sentinels.
+(``radix_histogram``) takes an int32 key stream and its bool validity,
+any contiguous view of them.  None is masked with sentinels.
 
 The bucket-row wrappers (``bucket_*``) take ``[*batch, C]`` rows whose
 batch shapes broadcast: an operand of size 1 along a batch dimension is
 one row shared along it, passed to the kernel once with a zero row
 stride (or without that dimension's bit in its span mask) and listed or
-packed once per launch, never copied per bucket.
+packed once per launch, never copied per bucket.  The wrappers of the
+pair count, the bucket-row sweeps, the triangle sweeps and the radix
+histogram allocate their outputs uninitialised: the C code zeroes them
+or writes every slot.
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ import time
 
 import torch
 
-from repro_torch.kernels.ops import _SENT
+from repro_torch.core.hashing import _SEEDS
 
 _HERE = pathlib.Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -85,7 +85,8 @@ _LIBS = {
     "fused_star": ("rj_fused_star", _SWEEP_ARGS),
     "fused_per_r": ("rj_fused_per_r", _SWEEP_ARGS),
     "cyclic_sweep": ("rj_cyclic_sweep", _CYCLIC_ARGS),
-    "pair_count": ("rj_pair_count", [_P, _P, _C, _I, _I, _I, _P, _C, _P]),
+    "pair_count": ("rj_pair_count",
+                   [*[_P] * 4, _C, *[_A] * 3, *[_I] * 3, _P, _P, _C, _P]),
     "bucket_linear": ("rj_bucket_linear", _BUCKET_ARGS),
     "bucket_per_r": ("rj_bucket_per_r", _BUCKET_ARGS),
     "flash_fwd": ("rj_flash_fwd",
@@ -253,11 +254,6 @@ def _launch(op: str, stem: str, device: torch.device, *args) -> None:
 
 def _ptr(x: torch.Tensor) -> int:
     return x.data_ptr()
-
-
-def _sorted_rows(x: torch.Tensor) -> torch.Tensor:
-    """Each bucket row (the last dimension) sorted ascending, contiguous."""
-    return torch.sort(x, dim=-1).values.contiguous()
 
 
 def _scratch(dev: torch.device, *shapes, zero=False) -> list:
@@ -440,27 +436,32 @@ def _row_strides(shp: tuple) -> list:
     return out
 
 
-def _full_rows(x: torch.Tensor, batch: tuple) -> torch.Tensor:
-    """``x`` broadcast to every bucket of ``batch``, contiguous (a copy
-    only where it shared rows)."""
-    return x.expand(*batch, x.shape[-1]).contiguous()
-
-
-def _check_rows(op: str, dev: torch.device, **rows) -> None:
-    _check(op, torch.int32, dev, **{k: (x, x.shape) for k, x in rows.items()})
-
-
-def bucket_pair_count(ka, kb) -> torch.Tensor:
-    """ka [*batch, Ca], kb [*batch, Cb] int32 (sentinel-masked) -> [*batch]
-    int32."""
+def bucket_pair_count(ka, va, kb, vb) -> torch.Tensor:
+    """ka [*batch, Ca], kb [*batch, Cb] int32 keys with their bool validity
+    va, vb of the same shapes (not masked; at most five batch dimensions;
+    size-1 dimensions share one row, read through a zero row stride) ->
+    [*batch] int32.  The side with the shorter rows (a on a tie) is
+    listed, one (key, count) list per distinct row; the other side's rows
+    are streamed against the lists (``csrc/pair_count.cu``)."""
     op = "bucket_pair_count"
-    batch = tuple(torch.broadcast_shapes(ka.shape[:-1], kb.shape[:-1]))
-    ka, kb = _full_rows(ka, batch), _full_rows(kb, batch)
-    dev = ka.device
-    _check_rows(op, dev, ka=ka, kb=kb)
-    out = torch.zeros(batch, dtype=torch.int32, device=dev)
-    _launch(op, "pair_count", dev, _ptr(ka), _ptr(_sorted_rows(kb)),
-            _SENT["a"], out.numel(), ka.shape[-1], kb.shape[-1], _ptr(out))
+    batch, dims = _padded_batch(op, 5, ka, kb)
+    b = torch.bool
+    _check(op, torch.int32, ka.device, ka=(ka, ka.shape),
+           va=(va, ka.shape, b), kb=(kb, kb.shape), vb=(vb, kb.shape, b))
+    (lk, lv), (sk, sv) = (((kb, vb), (ka, va))
+                          if kb.shape[-1] < ka.shape[-1]
+                          else ((ka, va), (kb, vb)))
+    cl, cs = lk.shape[-1], sk.shape[-1]
+    n_l = lk.shape[:-1].numel()
+    # the lengths and distinct counts, the (key, count) lists and their
+    # global tables, per listed row (zeroed where needed by the C code)
+    scratch = torch.empty(2 * n_l + 6 * n_l * cl, dtype=torch.int32,
+                          device=ka.device)
+    out = torch.empty(batch, dtype=torch.int32, device=ka.device)
+    _launch(op, "pair_count", ka.device, _ptr(lk), _ptr(lv), _ptr(sk),
+            _ptr(sv), len(dims), _i64s(dims),
+            *(_i64s(_row_strides(_shape_nd(x, 5))) for x in (lk, sk)), cl,
+            cs, n_l, _ptr(scratch), _ptr(out))
     return out
 
 
@@ -625,15 +626,14 @@ def flash_bwd(q, k, v, o, m, l, do, *, causal: bool = True,
 def radix_histogram(keys, valid, *, n_buckets: int) -> torch.Tensor:
     """keys (n,) int32, valid (n,) bool -> (n_buckets,) int32: the live keys
     per bucket of ``hash_bucket(keys, n_buckets, "H")``."""
-    from repro_torch.core.hashing import _SEEDS
     op = "radix_histogram"
     dev = keys.device
     n = keys.shape[0]
-    _check(op, torch.int32, dev, keys=(keys, (n,)))
-    _check(op, torch.bool, dev, valid=(valid, (n,)))
+    _check(op, torch.int32, dev, keys=(keys, (n,)),
+           valid=(valid, (n,), torch.bool))
     if not 0 < n_buckets < 2**31:
         raise ValueError(f"{op}: n_buckets {n_buckets} out of range")
-    out = torch.zeros((n_buckets,), dtype=torch.int32, device=dev)
+    out = torch.empty((n_buckets,), dtype=torch.int32, device=dev)
     _launch(op, "radix_hist", dev, _ptr(keys), _ptr(valid), n, n_buckets,
             _SEEDS["H"], _ptr(out))
     return out

@@ -17,11 +17,11 @@ Three families:
 
 Each public op dispatches on the device of its tensors, and its plain
 version masks invalid slots with per-side sentinels (so an invalid slot
-can never equal anything on another side).  Every join kernel but the
-pair count's reads the validity masks itself, so only ``bucket_pair_count``
-masks before it launches; the others pass the raw keys and validity
-(``fused_count3_linear``, ``fused_per_r_counts``, ``fused_count3_star``,
-``fused_count3_cyclic`` in both forms, ``bucket_count3_linear``,
+can never equal anything on another side).  Every join kernel reads the
+validity masks itself, so no op masks or sorts before it launches: each
+passes the raw keys and validity (``fused_count3_linear``,
+``fused_per_r_counts``, ``fused_count3_star``, ``fused_count3_cyclic`` in
+both forms, ``bucket_pair_count``, ``bucket_count3_linear``,
 ``bucket_per_r_counts`` and ``bucket_count3_cyclic``):
 
   * a CUDA tensor launches the hand-written Hopper kernel
@@ -373,7 +373,7 @@ def _fused_star_ref(rb, sb, sc, tc):
 
 
 # --------------------------------------------------------------------------
-# the ops: mask, then kernel (CUDA) or plain version (CPU)
+# the ops: kernel (CUDA) or masked plain version (CPU)
 # --------------------------------------------------------------------------
 
 def _contiguous(*xs):
@@ -445,13 +445,12 @@ def fused_count3_star(rb, rv, sb, sc, sv, tc, tv):
 
 def bucket_pair_count(ka, va, kb, vb):
     """Per-bucket count of equal key pairs [*batch] int32 (the bucketed
-    binary join)."""
-    ka = _mask(ka, va, "a")
-    kb = _mask(kb, vb, "b")
+    binary join).  Each validity has its keys' shape.  The kernel reads
+    the validity masks itself; the plain version masks."""
     if _on_cuda(ka, "bucket_pair_count"):
         from repro_torch.kernels import cuda
-        return cuda.bucket_pair_count(ka, kb)
-    return _bucket_pair_ref(ka, kb)
+        return cuda.bucket_pair_count(*_contiguous(ka, va, kb, vb))
+    return _bucket_pair_ref(_mask(ka, va, "a"), _mask(kb, vb, "b"))
 
 
 def bucket_count3_linear(rb, rv, sb, sc, sv, tc, tv):
@@ -523,7 +522,8 @@ def _radix_histogram_ref(keys, valid, n_buckets: int):
 
 def radix_histogram(keys, valid, *, n_buckets: int):
     """Histogram of ``hash_bucket(keys, n_buckets, "H")`` over live rows,
-    (n_buckets,) int32; exact at any count (int32 atomics on the card)."""
+    (n_buckets,) int32; exact at any count (int32 atomics on the card).
+    On the card any contiguous view of the stream is read in place."""
     if keys.dim() != 1 or valid.shape != keys.shape:
         raise ValueError(f"radix_histogram: keys {tuple(keys.shape)} and "
                          f"valid {tuple(valid.shape)} must be one (n,) "

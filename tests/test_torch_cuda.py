@@ -156,6 +156,17 @@ def test_bucket_wrappers_check_their_inputs(card):
             fn(rb, rv, sb, sb, sv, tc.cpu(), tv)
 
 
+def _kernels_by_name(smoke, fn, tries=3):
+    """The device ms by kernel name of ``fn``'s launches
+    (``chip_smoke.kernel_ms``), the trace taken again, up to ``tries``
+    times, where it came back without its device events."""
+    for _ in range(tries):
+        _, by_name, missing = smoke.kernel_ms(torch, fn)
+        if missing is None:
+            return by_name
+    raise AssertionError(missing)
+
+
 def _bucket_rows(gen, shape, d, live, card):
     """Keys of [0, d) and validity whose live slots fill the front of each
     row (``live`` of them), as a bucketized layout holds them."""
@@ -236,8 +247,7 @@ def test_cyclic_ops_launch_only_their_sweep_on_cuda(card, form):
           (tc, tv, "t"), (ta, tv, "t"))]
     assert torch.equal(got, plain(*m))
     assert int(got.to(torch.int64).sum()) > 0
-    _, by_name, missing = smoke.kernel_ms(torch, lambda: op(*args, **kw))
-    assert missing is None, missing
+    by_name = _kernels_by_name(smoke, lambda: op(*args, **kw))
     assert smoke.sorts_and_masks(by_name) == [], by_name
     assert any("cyclic_sweep_kernel" in k for k in by_name), by_name
 
@@ -283,6 +293,78 @@ def test_cyclic_wrappers_check_their_inputs(card):
            .transpose(2, 3), ft, ft, ftv)
     with pytest.raises(ValueError, match="cpu"):
         fn(fr.cpu(), fr, frv, fs, fs, fsv, ft, ft, ftv)
+
+
+def test_pair_count_launches_only_its_kernels_on_cuda(card):
+    """The pair count at a B6-like layout (rows of 4,896 slots, ~980 live
+    at the front, ~4 keys a row) launches its own kernels, counted on its
+    own counter, and no sort or elementwise kernel: nothing is sorted,
+    masked or zeroed by torch around it."""
+    from repro_torch.kernels import cuda
+    smoke = _smoke()
+    gen = torch.Generator().manual_seed(17)
+    ka, va = _bucket_rows(gen, (512, 4896), 4, 980, card)
+    kb, vb = _bucket_rows(gen, (512, 4896), 4, 975, card)
+    before = dict(cuda.LAUNCHES)
+    got = ops.bucket_pair_count(ka, va, kb, vb)
+    assert {k: cuda.LAUNCHES[k] - before[k] for k in cuda.KERNELS
+            if cuda.LAUNCHES[k] != before[k]} == {"bucket_pair_count": 1}
+    want = ops._bucket_pair_ref(ops._mask(ka, va, "a"),
+                                ops._mask(kb, vb, "b"))
+    assert torch.equal(got, want) and int(got.to(torch.int64).sum()) > 0
+    by_name = _kernels_by_name(
+        smoke, lambda: ops.bucket_pair_count(ka, va, kb, vb))
+    assert smoke.sorts_and_masks(by_name) == [], by_name
+    assert any("pair_sweep_kernel" in k for k in by_name), by_name
+
+
+def test_pair_and_radix_wrappers_check_their_inputs(card):
+    """The pair count takes raw keys and bool validity of the keys'
+    shapes, contiguous, on the card, rows shared along size-1 batch
+    dimensions; the radix histogram any contiguous view of its stream
+    (one that starts mid-vector too) and 0 < n_buckets < 2^31."""
+    from repro_torch.kernels import cuda
+    gen = torch.Generator().manual_seed(19)
+    ka = torch.randint(0, 5, (3, 1, 40), generator=gen,
+                       dtype=torch.int32).to(card)
+    kb = torch.randint(0, 5, (1, 4, 33), generator=gen,
+                       dtype=torch.int32).to(card)
+    va, vb = ka != 0, kb != 1
+    got = cuda.bucket_pair_count(ka, va, kb, vb)
+    assert got.shape == (3, 4)
+    assert torch.equal(got, ops._bucket_pair_ref(ops._mask(ka, va, "a"),
+                                                 ops._mask(kb, vb, "b")))
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.bucket_pair_count(ka, va.int(), kb, vb)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.bucket_pair_count(ka, va, kb.long(), vb)
+    with pytest.raises(ValueError, match="shape"):
+        cuda.bucket_pair_count(ka, va, kb, vb[..., :4].contiguous())
+    with pytest.raises(RuntimeError):   # batches that do not broadcast
+        k2 = torch.zeros((2, 4, 33), dtype=torch.int32, device=card)
+        cuda.bucket_pair_count(ka, va, k2, k2 != 0)
+    with pytest.raises(ValueError, match="at most"):
+        x = torch.zeros((1,) * 6 + (8,), dtype=torch.int32, device=card)
+        cuda.bucket_pair_count(x, x != 0, x, x != 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = kb.transpose(1, 2).contiguous().transpose(1, 2)
+        cuda.bucket_pair_count(ka, va, t, vb)
+    with pytest.raises(ValueError, match="cpu"):
+        cuda.bucket_pair_count(ka, va, kb, vb.cpu())
+    keys = torch.randint(-2**31, 2**31 - 1, (1003,), generator=gen,
+                         dtype=torch.int32).to(card)
+    valid = (torch.rand(1003, generator=gen) < 0.9).to(card)
+    for k_off, v_off in ((1, 1), (2, 3), (3, 0)):
+        k, v = keys[k_off:k_off + 1000], valid[v_off:v_off + 1000]
+        assert torch.equal(cuda.radix_histogram(k, v, n_buckets=97),
+                           ops._radix_histogram_ref(k, v, 97))
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda.radix_histogram(keys[::2], valid[::2], n_buckets=4)
+    with pytest.raises(ValueError, match="shape"):
+        cuda.radix_histogram(keys, valid[1:], n_buckets=4)
+    for nb in (0, -3, 2**31):
+        with pytest.raises(ValueError, match="n_buckets"):
+            cuda.radix_histogram(keys, valid, n_buckets=nb)
 
 
 def test_flash_and_radix_launch_their_kernels_on_cuda(card):

@@ -24,7 +24,10 @@ distinct a (the pair-index kernel's multimap tier, past its bit rows'
 256).  Per layout: ``op_ms`` (median of 5 CUDA-event timings after a
 warm-up call), ``kernel_ms`` (the device time of the kernels one call
 launches, ``chip_smoke.kernel_ms``; null when the trace is incomplete),
-each kernel's ms by name and the sum of the counts (equal across trees).
+each kernel's ms by name, ``host_ms`` (the host's milliseconds a call,
+the mean of 20 calls issued back to back with no synchronisation between
+them: what an op costs the host beside its kernels) and the sum of the
+counts (equal across trees).
 Then the warm execute seconds of Q1-Q6 (median of 5 after the planning
 call).  Then the baselines B1 (``linear3_count_auto`` on Q1's graph), B2
 (``star3_count_auto`` on Q2's data) and B3 (``linear3_per_r_counts_auto``
@@ -44,8 +47,12 @@ seconds, the host seconds inside the layouts and inside the bucket-row
 op's calls, the device ms of its kernels by name); and, at that plan,
 ``bucket_count3_cyclic`` at the first (H, G) cell as the scan passes it
 and ``fused_count3_cyclic(pair_index=False)`` over the whole sweep, timed
-as above.  Prints the card's name
-and power limit first.
+as above.  Then B6 (``bucketed_join_count`` on Q1's graph at 4,096
+buckets, the capacity doubled until nothing overflows, as the smoke runs
+it): its count against the numpy oracle and its warm seconds, then
+``bucket_pair_count`` at B6's layout and ``radix_histogram`` at R (Q1's
+``F.src`` keys, ~10% dead, at 4,096 and 65,536 buckets), timed as above.
+Prints the card's name and power limit first.
 
 To compare two trees on one card, run them in turns in one call, e.g. a
 parent exported with ``git archive`` into a git-ignored directory:
@@ -139,6 +146,17 @@ def main() -> int:
                           "warm_median_s": statistics.median(warm),
                           "warm_s": warm}
 
+    def cold_warm(fn, reps=3):
+        """fn's result, its cold seconds and ``reps`` warm seconds."""
+        secs = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return out, secs[0], secs[1:]
+
     def raw(label, names):
         """The raw columns named by ``names`` and the three validity masks
         of ``label``'s round-1 layout, in the op's argument order."""
@@ -218,18 +236,7 @@ def main() -> int:
 
         final, rows = {}, {}
         for label, fn in (("B1", b1), ("B2", b2), ("B3", b3)):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            count, overflowed, plan = fn()
-            torch.cuda.synchronize()
-            cold = time.perf_counter() - t0
-            warm = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                warm.append(time.perf_counter() - t0)
+            (count, overflowed, plan), cold, warm = cold_warm(fn)
             final[label] = plan
             rows[label] = {"count": count, "overflowed": overflowed,
                            "plan": list(plan), "cold_s": cold,
@@ -320,18 +327,7 @@ def main() -> int:
                     **smoke.CYC)
                 return int(res.count), bool(res.overflowed)
             for form, fn in (("scan", scan), ("fused all-pairs", fused)):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                count, overflowed = fn()
-                torch.cuda.synchronize()
-                cold = time.perf_counter() - t0
-                warm = []
-                for _ in range(3):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    fn()
-                    torch.cuda.synchronize()
-                    warm.append(time.perf_counter() - t0)
+                (count, overflowed), cold, warm = cold_warm(fn)
                 rows[f"{label} {form}"] = {
                     "count": count, "overflowed": overflowed,
                     "plan": list(final["plan"]), "cold_s": cold,
@@ -354,6 +350,47 @@ def main() -> int:
             yield f"{label} sweep", "fused_count3_cyclic", tuple(raw)
             del rg, sg, tg, raw
 
+    def binary_and_radix():
+        """B6 timed warm against its numpy oracle, then (label, op name, op
+        args) of the pair count at B6's layout and of the radix histogram
+        at R's two bucket counts."""
+        import numpy as np
+        from repro_torch.core import binary_join, partition
+        n_buckets = 4096
+        cap = partition.suggest_capacity(len(data["F"]["src"]), n_buckets,
+                                         2.5)
+        while bool(binary_join.bucketed_join_count(
+                F, "dst", F, "src", n_buckets, cap, cap)[1]):
+            cap *= 2
+        d1 = data["d"]["F"]
+        oracle = int(np.sum(
+            np.bincount(data["F"]["dst"], minlength=d1).astype(np.int64)
+            * np.bincount(data["F"]["src"], minlength=d1)))
+
+        def b6():
+            count, ovf = binary_join.bucketed_join_count(
+                F, "dst", F, "src", n_buckets, cap, cap)
+            return int(count), bool(ovf)
+        (count, overflowed), cold, warm = cold_warm(b6, reps=WARM)
+        if count != oracle or overflowed:
+            raise SystemExit(f"join_timing: B6 counted {count} "
+                             f"(overflowed {overflowed}), oracle {oracle}")
+        print(json.dumps({"tag": tag, "baselines": {"B6": {
+            "count": count, "n_buckets": n_buckets, "cap": cap,
+            "cold_s": cold, "warm_median_s": statistics.median(warm),
+            "warm_s": warm}}}), flush=True)
+        b = partition.bucketize(F, "dst", n_buckets, cap, fn="h")
+        p = partition.bucketize(F, "src", n_buckets, cap, fn="h")
+        yield "B6", "bucket_pair_count", (b.columns["dst"], b.valid,
+                                          p.columns["src"], p.valid)
+        del b, p
+        src = data["F"]["src"]
+        keys = torch.as_tensor(src).cuda()
+        valid = torch.as_tensor(np.random.default_rng(args.seed + 2).random(
+            len(src)) >= smoke.RADIX_DEAD).cuda()
+        for nb in smoke.RADIX_BUCKETS:
+            yield f"R, {nb} buckets", f"radix_histogram {nb}", (keys, valid)
+
     op_of = {"fused_count3_linear": ops.fused_count3_linear,
              "fused_per_r_counts": ops.fused_per_r_counts,
              "fused_count3_star": ops.fused_count3_star,
@@ -362,21 +399,33 @@ def main() -> int:
              "bucket_per_r_counts": ops.bucket_per_r_counts,
              "bucket_count3_cyclic": ops.bucket_count3_cyclic,
              "fused_count3_cyclic": lambda *a: ops.fused_count3_cyclic(
-                 *a, pair_index=False)}
+                 *a, pair_index=False),
+             "bucket_pair_count": ops.bucket_pair_count,
+             **{f"radix_histogram {nb}": lambda k, v, nb=nb:
+                ops.radix_histogram(k, v, n_buckets=nb)
+                for nb in smoke.RADIX_BUCKETS}}
     for label, name, a in itertools.chain(layouts(), baselines(),
-                                          cyclic_baselines()):
+                                          cyclic_baselines(),
+                                          binary_and_radix()):
         fn = op_of[name]
 
         def run(a=a, fn=fn):
             return fn(*a)
         valid = [x for x in a if x.dtype == torch.bool]
-        shape = {side: list(x.shape) for side, x in zip("rst", valid)}
+        shape = [list(x.shape) for x in valid]
         total = int(run().to(torch.int64).sum())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            run()
+        host_ms = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         k_ms, by_name, missing = smoke.kernel_ms(torch, run)
         print(json.dumps({"tag": tag, "layout": label, "op": name,
                           "shape": shape, "sum": total,
                           "op_ms": smoke.time_ms(torch, run),
+                          "host_ms": host_ms,
                           "kernel_ms": k_ms, "kernel_ms_by_name": by_name,
                           "sorts_and_masks": smoke.sorts_and_masks(by_name),
                           **({"kernel_ms_missing": missing} if missing
