@@ -50,17 +50,47 @@ result line):
   6. radix — ``ops.radix_histogram`` over Q1's 4e6 source keys (~10%
      dead) at 4,096 and 65,536 buckets, exact against the plain version,
      the counter zeroed before the phase;
-  7. timings — each join kernel at its layout (the main path's first
+  7. stream — standing queries under ingest (``JoinSession.watch``,
+     ``Relation.append``), each delta timed with the host clock around the
+     append and a synchronise: W1 a triangle count over three distinct
+     4e6-row edge relations (Q1's N and d), 3 warm-up and 6 timed deltas
+     of 40,000 rows (1%) rotating over them, then 3 deltas of 400 rows
+     that the family mask applies to (touched share printed); W2 Q5's
+     chain under ``strategy="3way"``, the binary step's intermediate
+     resident and feeding the fused root, 4 warm-up and 8 timed deltas of
+     10,000 rows (the resident must grow on deltas into its inputs); W3
+     the reference bench's streaming shape (its linear query and N/d, at
+     ~4e6 rows a relation) through ``launch.join_service`` on its
+     background thread, one tenant watching and ingesting 9 deltas of 1%,
+     another's executes in the first and last waves.  Each run's snapshot
+     must equal an oracle independent of the port (W1 a float64
+     trace(A_R A_S A_T) on the card, W2 the weight backflow, W3 numpy
+     bincounts) and a fresh session's execute (``full_ms``, median of 3
+     warm; W3's ``full_ms`` is tenant t2's executes through the service,
+     the deltas' own path, and the fresh session's ``direct_full_ms``),
+     no delta round may overflow, not every timed delta may re-plan, the
+     counters zeroed before the deltas must show
+     ``fused_count3_cyclic_pairidx`` in W1's and ``fused_count3_linear``
+     in W2's, and each of W1's 400-row deltas must mask a sibling to
+     fewer live rows (``streaming.mask_to_families`` spied).  The delta
+     root's kernel is held against its plain version (exact) and timed
+     against its bound at the layouts the deltas gave it (W1's first
+     timed and first 400-row delta, W2's first timed deltas into r1 and
+     r3), printed beside the kernels line.  One ``[stream]`` line a run,
+     with ``speedup`` = full_ms / delta_ms (the reference's
+     ``claim_streaming_delta_ge_5x`` read on the card);
+  8. timings — each join kernel at its layout (the main path's first
      round; the baselines' first step, and, printed, the linear scan
      kernel also at B2's and both all-pairs cyclic kernels also at B4q3's)
      and the radix kernel at Q1's
      keys, against its plain version (exact) and its bound: ``ms`` one op
      call as the main path makes it, ``kernel_ms`` the device time of the
      kernels that call launches (``torch.profiler`` after its warm-up
-     step; null when the trace is incomplete; ``sorts_and_masks`` names
+     step, the trace taken again, up to 3 times, where it came back
+     incomplete; null when every try was; ``sorts_and_masks`` names
      any sort or elementwise kernel among them, and must be empty for the
      pair count and the radix histogram);
-  8. serve — the dense LM served at full width through
+  9. serve — the dense LM served at full width through
      ``repro_torch.launch.serve``: S1 qwen2-1.5b (batch 8, prompt 1024,
      32 generated tokens, 16 requests), S2 gemma3-1b (batch 4, prompt 2048,
      16 tokens, 4 requests), random weights from the seed.  The flash
@@ -71,7 +101,7 @@ result line):
      the argmax of the served logits, and at every checked position the
      forward's logit for the served token must be within
      ``SERVE_TOL["max"]`` of the forward's largest logit;
-  9. train — the dense LM trained at full width through
+ 10. train — the dense LM trained at full width through
      ``repro_torch.launch.train``: T1 qwen2-1.5b (batch 8, seq 1024, 4
      microbatches, remat, 6 steps), T2 gemma3-1b (batch 4, seq 2048, 2
      microbatches, 2 steps), random weights and ``batch_at`` data from the
@@ -82,13 +112,14 @@ result line):
      the restart check at the qwen2-1.5b smoke config: a run that fails at
      step 5 and resumes from its newest committed checkpoint ends with the
      parameters of an uninterrupted run;
- 10. the flash forward and backward at S1's, T1's microbatch and S2's
+ 11. the flash forward and backward at S1's, T1's microbatch and S2's
      shapes against their plain versions, their bounds and
      ``scaled_dot_product_attention`` (its backward alone on a retained
      graph).  Prints one ``kernels`` JSON line with all twelve kernels
      (a ``kernel_ms`` whose trace is incomplete is null, with
-     ``kernel_ms_missing`` saying why);
- 11. the last line: ``{"ok": true, "device": {...}}``.
+     ``kernel_ms_missing`` saying why); the join kernels' launches are
+     the main path's (the stream deltas' are in the ``[stream]`` lines);
+ 12. the last line: ``{"ok": true, "device": {...}}``.
 
 Join sizes are cut from the paper's (Fig 4: N = 2e8
 friends edges, a 1e9-row fact table) to N = 4e6 edges over 14,000 users
@@ -101,6 +132,7 @@ sequence length and steps) is chosen here.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import pathlib
@@ -955,19 +987,30 @@ def star_oracle(star, d):
     return int(np.sum(cnt_r[star["s"]["b"]] * cnt_t[star["s"]["c"]]))
 
 
-def triangle_oracle(torch, F, d):
-    """trace(A^3) with A the d x d edge-count matrix, in float64 on the
-    card: every value is an integer far below 2^53, so it is exact."""
-    A = torch.zeros((d, d), dtype=torch.float64, device="cuda")
-    src = torch.as_tensor(F["src"], device="cuda").long()
-    dst = torch.as_tensor(F["dst"], device="cuda").long()
-    A.index_put_((src, dst), torch.ones_like(src, dtype=torch.float64),
-                 accumulate=True)
-    total = float(((A @ A) * A.T).sum())
-    del A
+def trace3_oracle(torch, pairs, d):
+    """trace(A1 A2 A3) with Ai the d x d count matrix of the i-th (row,
+    column) key pair, in float64 on the card: every value is an integer
+    far below 2^53, so it is exact.  A triangle R(a, b), S(b, c), T(c, a)
+    is ``pairs = [(R.a, R.b), (S.b, S.c), (T.c, T.a)]``."""
+    def matrix(rows, cols):
+        m = torch.zeros((d, d), dtype=torch.float64, device="cuda")
+        r = torch.as_tensor(rows, device="cuda").long()
+        c = torch.as_tensor(cols, device="cuda").long()
+        m.index_put_((r, c), torch.ones_like(r, dtype=torch.float64),
+                     accumulate=True)
+        return m
+    prod = matrix(*pairs[0]) @ matrix(*pairs[1])
+    total = float((prod * matrix(*pairs[2]).T).sum())
+    del prod
+    torch.cuda.empty_cache()
     if total >= 2**53:
-        fail("triangle oracle left the exact float64 range")
+        fail("trace oracle left the exact float64 range")
     return int(round(total))
+
+
+def triangle_oracle(torch, F, d):
+    """trace(A^3) with A the d x d edge-count matrix of one edge list."""
+    return trace3_oracle(torch, [(F["src"], F["dst"])] * 3, d)
 
 
 def chain_oracle(chain, d):
@@ -1109,7 +1152,7 @@ def main_path(torch, data):
 
 
 # --------------------------------------------------------------------------
-# phase 5: kernels at the main path's first-round layouts
+# phase 8: kernels at the main path's first-round layouts
 # --------------------------------------------------------------------------
 
 def time_ms(torch, fn, reps=5):
@@ -1127,7 +1170,7 @@ def time_ms(torch, fn, reps=5):
     return statistics.median(out)
 
 
-def kernel_ms(torch, fn, reps=5):
+def kernel_ms(torch, fn, reps=5, tries=3):
     """Device ms of the kernels one call of ``fn`` launches: their sum and
     each by name, the mean over ``reps`` calls traced by ``torch.profiler``
     (host and device; the device events are the kernels).  The trace's
@@ -1136,11 +1179,23 @@ def kernel_ms(torch, fn, reps=5):
     a trace starts leave no record (seen on the H100 with torch 2.11 after
     the serving and training phases: 3 of 5 flash_fwd calls recorded; with
     a warm-up step of 2 calls, 5 of 5).  A trace in which a kernel does
-    not appear a multiple of ``reps`` times measured nothing: the sum is
-    then None and the third value says why."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+    not appear a multiple of ``reps`` times, or that holds no device
+    event, measured nothing: it is taken again, up to ``tries`` times in
+    all (the radix histogram's trace came back empty once), and where
+    every try failed the sum is None and the third value says why."""
     fn()
     torch.cuda.synchronize()
+    for _ in range(tries):
+        by_name, why = _traced_kernels(torch, fn, reps)
+        if why is None:
+            return sum(by_name.values()), by_name, None
+        log(f"[kernel] {why}")
+    return None, {}, why
+
+
+def _traced_kernels(torch, fn, reps):
+    """One ``kernel_ms`` trace: device ms by kernel name, or why not."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
@@ -1159,12 +1214,11 @@ def kernel_ms(torch, fn, reps=5):
             count[e.key[:60]] = count.get(e.key[:60], 0) + e.count
     partial = {k: n for k, n in count.items() if n % reps}
     if not by_name or partial:
-        why = (f"not measured: the trace of {reps} calls holds "
-               + (f"kernels seen a number of times that is not a multiple "
-                  f"of {reps}: {partial}" if partial else "no device event"))
-        log(f"[kernel] {why}")
-        return None, {}, why
-    return sum(by_name.values()), by_name, None
+        return {}, (f"not measured: the trace of {reps} calls holds "
+                    + (f"kernels seen a number of times that is not a "
+                       f"multiple of {reps}: {partial}" if partial
+                       else "no device event"))
+    return by_name, None
 
 
 def nbytes(*xs):
@@ -1271,6 +1325,68 @@ def record_kernel(torch, lines, errs, launches, name, shape_note, kern,
         lines.append(entry)
 
 
+def linear_terms(torch, ops, args):
+    """The linear fused kernel's plain inputs and bound terms at a layout
+    (``args`` as ``ops.fused_count3_linear`` takes them): the masked
+    grids, a shape note, the T-row and R-row search steps of the live S
+    slots (two each), the per-R gather's steps, and the count and per-R
+    outputs' bytes."""
+    rb, rv, sb, sc, sv, tc, tv = args
+    m = _masked(ops, [(rb, rv, "r"), (sb, sv, "s"), (sc, sv, "s"),
+                      (tc, tv, "t")])
+    hp, u, cr = rb.shape
+    _, gp, _, cs = sb.shape
+    ct = tc.shape[1]
+    n_s = n_live(torch, ops, m[1], "s", -1)             # [hp, gp, u]
+    n_r = n_live(torch, ops, m[0], "r", -1)             # [hp, u]
+    lg_r = search_steps(torch, n_r)
+    lg_t = search_steps(torch, n_live(torch, ops, m[3], "t", -1))  # [gp]
+    t_steps = int((n_s * 2 * lg_t[None, :, None]).sum())
+    r_steps = int((n_s * 2 * lg_r[:, None, :]).sum())
+    shape = f"hp={hp} gp={gp} u={u} Cr={cr} Cs={cs} Ct={ct}"
+    return m, shape, t_steps, r_steps, int((n_r * lg_r).sum()), \
+        hp * u * 4, hp * u * cr * 4
+
+
+def record_cyclic(torch, ops, record, args, note, **kw):
+    """Record the pair-index kernel at a layout (``args`` as
+    ``ops.fused_count3_cyclic`` takes them).  The sorted formulation:
+    every live S slot of bucket (j, f, b) is visited by the hp * uh cells
+    (i, a): two searches of the R cell (i, j, a, b) and two of the T row
+    (i, f, a) per visit, and two steps per matching pair.  The kernel's
+    bit-row formulation: ``cyclic_table_ops``.  The bound takes the
+    smaller count."""
+    names = ("ra", "rb", "sb", "sc", "tc", "ta")
+    raw = dict(zip(names, (args[0], args[1], args[3], args[4], args[6],
+                           args[7])))
+    valid = {"r": args[2], "s": args[5], "t": args[8]}
+    m = _masked(ops, [(raw[k], valid[k[0]], k[0]) for k in names])
+    hp, gp, uh, ug, cr = raw["ra"].shape
+    _, fp, _, cs = raw["sb"].shape
+    ct = raw["tc"].shape[-1]
+    rkeys = raw["rb"][valid["r"]].long()
+    skeys = raw["sb"][valid["s"]].long()
+    top = int(max(rkeys.max(), skeys.max())) + 1
+    pairs = int((torch.bincount(rkeys, minlength=top)
+                 * torch.bincount(skeys, minlength=top)).sum())
+    del rkeys, skeys
+    n_s = n_live(torch, ops, m[2], "s", -1)             # [gp, fp, ug]
+    n_r = n_live(torch, ops, m[0], "r", -1)             # [hp, gp, uh, ug]
+    n_t = n_live(torch, ops, m[4], "t", -1)             # [hp, fp, uh]
+    lg_r, lg_t = search_steps(torch, n_r), search_steps(torch, n_t)
+    r_visit = int((lg_r * n_s.sum(1)[None, :, None, :]).sum())
+    t_visit = int((lg_t * n_s.sum((0, 2))[None, :, None]).sum())
+    search_ops = 2 * (r_visit + t_visit) + 2 * pairs
+    table_ops = cyclic_table_ops(torch, ops, m[0], m[2], m[4], m[5])
+    record("fused_count3_cyclic_pairidx",
+           f"{note}: hp={hp} gp={gp} uh={uh} ug={ug} fp={fp} Cr={cr} "
+           f"Cs={cs} Ct={ct}; matching (s, r) pairs={pairs}",
+           lambda: ops.fused_count3_cyclic(*args),
+           lambda: ops._fused_cyclic_pairidx_ref(*m),
+           nbytes(*m) + hp * gp * uh * ug * 4, min(search_ops, table_ops),
+           extra={"ops_search": search_ops, "ops_tables": table_ops}, **kw)
+
+
 def kernel_phase(torch, ops, errs, launches, results, queries):
     """Each fused kernel at its main-path layout, against its plain version
     and its bound.  The bound is the larger of two times: the bytes of the
@@ -1294,24 +1410,11 @@ def kernel_phase(torch, ops, errs, launches, results, queries):
     def linear_layout(label, strategy):
         _, (rg, sg, tg), cols = first_round_layout(results, queries, label,
                                                    strategy)
-        rb, sb, sc, tc = (rg.columns[cols["rb"]], sg.columns[cols["sb"]],
-                          sg.columns[cols["sc"]], tg.columns[cols["tc"]])
-        args = (rb, rg.valid, sb, sc, sg.valid, tc, tg.valid)
-        m = _masked(ops, [(rb, rg.valid, "r"), (sb, sg.valid, "s"),
-                          (sc, sg.valid, "s"), (tc, tg.valid, "t")])
-        hp, u, cr = rb.shape
-        _, gp, _, cs = sb.shape
-        ct = tc.shape[1]
-        n_s = live(m[1], "s", -1)                       # [hp, gp, u]
-        n_r = live(m[0], "r", -1)                       # [hp, u]
-        lg_r = _steps(n_r)
-        lg_t = _steps(live(m[3], "t", -1))              # [gp]
-        t_steps = int((n_s * 2 * lg_t[None, :, None]).sum())
-        r_steps = int((n_s * 2 * lg_r[:, None, :]).sum())
-        note = (f"{label} round 1: hp={hp} gp={gp} u={u} Cr={cr} Cs={cs} "
-                f"Ct={ct}")
-        return args, m, note, t_steps, r_steps, int((n_r * lg_r).sum()), \
-            hp * u * 4, hp * u * cr * 4
+        args = (rg.columns[cols["rb"]], rg.valid, sg.columns[cols["sb"]],
+                sg.columns[cols["sc"]], sg.valid, tg.columns[cols["tc"]],
+                tg.valid)
+        m, shape, *terms = linear_terms(torch, ops, args)
+        return (args, m, f"{label} round 1: {shape}", *terms)
 
     # Q1: linear; the per-R kernel is also timed on Q1's layout (printed,
     # not in the kernels line: its main-path layout is Q6's)
@@ -1360,43 +1463,13 @@ def kernel_phase(torch, ops, errs, launches, results, queries):
            nbytes(*m) + uh * ug * 4, steps)
     del args, m, rg, sg, tg
 
-    # Q3: cyclic.  The sorted formulation: every live S slot of bucket
-    # (j, f, b) is visited by the hp * uh cells (i, a): two searches of the
-    # R cell (i, j, a, b) and two of the T row (i, f, a) per visit, and two
-    # steps per matching pair.  The kernel's bit-row formulation:
-    # ``cyclic_table_ops``.  The bound takes the smaller count.
+    # Q3: cyclic, its bound as ``record_cyclic`` states
     _, (rg, sg, tg), cols = first_round_layout(results, queries, "Q3",
                                                "default")
-    names = ("ra", "rb", "sb", "sc", "tc", "ta")
-    src = {"ra": rg, "rb": rg, "sb": sg, "sc": sg, "tc": tg, "ta": tg}
-    side = {"ra": "r", "rb": "r", "sb": "s", "sc": "s", "tc": "t", "ta": "t"}
-    raw = {k: src[k].columns[cols[k]] for k in names}
-    args = (raw["ra"], raw["rb"], rg.valid, raw["sb"], raw["sc"], sg.valid,
-            raw["tc"], raw["ta"], tg.valid)
-    m = _masked(ops, [(raw[k], src[k].valid, side[k]) for k in names])
-    hp, gp, uh, ug, cr = raw["ra"].shape
-    _, fp, _, cs = raw["sb"].shape
-    ct = raw["tc"].shape[-1]
-    rkeys = raw["rb"][rg.valid].long()
-    skeys = raw["sb"][sg.valid].long()
-    top = int(max(rkeys.max(), skeys.max())) + 1
-    pairs = int((torch.bincount(rkeys, minlength=top)
-                 * torch.bincount(skeys, minlength=top)).sum())
-    n_s = live(m[2], "s", -1)                           # [gp, fp, ug]
-    n_r = live(m[0], "r", -1)                           # [hp, gp, uh, ug]
-    n_t = live(m[4], "t", -1)                           # [hp, fp, uh]
-    lg_r, lg_t = _steps(n_r), _steps(n_t)
-    r_visit = int((lg_r * n_s.sum(1)[None, :, None, :]).sum())
-    t_visit = int((lg_t * n_s.sum((0, 2))[None, :, None]).sum())
-    search_ops = 2 * (r_visit + t_visit) + 2 * pairs
-    table_ops = cyclic_table_ops(torch, ops, m[0], m[2], m[4], m[5])
-    record("fused_count3_cyclic_pairidx",
-           f"Q3 round 1: hp={hp} gp={gp} uh={uh} ug={ug} fp={fp} Cr={cr} "
-           f"Cs={cs} Ct={ct}; matching (s, r) pairs={pairs}",
-           lambda: ops.fused_count3_cyclic(*args),
-           lambda: ops._fused_cyclic_pairidx_ref(*m),
-           nbytes(*m) + hp * gp * uh * ug * 4, min(search_ops, table_ops),
-           extra={"ops_search": search_ops, "ops_tables": table_ops})
+    args = (rg.columns[cols["ra"]], rg.columns[cols["rb"]], rg.valid,
+            sg.columns[cols["sb"]], sg.columns[cols["sc"]], sg.valid,
+            tg.columns[cols["tc"]], tg.columns[cols["ta"]], tg.valid)
+    record_cyclic(torch, ops, record, args, "Q3 round 1")
     return lines
 
 
@@ -1867,7 +1940,390 @@ def radix_kernel_phase(torch, ops, errs, launches, keys, valid):
 
 
 # --------------------------------------------------------------------------
-# phase 8: the dense LM served at full width
+# phase 7: standing queries under ingest
+# --------------------------------------------------------------------------
+
+# W1: three distinct edge relations of Q1's N over Q1's d; deltas of 1%
+# (the reference bench's delta_frac), rotating over the relations
+STREAM_N, STREAM_D = 4_000_000, 14_000
+STREAM_DELTA = 40_000
+STREAM_WARM, STREAM_TIMED = 3, 6
+# W3: the reference bench's streaming_ingest shape (n = 24,000 x scale,
+# d = 4,096 x scale) at scale 167, ~4e6 rows a relation.  Its deltas take
+# the cascade delta path, which joins R with S first whichever relation
+# took the delta: at Q1's N/d that join has ~1.1e9 rows and does not fit
+# on the card, at the bench's N/d ~2.3e7
+W3_N, W3_D = 24_000 * 167, 4_096 * 167
+W3_DELTA = W3_N // 100
+# W1's small deltas: 400 rows touch ~9% of the 4,096 hash families, so the
+# family mask applies (it is skipped past half of them)
+SMALL_DELTA, SMALL_DELTAS = 400, 3
+# W2: Q5's chain, deltas of 1% of its 1e6 rows
+CHAIN_DELTA, CHAIN_WARM, CHAIN_TIMED = 10_000, 4, 8
+FULL_REPS = 3
+W1_PREDS = [("R.b", "S.b"), ("S.c", "T.c"), ("T.a", "R.a")]
+W2_PREDS = [("r1.b", "r2.b"), ("r2.c", "r3.c"), ("r3.d", "r4.d")]
+W3_PREDS = [("R.b", "S.b"), ("S.c", "T.c")]
+STREAM_SCHEMAS = {"W1": {"R": "ab", "S": "bc", "T": "ca"},
+                  "W3": {"R": "ab", "S": "bc", "T": "ce"}}
+
+
+def stream_data(seed):
+    """W1's and W3's relations (numpy), drawn from the seed apart from the
+    main path's data."""
+    rng = np.random.default_rng((seed, 1))
+    size = {"W1": (STREAM_N, STREAM_D), "W3": (W3_N, W3_D)}
+    return {w: {name: {c: rng.integers(0, size[w][1], size[w][0])
+                       .astype(np.int32) for c in cols}
+                for name, cols in schema.items()}
+            for w, schema in STREAM_SCHEMAS.items()}
+
+
+def delta_batches(rng, schema, d, rows, names):
+    """One batch of ``rows`` rows over [0, d) per entry of ``names``, each
+    for that relation's columns."""
+    return [(nm, {c: rng.integers(0, d, rows).astype(np.int32)
+                  for c in schema[nm]}) for nm in names]
+
+
+def rotation(names, count):
+    return [names[i % len(names)] for i in range(count)]
+
+
+def linear3_oracle(R, S, T, d):
+    """Σ over S's rows of |R.b = s.b| · |T.c = s.c| (numpy bincounts)."""
+    cnt_r = np.bincount(R["b"], minlength=d).astype(np.int64)
+    cnt_t = np.bincount(T["c"], minlength=d).astype(np.int64)
+    return int(np.sum(cnt_r[S["b"]] * cnt_t[S["c"]]))
+
+
+def _final(store):
+    """The numpy columns of each relation after its appends."""
+    return {nm: {c: np.concatenate(parts) for c, parts in cols.items()}
+            for nm, cols in store.items()}
+
+
+def _median_full_ms(torch, query, strategy):
+    """A fresh session's warm from-scratch execute: one cold, then the
+    median of FULL_REPS (host clock around execute and a synchronise)."""
+    from repro_torch.core.session import JoinSession
+    sess = JoinSession(m_budget=M_BUDGET)
+    res, _ = timed_execute(torch, sess, query, strategy=strategy)
+    ms = [1e3 * timed_execute(torch, sess, query, strategy=strategy)[1]
+          for _ in range(FULL_REPS)]
+    return int(res.count), statistics.median(ms)
+
+
+def _check_run(label, row, recs, timed, kernel, launches):
+    """The stream phase's failure conditions for one run."""
+    if any(r.overflowed for r in recs):
+        fail(f"{label}: a delta round overflowed")
+    if row["count"] != row["oracle"]:
+        fail(f"{label}: standing count {row['count']} != oracle "
+             f"{row['oracle']}")
+    if row["count"] != row["full_count"]:
+        fail(f"{label}: standing count {row['count']} != from-scratch "
+             f"execute {row['full_count']}")
+    if all(r.replanned for r in recs[timed]):
+        fail(f"{label}: every timed delta re-planned; the delta path was "
+             "not measured")
+    if kernel is not None and launches[kernel] <= 0:
+        fail(f"{label}: {kernel} never launched in the deltas")
+
+
+def _stream_row(label, recs, delta_ms, timed, count, oracle, full_count,
+                full_ms, launches, t0, **extra):
+    timed_ms = delta_ms[timed]
+    med = statistics.median(timed_ms)
+    return {"run": label, "count": count, "oracle": oracle,
+            "full_count": full_count, "rounds": [r.rounds for r in recs],
+            "replanned": [r.replanned for r in recs],
+            "delta_rows": [r.delta_rows for r in recs],
+            "delta_ms": med, "timed_delta_ms": timed_ms,
+            "warm_up_delta_ms": delta_ms[:timed.start],
+            "full_ms": full_ms, "speedup": full_ms / med,
+            "launches": {k: v for k, v in launches.items() if v},
+            **extra, "seconds": time.perf_counter() - t0}
+
+
+def _standing(tables, preds):
+    """The port's relations on the card from numpy tables, each
+    relation's numpy columns kept for the oracle (appends add to them),
+    and the query over the relations."""
+    from repro_torch.convert import relation_from_numpy
+    from repro_torch.core.query import Query
+    rels = {nm: relation_from_numpy(v) for nm, v in tables.items()}
+    store = {nm: {c: [v] for c, v in cols.items()}
+             for nm, cols in tables.items()}
+    return rels, store, Query(rels, preds)
+
+
+def _ingest(torch, rel, cols, store):
+    """Append ``cols`` to ``rel``; every standing query watching it runs
+    its delta plan inside the append.  Host ms around the append and a
+    synchronise; ``store`` keeps the numpy columns for the oracle."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rel.append(**cols)
+    torch.cuda.synchronize()
+    for c, v in cols.items():
+        store[c].append(v)
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def _touched_share(torch, cols):
+    """Share of the hash families each column of a delta touches."""
+    from repro_torch.convert import relation_from_numpy
+    from repro_torch.core import streaming
+    delta = relation_from_numpy(cols)
+    return {c: int(streaming.touched_families(delta, c).sum())
+            / streaming.N_FAMILIES for c in cols}
+
+
+@contextlib.contextmanager
+def spying(module, name):
+    """Route ``module.name`` through a wrapper that keeps each call's
+    positional arguments and result, in order; restored on exit.  The
+    call itself is unchanged (a kernel op still counts its launch)."""
+    orig = getattr(module, name)
+    calls = []
+
+    def spy(*a, **kw):
+        out = orig(*a, **kw)
+        calls.append((a, out))
+        return out
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def stream_watch(torch, ops, errs, run, tables, seed):
+    """One standing query under ingest through ``JoinSession.watch``:
+    ``warm`` warm-up and ``timed`` timed deltas of ``rows`` rows, then
+    ``small`` deltas of SMALL_DELTA rows, rotating over the relations.
+    At the deltas listed in ``capture`` the delta root's op is spied and
+    its first call's layout kept for ``stream_kernel_records``; at the
+    small deltas ``streaming.mask_to_families`` is spied, and each must
+    mask a sibling to fewer live rows.  A delta into a resident binary
+    step's input must grow that resident (merged, not rebuilt)."""
+    from repro_torch.core import streaming
+    from repro_torch.core.session import JoinSession
+    from repro_torch.kernels import cuda
+    t0 = time.perf_counter()
+    label = run["label"]
+    rels, store, query = _standing(tables, run["preds"])
+    sq = JoinSession(m_budget=M_BUDGET).watch(query, strategy=run["strategy"])
+    if sq._plan.steps[-1].op != "fused3":
+        fail(f"{label}: plan {sq._plan.describe()} has no fused root")
+    residents = [s for s in sq._plan.steps
+                 if s.op == "binary" and not s.aggregate]
+    schema = {nm: tuple(cols) for nm, cols in tables.items()}
+    n_big = run["warm"] + run["timed"]
+    rng = np.random.default_rng((seed, 2, run["tag"]))
+    batches = (delta_batches(rng, schema, run["d"], run["rows"],
+                             rotation(list(rels), n_big))
+               + delta_batches(rng, schema, run["d"], SMALL_DELTA,
+                               rotation(list(rels), run["small"])))
+    cuda.reset_launch_counts()
+    delta_ms, captured, masked, resident_rows = [], [], [], []
+    for i, (nm, cols) in enumerate(batches):
+        grow = [s.out for s in residents if nm in s.inputs]
+        before = [int(sq._intermediates[out].n) for out in grow]
+        with contextlib.ExitStack() as spies:
+            roots = (spies.enter_context(spying(ops, run["op"]))
+                     if i in run["capture"] else None)
+            masks = (spies.enter_context(
+                spying(streaming, "mask_to_families")) if i >= n_big
+                else None)
+            delta_ms.append(_ingest(torch, rels[nm], cols, store[nm]))
+        if roots is not None:
+            if not roots:
+                fail(f"{label}: delta {i} into {nm} never called "
+                     f"ops.{run['op']}")
+            captured.append((f"{label} delta {i}, {len(cols[schema[nm][0]])}"
+                             f" rows into {nm}, round 1", roots[0][0]))
+        if masks is not None:
+            lives = [(int(a[0].n), int(out.n)) for a, out in masks
+                     if out is not a[0]]
+            masked.append(lives)
+            if not any(after < live for live, after in lives):
+                fail(f"{label}: the {len(cols[schema[nm][0]])}-row delta "
+                     f"{i} into {nm} masked no sibling to fewer live rows "
+                     f"(masked: {lives})")
+        replanned = sq.delta_rounds[-1].replanned
+        for out, b in zip(grow, before):
+            after = int(sq._intermediates[out].n)
+            if not replanned and after <= b:
+                fail(f"{label}: a delta into {nm} left the resident {out} "
+                     f"at {after} rows (was {b}): not merged")
+        if residents:
+            resident_rows.append({s.out: int(sq._intermediates[s.out].n)
+                                  for s in residents})
+    launches = dict(cuda.LAUNCHES)
+    recs = list(sq.delta_rounds)
+    count = int(sq.snapshot().count)
+    plan = sq._plan.describe()
+    sq.close()
+    oracle = run["oracle"](_final(store))
+    full_count, full_ms = _median_full_ms(torch, query, run["strategy"])
+    timed = slice(run["warm"], n_big)
+    extra = {"plan": plan}
+    if residents:
+        extra["resident_rows"] = resident_rows
+    if run["small"]:
+        extra.update(small_delta_ms=delta_ms[n_big:],
+                     small_touched_share=[_touched_share(torch, cols)
+                                          for _, cols in batches[n_big:]],
+                     small_masked_live=masked)
+    row = _stream_row(label, recs, delta_ms, timed, count, oracle,
+                      full_count, full_ms, launches, t0, **extra)
+    _check_run(label, row, recs, timed, run["kernel"], launches)
+    row["root_kernels"] = stream_kernel_records(torch, ops, errs, launches,
+                                                captured)
+    row["seconds"] = time.perf_counter() - t0
+    return row
+
+
+def stream_kernel_records(torch, ops, errs, launches, captured):
+    """The delta root's kernel at each captured layout, against its plain
+    version (exact) and its bound, as ``kernel_phase`` records it at the
+    main path's layouts (``launches``: the run's deltas).  Each record is
+    printed beside the kernels line; a summary of each is returned."""
+    lines = []
+
+    def record(*a, **kw):
+        record_kernel(torch, lines, errs, launches, *a, **kw)
+
+    for note, args in captured:
+        if len(args) == 9:
+            record_cyclic(torch, ops, record, args, note)
+        else:
+            m, shape, t_steps, r_steps, _, out_b, _ = linear_terms(
+                torch, ops, args)
+            record("fused_count3_linear", f"{note}: {shape}",
+                   lambda: ops.fused_count3_linear(*args),
+                   lambda: ops._fused_linear_ref(*m),
+                   nbytes(*m) + out_b, t_steps + r_steps)
+            del m
+    keys = ("name", "shape", "max_abs_err", "ms", "kernel_ms", "plain_ms",
+            "bound_ms", "bound_by")
+    return [{k: e[k] for k in keys} for e in lines]
+
+
+def stream_w3(torch, tables, seed):
+    """The reference bench's streaming shape through the join service on
+    its background thread: tenant t1 watches the linear 3-way query,
+    ingests 1% deltas and takes a snapshot; tenant t2's executes of the
+    same query ride in the first and the last waves.  ``full_ms`` is
+    tenant t2's executes at the final state through the same service
+    (the deltas' path: its queue and its pump thread's poll), median of
+    FULL_REPS after the last wave's; ``direct_full_ms`` a fresh
+    session's."""
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.join_service import JoinService
+    t0 = time.perf_counter()
+    rels, store, query = _standing(tables, W3_PREDS)
+    oracle0 = linear3_oracle(tables["R"], tables["S"], tables["T"], W3_D)
+    svc = JoinService(max_queue=64, wave_size=8, m_budget=M_BUDGET)
+
+    def through_service(fut):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fut().result(timeout=600)
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t1)
+
+    watch_f = svc.watch("t1", query)
+    first_f = svc.submit("t2", query)
+    svc.start()
+    try:
+        sq = watch_f.result(timeout=600)
+        first = int(first_f.result(timeout=600).count)
+        batches = delta_batches(np.random.default_rng((seed, 2, 3)),
+                                STREAM_SCHEMAS["W3"], W3_D, W3_DELTA,
+                                rotation(list(rels),
+                                         STREAM_WARM + STREAM_TIMED))
+        cuda.reset_launch_counts()
+        delta_ms = []
+        for nm, cols in batches:
+            applied, ms = through_service(
+                lambda: svc.ingest("t1", rels[nm], cols))
+            delta_ms.append(ms)
+            if applied != W3_DELTA:
+                fail(f"W3: ingest applied {applied} rows")
+            for c, v in cols.items():
+                store[nm][c].append(v)
+        launches = dict(cuda.LAUNCHES)
+        snap_f = svc.snapshot("t1", sq)
+        last_f = svc.submit("t2", query)
+        count = int(snap_f.result(timeout=600).count)
+        last = [int(last_f.result(timeout=600).count)]
+        full_ms = []
+        for _ in range(FULL_REPS):
+            res, ms = through_service(lambda: svc.submit("t2", query))
+            last.append(int(res.count))
+            full_ms.append(ms)
+    finally:
+        svc.stop()
+    metrics = svc.metrics()
+    recs = list(sq.delta_rounds)
+    sq.close()
+    final = _final(store)
+    oracle = linear3_oracle(final["R"], final["S"], final["T"], W3_D)
+    if first != oracle0 or any(n != oracle for n in last):
+        fail(f"W3: tenant t2's executes {first}, {last} != oracles "
+             f"{oracle0}, {oracle}")
+    full_count, direct_ms = _median_full_ms(torch, query, None)
+    timed = slice(STREAM_WARM, STREAM_WARM + STREAM_TIMED)
+    row = _stream_row("W3", recs, delta_ms, timed, count, oracle, full_count,
+                      statistics.median(full_ms), launches, t0,
+                      direct_full_ms=direct_ms, t2_counts=[first, *last],
+                      plan=sq._plan.describe(), metrics=metrics)
+    _check_run("W3", row, recs, timed, None, launches)
+    return row
+
+
+def stream_phase(torch, ops, errs, chain, chain_d, seed):
+    """W1–W3, each printed as one ``[stream]`` line; the delta roots'
+    kernel records are printed beside them."""
+    t0 = time.perf_counter()
+    tables = stream_data(seed)
+    n_w1 = STREAM_WARM + STREAM_TIMED
+    runs = [
+        (dict(label="W1", preds=W1_PREDS, strategy=None, tag=1, d=STREAM_D,
+              rows=STREAM_DELTA, warm=STREAM_WARM, timed=STREAM_TIMED,
+              small=SMALL_DELTAS, op="fused_count3_cyclic",
+              kernel="fused_count3_cyclic_pairidx",
+              # the first timed delta, the first small one
+              capture=(STREAM_WARM, n_w1),
+              oracle=lambda f: trace3_oracle(
+                  torch, [(f["R"]["a"], f["R"]["b"]),
+                          (f["S"]["b"], f["S"]["c"]),
+                          (f["T"]["c"], f["T"]["a"])], STREAM_D)),
+         tables["W1"]),
+        (dict(label="W2", preds=W2_PREDS, strategy="3way", tag=2, d=chain_d,
+              rows=CHAIN_DELTA, warm=CHAIN_WARM, timed=CHAIN_TIMED, small=0,
+              op="fused_count3_linear", kernel="fused_count3_linear",
+              # the first timed deltas into r1 (the root fed by the
+              # resident's delta) and into r3 (fed by the resident itself)
+              capture=(CHAIN_WARM, CHAIN_WARM + 2),
+              oracle=lambda f: chain_oracle(f, chain_d)),
+         chain)]
+    rows = []
+    for run, data in runs:
+        rows.append(stream_watch(torch, ops, errs, run, data, seed))
+        log(f"[stream] {json.dumps(rows[-1])}")
+        torch.cuda.empty_cache()
+    rows.append(stream_w3(torch, tables["W3"], seed))
+    log(f"[stream] {json.dumps(rows[-1])}")
+    log(f"[stream] phase took {time.perf_counter() - t0:.1f}s")
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 9: the dense LM served at full width
 # --------------------------------------------------------------------------
 
 # (label, arch, batch, prompt length, generated tokens, requests)
@@ -1979,7 +2435,7 @@ def serve_phase(torch, seed):
 
 
 # --------------------------------------------------------------------------
-# phase 9: the dense LM trained at full width
+# phase 10: the dense LM trained at full width
 # --------------------------------------------------------------------------
 
 # (label, arch, batch, sequence length, steps): the configs' own
@@ -2357,6 +2813,8 @@ def main() -> int:
     log(f"[baseline] phase took {time.perf_counter() - t0:.1f}s")
     r_rows, r_launches, (keys, valid) = radix_phase(torch, ops, data,
                                                     args.seed)
+    st_rows = stream_phase(torch, ops, errs, data["chain"],
+                           data["d"]["chain"], args.seed)
     del data
 
     lines = kernel_phase(torch, ops, errs, launches, results, queries)
@@ -2372,7 +2830,7 @@ def main() -> int:
                       + t_launches["flash_fwd"],
                       "flash_bwd": t_launches["flash_bwd"]}, args.seed)
     log(json.dumps({"queries": rows, "baselines": b_rows, "radix": r_rows,
-                    "serve": s_rows, "train": t_rows, "grad_check": grad,
+                    "stream": st_rows, "serve": s_rows, "train": t_rows, "grad_check": grad,
                     "restart": restart}))
     print(card, flush=True)
     print(json.dumps({"kernels": lines}), flush=True)

@@ -25,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import partition
+from repro_torch.core import partition, sketches
 from repro_torch.core.relation import SENTINEL, Relation
 from repro_torch.kernels import ops as kops
 
@@ -52,6 +52,15 @@ def exact_join_count(build: Relation, build_key: str,
     counts on the device, one scalar to the host."""
     _, _, cnt = _probe_counts(build, build_key, probe, probe_key)
     return int(cnt.sum())
+
+
+def join_count(build: Relation, build_key: str,
+               probe: Relation, probe_key: str) -> torch.Tensor:
+    """Exact number of matching (build, probe) pairs on the sorted path,
+    as the reference's 0-d int32 (the sum wraps past 2^31 as the
+    reference's does; ``exact_join_count`` is the int64 form)."""
+    _, _, cnt = _probe_counts(build, build_key, probe, probe_key)
+    return sketches._to_int32_bits(cnt.sum() & 0xFFFFFFFF)
 
 
 def probe_weight_sum(build: Relation, build_key: str,

@@ -9,16 +9,25 @@ Entry points run on the card unless the caller asks for the CPU:
 ``device=None`` means ``"cuda"``, and on a machine without CUDA that raises
 an error naming ``device="cpu"`` instead of carrying on on the CPU.
 
-The instance is immutable: the dataclass is frozen and ``columns`` is a
-read-only mapping view.  (``append`` and the append observers belong to
-the streaming slice of the port and are not here yet.)
+Ingest is explicit: :meth:`Relation.append` is the ONE mutation point.  It
+compacts live rows, grows capacity along log-bucketed (power-of-two) steps,
+updates any cached FM sketches incrementally (sketch insertion is a monotone
+bitwise OR, so the incremental update equals a rebuild), bumps a version
+counter that cache-like layers key resident state on, and notifies
+registered append observers (``on_append``) with the delta — that
+notification is what drives :class:`~repro_torch.core.streaming.
+StandingQuery` delta execution.  Outside ``append`` the instance is
+immutable: the dataclass is frozen and ``columns`` is a read-only mapping
+view.  Torch tensors are mutable and derived relations (``select``,
+``with_columns``, ``mask_where``) share column tensors, so ``append`` builds
+new tensors and rebinds them; it never writes into the old ones.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import types
-from typing import Mapping
+from typing import Callable, Mapping
 
 import numpy as np
 import torch
@@ -30,6 +39,13 @@ import torch
 # so no sentinel of any kind can ever equal a live key (keys are ≥ -2^30
 # by the data-layer contract) or a sentinel from another side.
 SENTINEL = -0x7FFFFFFF
+
+
+def _log_bucket_capacity(need: int) -> int:
+    """Next power-of-two capacity ≥ need (min 64) — the same log-bucketing
+    rule as ``binary_join.bucket_capacity``, inlined to keep this module at
+    the bottom of the import graph."""
+    return max(64, 1 << max(0, int(need) - 1).bit_length())
 
 
 def resolve_device(device=None) -> torch.device:
@@ -80,6 +96,13 @@ class Relation:
         syncs it)."""
         return self.valid.sum()
 
+    @property
+    def version(self) -> int:
+        """Ingest version: bumped by every ``append``.  Cache-like layers
+        (the standing-query resident intermediates, service snapshots) key
+        the validity of derived state on this counter."""
+        return self.__dict__.get("_version", 0)
+
     def col(self, name: str) -> torch.Tensor:
         return self.columns[name]
 
@@ -108,6 +131,72 @@ class Relation:
         est = int(round(float(sketches.fm_estimate(
             self.distinct_sketch(col)))))
         return max(1, min(est, self.capacity))
+
+    # -- ingest --------------------------------------------------------------
+    def on_append(self, callback: Callable) -> None:
+        """Register ``callback(relation, delta)`` to run after every
+        ``append`` (the standing-query ingest hook)."""
+        self.__dict__.setdefault("_observers", []).append(callback)
+
+    def remove_on_append(self, callback: Callable) -> None:
+        obs = self.__dict__.get("_observers")
+        if obs and callback in obs:
+            obs.remove(callback)
+
+    def append(self, cols: Mapping | None = None,
+               **col_arrays) -> "Relation":
+        """THE ingest mutation point: append a batch of rows.
+
+        ``cols`` (or keyword arrays) must cover exactly this relation's
+        schema with equal-length arrays.  Live rows are compacted to a
+        prefix (stable: live order kept), capacity grows along
+        power-of-two buckets, cached FM sketches update incrementally, the
+        :attr:`version` counter bumps, and ``on_append`` observers fire
+        with the delta.  The columns and ``valid`` are new tensors; the
+        old ones, which derived relations may share, are left as they
+        were.  Returns the delta as a fresh Relation on this relation's
+        device."""
+        arrs = dict(cols or {})
+        arrs.update(col_arrays)
+        if set(arrs) != set(self.columns):
+            raise ValueError(
+                f"append schema mismatch: got {sorted(arrs)}, relation has "
+                f"{sorted(self.columns)}")
+        dev = self.device
+        arrs = {k: as_int32(v, dev) for k, v in arrs.items()}
+        lens = {a.shape[0] for a in arrs.values()}
+        if len(lens) != 1:
+            raise ValueError(f"ragged delta columns: "
+                             f"{ {k: tuple(v.shape) for k, v in arrs.items()} }")
+        (k,) = lens
+        delta = Relation.from_arrays(device=dev, **arrs)
+        if k == 0:
+            return delta
+        n0 = int(self.n)
+        need = n0 + k
+        cap = self.capacity
+        new_cap = cap if need <= cap else _log_bucket_capacity(need)
+        # compact live rows to a prefix, then write the delta at [n0, need)
+        _, order = torch.sort((~self.valid).to(torch.int32), stable=True)
+        new_cols = {}
+        for name, col in self.columns.items():
+            base = torch.zeros(new_cap, dtype=torch.int32, device=dev)
+            base[:cap] = col[order]
+            base[n0:need] = arrs[name]
+            new_cols[name] = base
+        valid = torch.arange(new_cap, device=dev) < need
+        object.__setattr__(self, "columns", types.MappingProxyType(new_cols))
+        object.__setattr__(self, "valid", valid)
+        object.__setattr__(self, "_version", self.version + 1)
+        cache = self.__dict__.get("_sketch_cache")
+        if cache:
+            from repro_torch.core import sketches
+            ones = torch.ones((k,), dtype=torch.bool, device=dev)
+            for name, sk in list(cache.items()):
+                cache[name] = sketches.add(sk, arrs[name], ones)
+        for cb in tuple(self.__dict__.get("_observers", ())):
+            cb(self, delta)
+        return delta
 
     # -- construction --------------------------------------------------------
     @classmethod

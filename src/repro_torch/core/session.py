@@ -23,9 +23,11 @@ supported at N = 3, the triangle query) — and an exact answer:
     per-step breakdown).
 
 ``execute_many`` batches queries over the shared plan cache (structurally
-repeated queries plan once).  ``watch`` (standing queries) and
-``execute_sharded`` (the mesh path) belong to later slices of the port and
-raise ``NotImplementedError`` for now.
+repeated queries plan once); ``watch`` registers a standing query whose
+count stays exact under ``Relation.append`` ingest
+(``core.streaming.StandingQuery``).  ``execute_sharded`` (the mesh path)
+belongs to a later slice of the port and raises ``NotImplementedError``
+for now.
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ class QueryResult(JoinResult):
     """Uniform result for every kind, strategy and relation count: the
     :class:`~repro_torch.core.results.JoinResult` core (count / overflowed /
     tuples_read / rounds / steps) plus the session's plan, cache and
-    timing metadata.  ``JoinSession.execute`` answers with this type."""
+    timing metadata.  ``JoinSession.execute`` and
+    ``StandingQuery.snapshot`` answer with this type."""
 
     kind: str                             # root frontier kind (or "binary")
     strategy: str                         # "3way" | "cascade" | "hybrid"
@@ -271,11 +274,15 @@ class JoinSession:
 
     def watch(self, query: Query, *, m_budget: int | None = None,
               strategy: str | None = None):
-        """Standing queries (exact counts under ``Relation.append``) are
-        not ported yet: ROADMAP Queue A, "streaming with watch"."""
-        raise NotImplementedError(
-            "JoinSession.watch is not ported yet (ROADMAP Queue A: "
-            "streaming with watch)")
+        """Register ``query`` as a standing query: execute it once keeping
+        every binary step's materialized intermediate resident, then keep
+        the count exact under ``Relation.append`` ingest by executing only
+        the delta plan per append (``core.streaming.StandingQuery``).
+        ``snapshot()`` on the returned handle answers with the same
+        :class:`QueryResult` type as :meth:`execute`."""
+        from repro_torch.core.streaming import StandingQuery
+        return StandingQuery(self, query, m_budget=m_budget,
+                             strategy=strategy)
 
     # -- batched execution -------------------------------------------------
 

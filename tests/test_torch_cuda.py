@@ -156,15 +156,14 @@ def test_bucket_wrappers_check_their_inputs(card):
             fn(rb, rv, sb, sb, sv, tc.cpu(), tv)
 
 
-def _kernels_by_name(smoke, fn, tries=3):
+def _kernels_by_name(smoke, fn):
     """The device ms by kernel name of ``fn``'s launches
-    (``chip_smoke.kernel_ms``), the trace taken again, up to ``tries``
-    times, where it came back without its device events."""
-    for _ in range(tries):
-        _, by_name, missing = smoke.kernel_ms(torch, fn)
-        if missing is None:
-            return by_name
-    raise AssertionError(missing)
+    (``chip_smoke.kernel_ms``, which takes the trace again, up to 3 times,
+    where it came back without its device events)."""
+    _, by_name, missing = smoke.kernel_ms(torch, fn)
+    if missing is not None:
+        raise AssertionError(missing)
+    return by_name
 
 
 def _bucket_rows(gen, shape, d, live, card):
@@ -493,3 +492,41 @@ def test_flash_bwd_is_bit_equal_across_calls_on_cuda(card, shape):
     first = fa.flash_bwd(q, k, v, o, m, l, do, causal=True, window=window)
     again = fa.flash_bwd(q, k, v, o, m, l, do, causal=True, window=window)
     assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+def test_standing_triangle_launches_pairidx_in_its_deltas_on_cuda(card):
+    """A small cyclic standing query: each delta re-runs the fused root,
+    which launches the pair-index kernel on the card, and every
+    ``DeltaRecord`` but ``exec_s`` equals the CPU port's."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.query import Query
+    from repro_torch.core.relation import Relation
+    from repro_torch.core.session import JoinSession
+    from repro_torch.kernels import cuda
+    rng = np.random.default_rng(21)
+    n, d = 3000, 150
+    data = {name: {c: rng.integers(0, d, n).astype(np.int32) for c in cols}
+            for name, cols in (("R", "ab"), ("S", "bc"), ("T", "ca"))}
+    deltas = [(name, {c: rng.integers(0, d, 40).astype(np.int32)
+                      for c in data[name]}) for name in ("R", "S", "T", "S")]
+    preds = [("R.b", "S.b"), ("S.c", "T.c"), ("T.a", "R.a")]
+    out = {}
+    for dev in ("cpu", card):
+        rels = {k: Relation.from_arrays(device=dev, **v)
+                for k, v in data.items()}
+        sq = JoinSession(m_budget=128).watch(Query(rels, preds))
+        cuda.reset_launch_counts()
+        for name, batch in deltas:
+            rels[name].append(**batch)
+        launches = cuda.LAUNCHES["fused_count3_cyclic_pairidx"]
+        recs = [dataclasses.replace(r, exec_s=0.0) for r in sq.delta_rounds]
+        out[str(dev)] = (recs, int(sq.snapshot().count), launches)
+        sq.close()
+    (cpu_recs, cpu_count, cpu_launches), (recs, count, launches) = \
+        out["cpu"], out[str(card)]
+    assert recs == cpu_recs and count == cpu_count
+    assert not any(r.replanned or r.overflowed for r in recs)
+    assert cpu_launches == 0 and launches >= len(deltas)

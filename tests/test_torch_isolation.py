@@ -56,6 +56,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.configs, repro_torch.models.zoo\n"
         "import repro_torch.kernels.flash_attention, repro_torch.train\n"
         "import repro_torch.launch.serve, repro_torch.launch.train\n"
+        "import repro_torch.launch.join_service, repro_torch.core.streaming\n"
         "import repro_torch.optim.compression, repro_torch.data\n"
         "import repro_torch.checkpoint, repro_torch.runtime\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -81,6 +82,10 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
         relation_from_numpy({"a": [1, 2, 3]})
     rel = Relation.from_arrays(a=[1, 2, 3], device="cpu")
     assert rel.device == torch.device("cpu")
+    # the join service's CLI defaults to the card too
+    from repro_torch.launch import join_service
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        join_service.main(["--smoke", "--rows", "8"])
 
 
 def test_baseline_entry_points_need_the_card_unless_asked_for_cpu():

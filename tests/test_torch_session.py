@@ -150,12 +150,10 @@ def test_exact_join_count_past_int32():
     assert got == want == n * n > 2**31
 
 
-def test_watch_and_sharded_are_not_ported_yet():
+def test_sharded_is_not_ported_yet():
     _, tq = _build("linear")
     sess = JoinSession(m_budget=M_BUDGET)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sess.watch(tq)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="the mesh path"):
         sess.execute_sharded(tq, None, "x", "y")
 
 

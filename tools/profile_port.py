@@ -2,7 +2,7 @@
 """Where the time of a warm ``JoinSession.execute``, of serving, or of a
 training step goes, on the card.
 
-    python3 tools/profile_port.py [--seed N] [--serve | --train]
+    python3 tools/profile_port.py [--seed N] [--serve | --train | --stream]
 
 Default: builds the smoke's Q1 (linear), Q2 (star) and Q3 (triangles)
 data (``chip_smoke.make_data``), runs each query once to warm the plan
@@ -13,17 +13,25 @@ wave, then a traced prefill of a fresh wave and a traced run of
 ``DECODE_STEPS`` decode steps.  With ``--train``: the smoke's T1 run
 (``chip_smoke.TRAIN[0]``: qwen2-1.5b at full width, batch 8 x 1024, 4
 microbatches, remat), one warm-up step, then one traced train step.
+With ``--stream``: the smoke's standing queries W1 (a triangle over
+three 4e6-row edge relations) and W2 (Q5's chain, ``strategy="3way"``),
+each registered with ``JoinSession.watch`` and warmed by the smoke's
+warm-up deltas, then one more delta traced (the ``append`` that runs the
+delta plan).
 Prints, per traced span: the host wall
 time, the summed device kernel time, the device busy share (kernel time
 over wall time; kernels on one stream do not overlap), the kernel
-launches, the device kernels that took the most time, and the host ops
-with the most self time (the profiler's own overhead included).  Needs a
-CUDA device.
+launches, the host syncs (``cudaStreamSynchronize`` and
+``cudaDeviceSynchronize`` calls) and device scalars read on the host
+(``aten::_local_scalar_dense``, e.g. ``int(tensor)``), the device
+kernels that took the most time, and the host ops with the most self
+time (the profiler's own overhead included).  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import sys
@@ -37,9 +45,12 @@ sys.path.insert(0, str(ROOT / "src"))
 DECODE_STEPS = 4
 
 
-def traced(torch, fn, top):
+def traced(torch, fn, top, marks=()):
     """Run ``fn`` under ``torch.profiler``; wall time, device kernel time,
-    busy share, kernel launches and the top kernels."""
+    busy share, kernel launches and the top kernels.  ``marks`` names
+    ``record_function`` ranges inside ``fn``: the profiler lists them
+    among the device events too, and they are not kernels; each one's
+    calls, host time and torch ops are reported (``ops_under``)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -49,14 +60,19 @@ def traced(torch, fn, top):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type.name == "CUDA"]
+    kernels = [e for e in events
+               if e.device_type.name == "CUDA" and e.key not in marks]
     host = [e for e in events if e.device_type.name == "CPU"]
     dev_us = sum(e.self_device_time_total for e in kernels)
+    calls = {e.key: e.count for e in host}
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     host_ranked = sorted(host, key=lambda e: -e.self_cpu_time_total)
     return out, {"wall_s": wall, "device_kernel_s": dev_us / 1e6,
                  "device_busy_share": dev_us / 1e6 / wall,
                  "device_launches": sum(e.count for e in kernels),
+                 "host_syncs": calls.get("cudaStreamSynchronize", 0)
+                 + calls.get("cudaDeviceSynchronize", 0),
+                 "scalar_reads": calls.get("aten::_local_scalar_dense", 0),
                  "top_kernels": [
                      {"name": e.key[:90], "calls": e.count,
                       "device_s": e.self_device_time_total / 1e6}
@@ -64,7 +80,9 @@ def traced(torch, fn, top):
                  "top_host_ops": [
                      {"name": e.key[:60], "calls": e.count,
                       "host_self_s": e.self_cpu_time_total / 1e6}
-                     for e in host_ranked[:top]]}
+                     for e in host_ranked[:top]],
+                 **({"marked": {m: ops_under(prof, m) for m in marks}}
+                    if marks else {})}
 
 
 def profile_serving(torch, chip_smoke, seed, top):
@@ -133,6 +151,82 @@ def profile_training(torch, chip_smoke, seed, top):
                       **row}), flush=True)
 
 
+SKETCH_MARK = "Relation.append: FM sketch update"
+
+
+@contextlib.contextmanager
+def sketch_update_marked():
+    """Mark every ``sketches.add`` call (``Relation.append`` updates each
+    cached sketch with it) as a profiler range."""
+    from torch.profiler import record_function
+
+    from repro_torch.core import sketches
+    add = sketches.add
+
+    def marked(*a, **kw):
+        with record_function(SKETCH_MARK):
+            return add(*a, **kw)
+    sketches.add = marked
+    try:
+        yield
+    finally:
+        sketches.add = add
+
+
+def ops_under(prof, mark):
+    """Calls of a marked range, its host seconds, and the torch ops it
+    issued (outermost ``aten::`` ops, each one or more launches)."""
+    calls, host_us, ops = 0, 0.0, 0
+    for e in prof.events():
+        if e.name != mark or e.device_type.name != "CPU":
+            continue
+        calls += 1
+        host_us += e.cpu_time_total
+        stack = list(e.cpu_children)
+        while stack:
+            c = stack.pop()
+            if c.name.startswith("aten::"):
+                ops += 1
+            else:
+                stack.extend(c.cpu_children)
+    return {"calls": calls, "host_s": host_us / 1e6, "torch_ops": ops}
+
+
+def profile_stream(torch, chip_smoke, seed, top):
+    import numpy as np
+
+    from repro_torch.core.session import JoinSession
+    data = chip_smoke.make_data(seed)
+    runs = [("W1", chip_smoke.stream_data(seed)["W1"], chip_smoke.W1_PREDS,
+             {}, chip_smoke.STREAM_D, chip_smoke.STREAM_DELTA,
+             chip_smoke.STREAM_WARM, 1),
+            ("W2", data["chain"], chip_smoke.W2_PREDS,
+             dict(strategy="3way"), data["d"]["chain"],
+             chip_smoke.CHAIN_DELTA, chip_smoke.CHAIN_WARM, 2)]
+    del data
+    for label, tables, preds, kw, d, rows, warm, tag in runs:
+        rels, _, query = chip_smoke._standing(tables, preds)
+        sq = JoinSession(m_budget=chip_smoke.M_BUDGET).watch(query, **kw)
+        schema = {nm: tuple(cols) for nm, cols in tables.items()}
+        batches = chip_smoke.delta_batches(
+            np.random.default_rng((seed, 2, tag)), schema, d, rows,
+            chip_smoke.rotation(list(rels), warm + 1))
+        for nm, cols in batches[:warm]:
+            rels[nm].append(**cols)
+        nm, cols = batches[warm]
+        with sketch_update_marked():
+            _, row = traced(torch, lambda: rels[nm].append(**cols), top,
+                            marks=(SKETCH_MARK,))
+        rec = sq.delta_rounds[-1]
+        print(json.dumps({"stream": label, "span": f"one warm delta of "
+                          f"{rows} rows into {nm}",
+                          "rounds": rec.rounds, "replanned": rec.replanned,
+                          "plan": sq._plan.describe(), **row}), flush=True)
+        sq.close()
+        del rels
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -141,6 +235,8 @@ def main() -> int:
                     help="profile the serving runs instead of the joins")
     ap.add_argument("--train", action="store_true",
                     help="profile a training step instead of the joins")
+    ap.add_argument("--stream", action="store_true",
+                    help="profile a standing query's delta instead")
     args = ap.parse_args()
     import torch
 
@@ -152,6 +248,9 @@ def main() -> int:
         return 0
     if args.train:
         profile_training(torch, chip_smoke, args.seed, args.top)
+        return 0
+    if args.stream:
+        profile_stream(torch, chip_smoke, args.seed, args.top)
         return 0
     from repro_torch.convert import relation_from_numpy
     from repro_torch.core.query import Query
