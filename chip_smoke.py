@@ -79,7 +79,20 @@ result line):
      r3), printed beside the kernels line.  One ``[stream]`` line a run,
      with ``speedup`` = full_ms / delta_ms (the reference's
      ``claim_streaming_delta_ge_5x`` read on the card);
-  8. timings — each join kernel at its layout (the main path's first
+  8. mesh — the mesh path (``JoinSession.execute_sharded``) on a mesh of
+     every visible card, NCCL, one card a rank (1 x 1 on one card: the
+     multi-rank parity is the CPU tests' gloo 4 x 2): M1-M4 are Q1-Q4 at
+     full size, each with the rank-local buckets of its single-card plan
+     and ``shuffle_slack=1.0`` at 1 x 1 (M4 ``local_slack=1.0``,
+     ``max_rounds=2``), one cold and 3 warm runs (host clock around the
+     call and a synchronise), each equal to the oracle and to the
+     single-card ``execute`` of the same query (its warm seconds beside),
+     never overflowed, M4 in at least 2 rounds; then the one-shot
+     wrappers on a graph of B4's size (and three 1e5-row relations for the
+     star), exact.  The counters zeroed before the sharded runs must show
+     the fused linear, star and pair-index kernels and the bucket-row
+     linear kernel (the one-shot linear and star wrappers);
+  9. timings — each join kernel at its layout (the main path's first
      round; the baselines' first step, and, printed, the linear scan
      kernel also at B2's and both all-pairs cyclic kernels also at B4q3's)
      and the radix kernel at Q1's
@@ -90,7 +103,7 @@ result line):
      incomplete; null when every try was; ``sorts_and_masks`` names
      any sort or elementwise kernel among them, and must be empty for the
      pair count and the radix histogram);
-  9. serve — the dense LM served at full width through
+  10. serve — the dense LM served at full width through
      ``repro_torch.launch.serve``: S1 qwen2-1.5b (batch 8, prompt 1024,
      32 generated tokens, 16 requests), S2 gemma3-1b (batch 4, prompt 2048,
      16 tokens, 4 requests), random weights from the seed.  The flash
@@ -101,7 +114,7 @@ result line):
      the argmax of the served logits, and at every checked position the
      forward's logit for the served token must be within
      ``SERVE_TOL["max"]`` of the forward's largest logit;
- 10. train — the dense LM trained at full width through
+ 11. train — the dense LM trained at full width through
      ``repro_torch.launch.train``: T1 qwen2-1.5b (batch 8, seq 1024, 4
      microbatches, remat, 6 steps), T2 gemma3-1b (batch 4, seq 2048, 2
      microbatches, 2 steps), random weights and ``batch_at`` data from the
@@ -112,14 +125,14 @@ result line):
      the restart check at the qwen2-1.5b smoke config: a run that fails at
      step 5 and resumes from its newest committed checkpoint ends with the
      parameters of an uninterrupted run;
- 11. the flash forward and backward at S1's, T1's microbatch and S2's
+ 12. the flash forward and backward at S1's, T1's microbatch and S2's
      shapes against their plain versions, their bounds and
      ``scaled_dot_product_attention`` (its backward alone on a retained
      graph).  Prints one ``kernels`` JSON line with all twelve kernels
      (a ``kernel_ms`` whose trace is incomplete is null, with
      ``kernel_ms_missing`` saying why); the join kernels' launches are
      the main path's (the stream deltas' are in the ``[stream]`` lines);
- 12. the last line: ``{"ok": true, "device": {...}}``.
+ 13. the last line: ``{"ok": true, "device": {...}}``.
 
 Join sizes are cut from the paper's (Fig 4: N = 2e8
 friends edges, a 1e9-row fact table) to N = 4e6 edges over 14,000 users
@@ -1152,7 +1165,7 @@ def main_path(torch, data):
 
 
 # --------------------------------------------------------------------------
-# phase 8: kernels at the main path's first-round layouts
+# phase 9: kernels at the main path's first-round layouts
 # --------------------------------------------------------------------------
 
 def time_ms(torch, fn, reps=5):
@@ -2323,7 +2336,242 @@ def stream_phase(torch, ops, errs, chain, chain_d, seed):
 
 
 # --------------------------------------------------------------------------
-# phase 9: the dense LM served at full width
+# phase 8: the mesh path
+# --------------------------------------------------------------------------
+
+# (case, main-path query, the single-card execute's strategy, extra
+# execute_sharded options); M4 keeps local buckets at their mean so that
+# the hot key overflows round 1 and recovery runs
+MESH_CASES = [("M1", "Q1", "3way", {}), ("M2", "Q2", "3way", {}),
+              ("M3", "Q3", "default", {}),
+              ("M4", "Q4", "3way", dict(local_slack=1.0, max_rounds=2))]
+MESH_REPS = 3
+MESH_TIMEOUT_S = 600
+# the one-shot wrappers' graph: B4's 1e5 edges over 350 users
+ONESHOT_N, ONESHOT_D = 100_000, 350
+
+
+def mesh_grid(world):
+    """The largest two-dimensional factorisation of the world: 1 x 1 on
+    one card, 2 x 2 on four."""
+    rows = max(r for r in range(1, world + 1)
+               if world % r == 0 and r * r <= world)
+    return rows, world // rows
+
+
+def mesh_queries(data, rel):
+    """Q1-Q4 of the main path over relations made by ``rel`` (whole on
+    one card, or this rank's stripes)."""
+    from repro_torch.core.query import Query
+    F, F4 = rel(data["F"]), rel(data["F4"])
+    lin = [("f1.dst", "f2.src"), ("f2.dst", "f3.src")]
+    return {"Q1": Query({"f1": F, "f2": F, "f3": F}, lin),
+            "Q2": Query({k: rel(v) for k, v in data["star"].items()},
+                        [("r.b", "s.b"), ("s.c", "t.c")]),
+            "Q3": Query({"f1": F, "f2": F, "f3": F},
+                        lin + [("f3.dst", "f1.src")]),
+            "Q4": Query({"f1": F4, "f2": F4, "f3": F4}, lin)}
+
+
+def local_dims(kind, p):
+    """The rank-local bucket grid no coarser than the single-card shape
+    plan ``p``: its coarse partitions folded into the local buckets."""
+    if kind == "linear":
+        return {"local_u": p.h_parts * p.u, "local_g": p.g_parts}
+    if kind == "cyclic":
+        return {"local_uh": p.h_parts * p.uh, "local_ug": p.g_parts * p.ug,
+                "local_f": p.f_parts}
+    return {"local_uh": p.uh, "local_ug": p.ug, "local_chunks": p.chunks}
+
+
+def oneshot_data(seed):
+    """The one-shot wrappers' relations under the column names they route
+    by: one graph of B4's size as R(a, b), S(b, c) and T(c, a) for the
+    triangles or T(c, d) for the chain; three such edge lists for the
+    star."""
+    rng = np.random.default_rng((seed, 2))
+
+    def edges(x, y):
+        return {c: rng.integers(0, ONESHOT_D, ONESHOT_N).astype(np.int32)
+                for c in (x, y)}
+
+    g = edges("a", "b")
+
+    def renamed(x, y):
+        return {x: g["a"], y: g["b"]}
+
+    return {"cyclic": (g, renamed("b", "c"), renamed("c", "a")),
+            "linear": (g, renamed("b", "c"), renamed("c", "d")),
+            "star": (edges("a", "b"), edges("b", "c"), edges("c", "d"))}
+
+
+def mesh_rank(rank, world, port, data, oneshot, specs):
+    """One rank of the mesh: NCCL over ``world`` cards, each case through
+    ``JoinSession.execute_sharded`` on this rank's stripes (one cold and
+    MESH_REPS timed runs), then the one-shot wrappers.  Returns the counts,
+    rounds and seconds every rank saw, and this rank's kernel launches."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.convert import relation_from_numpy
+    from repro_torch.core import distributed
+    from repro_torch.core.session import JoinSession
+    from repro_torch.kernels import cuda
+    torch.cuda.set_device(rank)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        rows, cols = mesh_grid(world)
+        mesh = distributed.make_mesh(rows, cols, timeout=MESH_TIMEOUT_S)
+
+        def place(cols_):
+            rel = distributed.pad_to_multiple(relation_from_numpy(cols_),
+                                              world)
+            return distributed.shard_relation(rel, mesh, "row", "col")
+
+        queries = mesh_queries(data, place)
+        sess = JoinSession(m_budget=M_BUDGET)
+        cuda.reset_launch_counts()
+        out = {"cases": {}, "oneshot": {}}
+        for label, (q, kw) in specs.items():
+            runs = []
+            for _ in range(MESH_REPS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = sess.execute_sharded(queries[q], mesh, "row", "col", **kw)
+                torch.cuda.synchronize()
+                runs.append((r, time.perf_counter() - t0))
+            res = runs[0][0]
+            if any((r.count, r.rounds) != (res.count, res.rounds)
+                   for r, _ in runs):
+                fail(f"{label}: a warm execute_sharded disagrees")
+            out["cases"][label] = {
+                "kind": res.kind, "count": int(res.count),
+                "rounds": res.rounds, "overflowed": bool(res.overflowed),
+                "cold_s": runs[0][1], "warm_s": [t for _, t in runs[1:]]}
+        for kind, tables in oneshot.items():
+            fn = getattr(distributed, f"{kind}3_count_sharded")(
+                mesh, "row", "col")
+            res = fn(*map(place, tables))
+            out["oneshot"][kind] = {"count": int(res.count),
+                                    "overflowed": bool(res.overflowed)}
+        torch.cuda.synchronize()
+        out["launches"] = dict(cuda.LAUNCHES)
+        out["mesh"] = [rows, cols]
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_worker(rank, world, port, seed, specs, out_path):
+    out = mesh_rank(rank, world, port, make_data(seed), oneshot_data(seed),
+                    specs)
+    if rank == 0:
+        pathlib.Path(out_path).write_text(json.dumps(out))
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_phase(torch, data, results, want, seed):
+    """M1-M4 through ``JoinSession.execute_sharded`` on a mesh of every
+    visible card (NCCL, one card a rank), each against the oracle and the
+    single-card ``execute`` of the same query, never overflowed; M4 must
+    recover (rounds >= 2).  Then the one-shot wrappers, exact against
+    their oracles.  The launch counters, zeroed before the sharded runs,
+    must show the three fused kernels."""
+    import tempfile
+
+    from repro_torch.convert import relation_from_numpy
+    from repro_torch.core.session import JoinSession
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    queries = mesh_queries(data, relation_from_numpy)
+    sess = JoinSession(m_budget=M_BUDGET)
+    specs, single = {}, {}
+    for label, q, strategy, extra in MESH_CASES:
+        kw = {} if strategy == "default" else {"strategy": strategy}
+        res, _ = timed_execute(torch, sess, queries[q], **kw)
+        warm = [timed_execute(torch, sess, queries[q], **kw)[1]
+                for _ in range(MESH_REPS)]
+        single[label] = {"count": int(res.count), "kind": res.kind,
+                         "warm_s": warm}
+        dims = local_dims(res.kind, results[q, strategy].plan.root.shape_plan)
+        specs[label] = (q, dict(dims, shuffle_slack=1.0 if world == 1
+                                else 3.0, **extra))
+    del queries
+    oneshot = oneshot_data(seed)
+    port = free_port()
+    if world == 1:
+        out = mesh_rank(0, 1, port, data, oneshot, specs)
+    else:
+        import torch.multiprocessing as mp
+        with tempfile.TemporaryDirectory() as tmp:
+            path = pathlib.Path(tmp) / "mesh.json"
+            mp.start_processes(_mesh_worker, nprocs=world,
+                               args=(world, port, seed, specs, str(path)),
+                               start_method="spawn")
+            out = json.loads(path.read_text())
+    rows = []
+    for label, q, _strategy, _extra in MESH_CASES:
+        got = out["cases"][label]
+        row = {"case": label, "query": q, "world": world,
+               "mesh": out["mesh"], "kind": got["kind"],
+               "count": got["count"], "oracle": want[q],
+               "single_count": single[label]["count"],
+               "rounds": got["rounds"], "overflowed": got["overflowed"],
+               "exec_s": statistics.median(got["warm_s"]),
+               "cold_s": got["cold_s"], "warm_s": got["warm_s"],
+               "single_exec_s": statistics.median(single[label]["warm_s"]),
+               "options": specs[label][1]}
+        log(f"[mesh] {json.dumps(row)}")
+        rows.append(row)
+        if got["overflowed"]:
+            fail(f"{label}: the mesh run overflowed")
+        if not got["count"] == want[q] == single[label]["count"]:
+            fail(f"{label}: mesh count {got['count']}, oracle {want[q]}, "
+                 f"single-card execute {single[label]['count']}")
+        if got["kind"] != single[label]["kind"]:
+            fail(f"{label}: the mesh bound {got['kind']}, the single card "
+                 f"{single[label]['kind']}")
+    if out["cases"]["M4"]["rounds"] < 2:
+        fail(f"M4: expected recovery rounds >= 2, got "
+             f"{out['cases']['M4']['rounds']}")
+    R, S, T = oneshot["cyclic"]
+    oracles = {"cyclic": trace3_oracle(torch, [(R["a"], R["b"]),
+                                              (S["b"], S["c"]),
+                                              (T["c"], T["a"])], ONESHOT_D),
+               "linear": linear3_oracle(*oneshot["linear"], ONESHOT_D),
+               "star": linear3_oracle(*oneshot["star"], ONESHOT_D)}
+    for kind, got in out["oneshot"].items():
+        row = {"case": f"{kind}3_count_sharded", "world": world,
+               "mesh": out["mesh"], "count": got["count"],
+               "oracle": oracles[kind], "overflowed": got["overflowed"]}
+        log(f"[mesh] {json.dumps(row)}")
+        rows.append(row)
+        if got["overflowed"] or got["count"] != oracles[kind]:
+            fail(f"{kind}3_count_sharded: {got} against oracle "
+                 f"{oracles[kind]}")
+    launches = out["launches"]
+    log(f"[mesh] kernel launches in the phase (rank 0): "
+        f"{json.dumps(launches)}")
+    for name in ("fused_count3_linear", "fused_count3_star",
+                 "fused_count3_cyclic_pairidx", "bucket_count3_linear"):
+        if launches[name] <= 0:
+            fail(f"{name} was never launched in the mesh phase")
+    log(f"[mesh] phase took {time.perf_counter() - t0:.1f}s")
+    return rows, launches
+
+
+# --------------------------------------------------------------------------
+# phase 10: the dense LM served at full width
 # --------------------------------------------------------------------------
 
 # (label, arch, batch, prompt length, generated tokens, requests)
@@ -2435,7 +2683,7 @@ def serve_phase(torch, seed):
 
 
 # --------------------------------------------------------------------------
-# phase 10: the dense LM trained at full width
+# phase 11: the dense LM trained at full width
 # --------------------------------------------------------------------------
 
 # (label, arch, batch, sequence length, steps): the configs' own
@@ -2815,6 +3063,7 @@ def main() -> int:
                                                     args.seed)
     st_rows = stream_phase(torch, ops, errs, data["chain"],
                            data["d"]["chain"], args.seed)
+    m_rows, m_launches = mesh_phase(torch, data, results, want, args.seed)
     del data
 
     lines = kernel_phase(torch, ops, errs, launches, results, queries)
@@ -2830,7 +3079,8 @@ def main() -> int:
                       + t_launches["flash_fwd"],
                       "flash_bwd": t_launches["flash_bwd"]}, args.seed)
     log(json.dumps({"queries": rows, "baselines": b_rows, "radix": r_rows,
-                    "stream": st_rows, "serve": s_rows, "train": t_rows, "grad_check": grad,
+                    "stream": st_rows, "mesh": m_rows,
+                    "mesh_launches": m_launches, "serve": s_rows, "train": t_rows, "grad_check": grad,
                     "restart": restart}))
     print(card, flush=True)
     print(json.dumps({"kernels": lines}), flush=True)

@@ -25,9 +25,10 @@ supported at N = 3, the triangle query) — and an exact answer:
 ``execute_many`` batches queries over the shared plan cache (structurally
 repeated queries plan once); ``watch`` registers a standing query whose
 count stays exact under ``Relation.append`` ingest
-(``core.streaming.StandingQuery``).  ``execute_sharded`` (the mesh path)
-belongs to a later slice of the port and raises ``NotImplementedError``
-for now.
+(``core.streaming.StandingQuery``).  ``execute_sharded`` runs a
+3-relation query on a device mesh (``core.distributed``): every rank
+holds its stripes, the collectives are NCCL on the card and gloo on the
+CPU.
 """
 
 from __future__ import annotations
@@ -307,8 +308,34 @@ class JoinSession:
                         max_rounds: int = 2,
                         classification: Classification | None = None,
                         **kw) -> QueryResult:
-        """The mesh path is not ported yet: ROADMAP Queue A, "the mesh
-        path"."""
-        raise NotImplementedError(
-            "JoinSession.execute_sharded is not ported yet (ROADMAP Queue "
-            "A: the mesh path)")
+        """The same declarative query on a device mesh: classify + bind,
+        re-key the relations to the canonical routing columns, and run the
+        cross-device recovery rounds of ``distributed.engine_count_sharded``
+        (``overflowed == False`` on the mesh too).  Every rank of the mesh
+        calls this with its stripes of the relations
+        (``distributed.shard_relation``); the classification reads the
+        cardinalities summed over the mesh, so every rank binds the same
+        kind.  3 relations only for now (N-way mesh plans are a ROADMAP
+        follow-up).
+        """
+        from repro_torch.core import distributed
+        t0 = time.perf_counter()
+        cls_ = classification
+        if cls_ is None:
+            cards = distributed.global_cardinalities(mesh, row, col,
+                                                     query.relations)
+            cls_ = query.classify(cards, star_fact_ratio=self.star_fact_ratio)
+        binding = query.bind(cls_)
+        r, s, t = binding.canonical()
+        plan_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        fn = distributed.engine_count_sharded(
+            mesh, row, col, binding.kind, max_rounds=max_rounds,
+            growth=self.growth, **kw)
+        res = fn(r, s, t)
+        exec_s = time.perf_counter() - t1
+        return QueryResult(
+            count=np.int64(int(res.count)),
+            overflowed=bool(res.overflowed), tuples_read=None,
+            rounds=int(res.rounds), kind=binding.kind, strategy="3way",
+            cache_hit=False, plan_s=plan_s, exec_s=exec_s)

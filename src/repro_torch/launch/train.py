@@ -132,8 +132,8 @@ def main(argv=None):
     for flag in ("production", "multi_pod", "overlap"):
         if getattr(args, flag):
             raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: the mesh path is not ported "
-                "yet (ROADMAP Queue A, \"the mesh path\"); the port trains "
+                f"--{flag.replace('_', '-')}: the LM's mesh is not ported "
+                "yet (ROADMAP Queue A, \"the LM's mesh\"); the port trains "
                 "on one card")
     device = resolve_device(None if args.device == "cuda" else args.device)
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)

@@ -57,6 +57,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.kernels.flash_attention, repro_torch.train\n"
         "import repro_torch.launch.serve, repro_torch.launch.train\n"
         "import repro_torch.launch.join_service, repro_torch.core.streaming\n"
+        "import repro_torch.core.distributed\n"
         "import repro_torch.optim.compression, repro_torch.data\n"
         "import repro_torch.checkpoint, repro_torch.runtime\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

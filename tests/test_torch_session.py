@@ -150,13 +150,6 @@ def test_exact_join_count_past_int32():
     assert got == want == n * n > 2**31
 
 
-def test_sharded_is_not_ported_yet():
-    _, tq = _build("linear")
-    sess = JoinSession(m_budget=M_BUDGET)
-    with pytest.raises(NotImplementedError, match="the mesh path"):
-        sess.execute_sharded(tq, None, "x", "y")
-
-
 def test_results_live_on_the_relations_device():
     _, tq = _build("linear")
     res = JoinSession(m_budget=M_BUDGET).execute(tq, per_r=True,

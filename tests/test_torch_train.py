@@ -431,7 +431,7 @@ def test_train_launcher_smoke(tmp_path):
 def test_train_launcher_refuses_the_mesh_flags():
     from repro_torch.launch.train import main as train_main
     for flag in ("--production", "--multi-pod", "--overlap"):
-        with pytest.raises(NotImplementedError, match="the mesh path"):
+        with pytest.raises(NotImplementedError, match="the LM's mesh"):
             train_main(["--smoke", "--device", "cpu", flag])
 
 
