@@ -103,7 +103,22 @@ result line):
      incomplete; null when every try was; ``sorts_and_masks`` names
      any sort or elementwise kernel among them, and must be empty for the
      pair count and the radix histogram);
-  10. serve — the dense LM served at full width through
+  10. analytics — A1: ``linear3.linear3_fm_distinct`` (the FM DISTINCT
+     sketch of Example 1, never materializing the join) at Q6's data as
+     R(a, b), S(b, c), T(c, d) under ``linear3.default_plan(n, n, n,
+     m_budget=16384)``, grown as the whole-query retry drivers grow it
+     while a bucket overflows (the tries printed), at 32 and 64
+     registers: each call's registers equal an oracle independent of the
+     FM path (the distinct (a, d) pairs as the non-zeros of a float64
+     A·A·A on the card, folded with ``sketches.add`` on the CPU), never
+     overflowed; first and warm seconds (median of 3), peak GiB
+     (``max_memory_allocated``, and above the phase's start, which must
+     stay under 16), the estimate and the exact distinct pairs.  E: each
+     ported example (``examples/*_torch.py``) at its defaults on the card
+     (``train_lm`` cut to 200 steps, its crash and resume kept), each
+     asserting its counts against its own oracles; one ``[example]``
+     line each with its seconds and printed lines;
+  11. serve — the dense LM served at full width through
      ``repro_torch.launch.serve``: S1 qwen2-1.5b (batch 8, prompt 1024,
      32 generated tokens, 16 requests), S2 gemma3-1b (batch 4, prompt 2048,
      16 tokens, 4 requests), random weights from the seed.  The flash
@@ -114,7 +129,7 @@ result line):
      the argmax of the served logits, and at every checked position the
      forward's logit for the served token must be within
      ``SERVE_TOL["max"]`` of the forward's largest logit;
- 11. train — the dense LM trained at full width through
+ 12. train — the dense LM trained at full width through
      ``repro_torch.launch.train``: T1 qwen2-1.5b (batch 8, seq 1024, 4
      microbatches, remat, 6 steps), T2 gemma3-1b (batch 4, seq 2048, 2
      microbatches, 2 steps), random weights and ``batch_at`` data from the
@@ -125,14 +140,14 @@ result line):
      the restart check at the qwen2-1.5b smoke config: a run that fails at
      step 5 and resumes from its newest committed checkpoint ends with the
      parameters of an uninterrupted run;
- 12. the flash forward and backward at S1's, T1's microbatch and S2's
+ 13. the flash forward and backward at S1's, T1's microbatch and S2's
      shapes against their plain versions, their bounds and
      ``scaled_dot_product_attention`` (its backward alone on a retained
      graph).  Prints one ``kernels`` JSON line with all twelve kernels
      (a ``kernel_ms`` whose trace is incomplete is null, with
      ``kernel_ms_missing`` saying why); the join kernels' launches are
      the main path's (the stream deltas' are in the ``[stream]`` lines);
- 13. the last line: ``{"ok": true, "device": {...}}``.
+ 14. the last line: ``{"ok": true, "device": {...}}``.
 
 Join sizes are cut from the paper's (Fig 4: N = 2e8
 friends edges, a 1e9-row fact table) to N = 4e6 edges over 14,000 users
@@ -2571,7 +2586,172 @@ def mesh_phase(torch, data, results, want, seed):
 
 
 # --------------------------------------------------------------------------
-# phase 10: the dense LM served at full width
+# phase 10: analytics — the FM DISTINCT sketch at Q6's data, the examples
+# --------------------------------------------------------------------------
+
+FM_REGISTERS = (32, 64)
+FM_WARM = 3
+FM_MAX_RETRIES = 4
+FM_PEAK_GIB = 16.0
+# the FM pair key's mixing seeds for a and d (the reference's
+# ``kernels/ref.py`` ``fm_registers``)
+FM_SEED_A, FM_SEED_D = 0x1B873593, 0xE6546B64
+# (example, arguments): the defaults, training cut to 200 steps (its crash
+# at step 100 resumes from the checkpoint of step 100)
+EXAMPLES = [("quickstart", []), ("analytics_3way", []), ("nway_star", []),
+            ("streaming_counts", []), ("train_lm", ["--steps", "200"])]
+
+
+def fm_oracle(torch, F, d, n_registers):
+    """FM registers of the distinct (a, d) pairs of R ⋈ S ⋈ T with R, S, T
+    all the edge list F (F.dst = F.src twice), independent of the FM path:
+    the pairs are the non-zeros of a float64 A·A·A on the card (A the
+    d x d edge-count matrix; a sum of non-negative integers is zero only
+    where no path is), their keys folded with ``sketches.add`` on the
+    CPU.  Returns (registers, distinct pairs)."""
+    from repro_torch.core import hashing, sketches
+    a = torch.zeros((d, d), dtype=torch.float64, device="cuda")
+    src = torch.as_tensor(F["src"], device="cuda").long()
+    dst = torch.as_tensor(F["dst"], device="cuda").long()
+    a.index_put_((src, dst), torch.ones_like(src, dtype=torch.float64),
+                 accumulate=True)
+    ai, di = torch.nonzero((a @ a @ a) > 0, as_tuple=True)
+    keys = (hashing.mix32(ai, FM_SEED_A) ^ hashing.mix32(di, FM_SEED_D)).cpu()
+    del a, ai, di
+    torch.cuda.empty_cache()
+    regs = sketches.add(sketches.empty(n_registers), keys,
+                        torch.ones_like(keys, dtype=torch.bool))
+    return regs, int(keys.numel())
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fm_relations(F):
+    """A1's R(a, b), S(b, c), T(c, d): the edge list F three times, on
+    the card."""
+    from repro_torch.core.relation import Relation
+    return (Relation.from_arrays(a=F["src"], b=F["dst"]),
+            Relation.from_arrays(b=F["src"], c=F["dst"]),
+            Relation.from_arrays(c=F["src"], d=F["dst"]))
+
+
+def fm_plan(torch, rels):
+    """``default_plan(n, n, n, m_budget=M_BUDGET)`` grown x2, as the
+    whole-query retry drivers grow it, while a bucket overflows.  Returns
+    the plan and the tries (plan, overflowed, seconds; the first is the
+    process's first FM call)."""
+    from repro_torch.core import linear3, recovery
+    n = rels[0].capacity          # every row live
+    plan0 = plan = linear3.default_plan(n, n, n, m_budget=M_BUDGET)
+    tries = []
+    for _ in range(FM_MAX_RETRIES + 1):
+        (_, ovf), sec = _timed(torch, lambda: linear3.linear3_fm_distinct(
+            *rels, plan, n_registers=FM_REGISTERS[0]))
+        tries.append({"plan": list(plan), "overflowed": bool(ovf), "s": sec})
+        if not bool(ovf):
+            return plan, tries
+        plan = recovery.grown(plan, 2.0)
+    fail(f"A1: overflow persisted from {plan0} to {plan}")
+
+
+def fm_phase(torch, F, d):
+    """A1: ``linear3_fm_distinct`` on the card at Q6's data as R(a, b),
+    S(b, c), T(c, d) under ``fm_plan``'s plan, at 32 and 64 registers:
+    equal to ``fm_oracle``, never overflowed, its peak above the phase's
+    start under ``FM_PEAK_GIB``."""
+    from repro_torch.core import linear3, sketches
+    rels = fm_relations(F)
+    t0 = time.perf_counter()
+    want, exact = fm_oracle(torch, F, d, max(FM_REGISTERS))
+    oracle_s = time.perf_counter() - t0
+
+    def run(plan, k):
+        return _timed(torch, lambda: linear3.linear3_fm_distinct(
+            *rels, plan, n_registers=k))
+
+    plan, tries = fm_plan(torch, rels)
+    log(f"[analytics] A1 plans tried (the first call is the process's "
+        f"first FM call): {json.dumps(tries)}")
+    rows = []
+    for k in FM_REGISTERS:
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(1 + FM_WARM):
+            (regs, ovf), sec = run(plan, k)
+            times.append(sec)
+            if bool(ovf):
+                fail(f"A1 K={k}: overflowed at {plan}")
+            if not torch.equal(regs.cpu(), want[:k]):
+                fail(f"A1 K={k}: registers differ from the oracle's")
+        peak = torch.cuda.max_memory_allocated()
+        row = {"run": f"A1 K={k}", "registers": k, "first_s": times[0],
+               "warm_s": statistics.median(times[1:]), "warm_all_s": times[1:],
+               "peak_gib": peak / 2**30,
+               "peak_above_start_gib": (peak - base) / 2**30,
+               "estimate": sketches.fm_estimate(regs),
+               "exact_distinct_pairs": exact, "exact": True,
+               "plan": list(plan), "retries": len(tries) - 1,
+               "default_plan_overflowed": tries[0]["overflowed"],
+               "oracle_s": oracle_s}
+        log(f"[analytics] {json.dumps(row)}")
+        if row["peak_above_start_gib"] >= FM_PEAK_GIB:
+            fail(f"A1 K={k}: peak {row['peak_above_start_gib']:.2f} GiB "
+                 f"above the phase's start (limit {FM_PEAK_GIB})")
+        rows.append(row)
+    return rows
+
+
+def examples_phase(torch):
+    """E: each ported example (``examples/*_torch.py``) on the card at its
+    defaults, in this process; each asserts its counts against its own
+    oracles, and a failure raises.  One ``[example]`` line each: seconds
+    and the lines it printed (the host-clock straggler lines left out)."""
+    import contextlib
+    import importlib.util
+    import io
+    import shutil
+    rows = []
+    ckpt = ROOT / ".smoke_ckpt"
+    for name, args in EXAMPLES:
+        path = ROOT / "examples" / f"{name}_torch.py"
+        spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        extra = ["--ckpt-dir", str(ckpt)] if name == "train_lm" else []
+        out = io.StringIO()
+        shutil.rmtree(ckpt, ignore_errors=True)
+        try:
+            with contextlib.redirect_stdout(out):
+                _, sec = _timed(torch, lambda: mod.main([*args, *extra]))
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        lines = [ln for ln in out.getvalue().splitlines()
+                 if ln.strip() and not ln.startswith("[ft] straggler")]
+        row = {"example": f"{name}_torch.py", "args": args, "s": sec,
+               "lines": lines}
+        log(f"[example] {json.dumps(row)}")
+        rows.append({k: v for k, v in row.items() if k != "lines"})
+    return rows
+
+
+def analytics_phase(torch, F, d):
+    t0 = time.perf_counter()
+    rows = fm_phase(torch, F, d)
+    rows += examples_phase(torch)
+    log(f"[analytics] phase took {time.perf_counter() - t0:.1f}s")
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 11: the dense LM served at full width
 # --------------------------------------------------------------------------
 
 # (label, arch, batch, prompt length, generated tokens, requests)
@@ -2683,7 +2863,7 @@ def serve_phase(torch, seed):
 
 
 # --------------------------------------------------------------------------
-# phase 11: the dense LM trained at full width
+# phase 12: the dense LM trained at full width
 # --------------------------------------------------------------------------
 
 # (label, arch, batch, sequence length, steps): the configs' own
@@ -3064,12 +3244,16 @@ def main() -> int:
     st_rows = stream_phase(torch, ops, errs, data["chain"],
                            data["d"]["chain"], args.seed)
     m_rows, m_launches = mesh_phase(torch, data, results, want, args.seed)
+    f6, d6 = data["F6"], data["d"]["F6"]
     del data
 
     lines = kernel_phase(torch, ops, errs, launches, results, queries)
     lines += baseline_kernel_phase(torch, ops, errs, b_launches, b_layouts)
     lines += radix_kernel_phase(torch, ops, errs, r_launches, keys, valid)
     del results, queries, b_layouts, keys, valid
+    torch.cuda.empty_cache()
+    a_rows = analytics_phase(torch, f6, d6)
+    del f6
     torch.cuda.empty_cache()
     s_rows, s_launches = serve_phase(torch, args.seed)
     t_rows, t_launches, grad = train_phase(torch, args.seed)
@@ -3080,7 +3264,8 @@ def main() -> int:
                       "flash_bwd": t_launches["flash_bwd"]}, args.seed)
     log(json.dumps({"queries": rows, "baselines": b_rows, "radix": r_rows,
                     "stream": st_rows, "mesh": m_rows,
-                    "mesh_launches": m_launches, "serve": s_rows, "train": t_rows, "grad_check": grad,
+                    "mesh_launches": m_launches, "analytics": a_rows,
+                    "serve": s_rows, "train": t_rows, "grad_check": grad,
                     "restart": restart}))
     print(card, flush=True)
     print(json.dumps({"kernels": lines}), flush=True)

@@ -22,6 +22,8 @@ Public API:
   linear3_count / linear3_per_r_counts, cyclic3_count, star3_count
                            — the bucket-row scan baselines (``reference``
                              adds their whole-query retry drivers)
+  linear3_fm_distinct      — FM-sketch DISTINCT (a, d) over the linear
+                             3-way join (Example 1), never materialized
   cascaded_binary_count / bucketed_join_count / join_count
                            — the binary baselines and the sorted-path
                              pair count
@@ -38,7 +40,7 @@ from repro_torch.core.engine import (  # noqa: F401
     EngineResult, MultiwayJoinEngine, PerRResult, cyclic3_count_fused,
     linear3_count_fused, star3_count_fused)
 from repro_torch.core.linear3 import (  # noqa: F401
-    Linear3Plan, linear3_count, linear3_per_r_counts)
+    Linear3Plan, linear3_count, linear3_fm_distinct, linear3_per_r_counts)
 from repro_torch.core.linear3 import default_plan as linear3_default_plan  # noqa: F401
 from repro_torch.core.plan_ir import PlanStep, QueryPlan, StepStats  # noqa: F401
 from repro_torch.core.query import (  # noqa: F401

@@ -120,3 +120,80 @@ def linear3_per_r_counts(r: Relation, s: Relation, t: Relation,
     overflow = rg.overflowed | sg.overflowed | tg.overflowed
     key = key_col if key_col in rg.columns else rb
     return rg.columns[key], counts, rg.valid, overflow
+
+
+# Largest dense operand of the FM existence product, in f32 cells: the
+# product runs over the compacted key domains of the surviving rows while
+# [nb, nc] and [nc, nd] fit it (R's [na, nb] is taken a slice of rows at a
+# time); past it the chunked sparse join runs (``ops.fm_join_registers``).
+_DENSE_CELLS = 1 << 26
+
+
+def _fm_dense(ra, rb, sb, sc, tc, td, n_registers: int):
+    """``[1, K]`` registers of the distinct (a, d) pairs of R ⋈ S ⋈ T as
+    ``((A_R A_S > 0) A_T) > 0`` over compacted key ids: 0/1 f32 operands,
+    f32 sums exact while the inner dimensions stay under 2^24.  None when
+    the key domains are past ``_DENSE_CELLS``."""
+    dev = ra.device
+    ub, ib = torch.unique(torch.cat([rb, sb]), return_inverse=True)
+    uc, ic = torch.unique(torch.cat([sc, tc]), return_inverse=True)
+    ud, idd = torch.unique(td, return_inverse=True)
+    nb, nc, nd = ub.numel(), uc.numel(), ud.numel()
+    if (max(nb * nc, nc * nd) > _DENSE_CELLS
+            or max(nb, nc) >= kops.EXACT_F32_MAX):
+        return None
+    ua, ia = torch.unique(ra, return_inverse=True)
+    ib_r, ib_s = ib[:rb.numel()], ib[rb.numel():]
+    ic_s, ic_t = ic[:sc.numel()], ic[sc.numel():]
+
+    def adjacency(rows, cols, shape):
+        m = torch.zeros(shape, dtype=torch.float32, device=dev)
+        m[rows, cols] = 1.0
+        return m
+
+    a_s = adjacency(ib_s, ic_s, (nb, nc))
+    a_t = adjacency(ic_t, idd, (nc, nd))
+    regs = torch.zeros((1, n_registers), dtype=torch.int32, device=dev)
+    step = max(1, _DENSE_CELLS // max(nb, nc, nd))
+    for a0 in range(0, ua.numel(), step):
+        a1 = min(a0 + step, ua.numel())
+        sel = (ia >= a0) & (ia < a1)
+        a_r = adjacency(ia[sel] - a0, ib_r[sel], (a1 - a0, nb))
+        reach = (a_r @ a_s > 0).to(torch.float32)
+        ai, di = torch.nonzero(reach @ a_t > 0, as_tuple=True)
+        regs = kops.fm_fold(regs, kops.fm_pair_keys(ua[a0 + ai], ud[di]))
+    return regs
+
+
+def linear3_fm_distinct(r: Relation, s: Relation, t: Relation,
+                        plan: Linear3Plan, *, n_registers: int = 32,
+                        rb: str = "b", sb: str = "b", sc: str = "c",
+                        tc: str = "c", ra_col: str = "a",
+                        td_col: str = "d"):
+    """Flajolet–Martin registers of |distinct (a, d)| over the join output
+    (Example 1's aggregation), never materializing the join.
+
+    Returns ``(registers [n_registers] int32, overflowed)``, equal to the
+    reference's OR over every (H, g) step and h bucket of the Fig 2
+    layout.  The layout routes each joining triple to exactly one step and
+    bucket (R by (H(b), h(b)), S by (H(b), g(c), h(b)), T by g(c) to every
+    bucket), so that OR is the sketch of the distinct (a, d) pairs of
+    R' ⋈ S' ⋈ T', R', S' and T' the rows the layout keeps in valid slots
+    (an overflowing bucket drops the same rows as the reference's).
+    Combine across shards with elementwise OR; estimate via
+    ``sketches.fm_estimate``."""
+    rg, sg, tg = layouts(r, s, t, plan, rb=rb, sb=sb, sc=sc, tc=tc)
+
+    def live(g, *cols):
+        return tuple(g.columns[c][g.valid] for c in cols)
+
+    ra, rbk = live(rg, ra_col, rb)
+    sbk, sck = live(sg, sb, sc)
+    tck, td = live(tg, tc, td_col)
+    overflow = rg.overflowed | sg.overflowed | tg.overflowed
+    regs = _fm_dense(ra, rbk, sbk, sck, tck, td, n_registers)
+    if regs is None:     # every row in bucket 0
+        regs = kops.fm_join_registers(
+            (torch.zeros_like(ra), ra, rbk), (torch.zeros_like(sbk), sbk, sck),
+            (torch.zeros_like(tck), tck, td), n_registers=n_registers)
+    return regs[0], overflow

@@ -9,10 +9,13 @@ Estimate = 2^(mean_k R_k) / φ with R_k = index of the lowest ZERO bit of
 bitmap k and φ ≈ 0.77351 (Flajolet–Martin 1985).
 
 Registers are int32 bitmaps, bit-identical to the JAX package's.  The
-estimate is the reference's float32 value: the mean of 32 register
-indexes is k/32 for an integer k, so it is read from the table of the
-1,025 float32 estimates the reference computes (``_fm_table``).  The
-planner's estimates, and with them the plans, depend on both.
+estimate is the reference's float32 value: the mean of K register indexes,
+K a power of two up to 64, is k/64 for an integer k, so it is read from
+the table of the 2,049 float32 estimates the reference computes
+(``_fm_table``).  Other register counts raise: the reference's XLA exp2
+and torch's differ in the last bit for some means, and no caller uses
+such a count.  The planner's estimates, and with them the plans, depend
+on both.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from repro_torch.core._fm_table import FM_ESTIMATE_BITS
 
 PHI = 0.77351
 N_REGISTERS = 32
+# register counts whose mean index the table holds exactly (k / 64)
+FM_REGISTER_COUNTS = (1, 2, 4, 8, 16, 32, 64)
 _FM_ESTIMATES = struct.unpack(f"<{len(FM_ESTIMATE_BITS)}f",
                               struct.pack(f"<{len(FM_ESTIMATE_BITS)}I",
                                           *FM_ESTIMATE_BITS))
@@ -43,9 +48,9 @@ def card_bucket(n: int, *, per_octave: int = 1) -> int:
     return int(round(math.log2(n) * per_octave))
 
 
-def empty(*, device=None) -> torch.Tensor:
+def empty(n_registers: int = N_REGISTERS, *, device=None) -> torch.Tensor:
     """Zeroed register bitmaps, one int32 per register."""
-    return torch.zeros((N_REGISTERS,), dtype=torch.int32, device=device)
+    return torch.zeros((n_registers,), dtype=torch.int32, device=device)
 
 
 def _to_int32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -53,24 +58,42 @@ def _to_int32_bits(x: torch.Tensor) -> torch.Tensor:
     return (x - ((x >> 31) & 1) * (1 << 32)).to(torch.int32)
 
 
+def bit_index(keys: torch.Tensor, reg: int) -> torch.Tensor:
+    """``min(ρ(hash_reg(key)) - 1, 31)``, the bit a key sets in register
+    ``reg`` (int64)."""
+    rho = hashing.hash_trailing_zeros(keys, reg)   # in [1, 33]
+    return torch.clamp(rho.to(torch.int64) - 1, max=31)
+
+
+def key_bits(keys: torch.Tensor, reg: int) -> torch.Tensor:
+    """The bitmap contribution ``1 << (ρ(hash_reg(key)) - 1)`` per key, as
+    the int32 with those bits."""
+    return _to_int32_bits(torch.ones_like(keys, dtype=torch.int64)
+                          << bit_index(keys, reg))
+
+
+def or_bits(slots: torch.Tensor, n_words: int) -> torch.Tensor:
+    """``[n_words]`` int32: word i is the OR of ``1 << (s % 32)`` over the
+    slots s with ``s // 32 == i``; slots at or past ``32 * n_words`` are
+    left out.  torch has no OR-reduction, so each word is rebuilt from
+    which of its 32 bits are present (a ``bincount`` over the slots)."""
+    nb = 32 * n_words
+    present = torch.bincount(slots, minlength=nb + 1)[:nb] > 0
+    weights = torch.ones(32, dtype=torch.int64, device=slots.device)
+    weights = weights << torch.arange(32, device=slots.device)
+    words = (present.view(n_words, 32).to(torch.int64) * weights).sum(1)
+    return _to_int32_bits(words)
+
+
 def add(registers: torch.Tensor, keys: torch.Tensor,
         valid: torch.Tensor) -> torch.Tensor:
-    """Fold a batch of keys into the sketch.
-
-    Register k is the OR of ``1 << min(ρ_k(key) - 1, 31)`` over the live
-    keys; torch has no OR-reduction, so the register is rebuilt from which
-    of its 32 bits are present (a ``bincount`` over the bit positions)."""
-    weights = torch.ones(32, dtype=torch.int64, device=keys.device)
-    weights = weights << torch.arange(32, device=keys.device)
+    """Fold a batch of keys into the sketch: register k ORs in
+    ``key_bits(key, k)`` of every live key."""
     regs = []
     for i in range(registers.shape[0]):
-        rho = hashing.hash_trailing_zeros(keys, i)
-        bit = torch.clamp(rho.to(torch.int64) - 1, max=31)
-        bit = torch.where(valid, bit, torch.full_like(bit, 32))
-        present = torch.bincount(bit, minlength=33)[:32] > 0
-        regs.append((present.to(torch.int64) * weights).sum())
-    new = _to_int32_bits(torch.stack(regs).to(registers.device))
-    return registers | new
+        bit = bit_index(keys, i)
+        regs.append(or_bits(torch.where(valid, bit, 32).reshape(-1), 1))
+    return registers | torch.cat(regs).to(registers.device)
 
 
 def _lowest_zero_index(x: torch.Tensor) -> torch.Tensor:
@@ -82,9 +105,13 @@ def _lowest_zero_index(x: torch.Tensor) -> torch.Tensor:
 
 
 def fm_estimate(registers: torch.Tensor) -> float:
-    """Distinct-count estimate ``2^mean(R) / PHI`` from the 32 register
-    bitmaps, as the reference's float32 value."""
-    if registers.shape != (N_REGISTERS,):
-        raise ValueError(f"expected {N_REGISTERS} registers, got "
-                         f"{tuple(registers.shape)}")
-    return _FM_ESTIMATES[int(_lowest_zero_index(registers).sum())]
+    """Distinct-count estimate ``2^mean(R) / PHI`` from register bitmaps,
+    the mean over all of them (a ``[B, K]`` array averages its B * K
+    registers, as the reference does), as the reference's float32 value."""
+    n = registers.numel()
+    if n not in FM_REGISTER_COUNTS:
+        raise ValueError(
+            f"fm_estimate takes {', '.join(map(str, FM_REGISTER_COUNTS))} "
+            f"registers, got {n} (shape {tuple(registers.shape)})")
+    total = int(_lowest_zero_index(registers).sum())
+    return _FM_ESTIMATES[total * (64 // n)]

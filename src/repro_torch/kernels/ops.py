@@ -532,3 +532,120 @@ def radix_histogram(keys, valid, *, n_buckets: int):
         from repro_torch.kernels import cuda
         return cuda.radix_histogram(keys, valid, n_buckets=n_buckets)
     return _radix_histogram_ref(keys, valid, n_buckets)
+
+
+# --------------------------------------------------------------------------
+# FM sketch registers over the implicit 3-way join (Example 1's DISTINCT)
+# --------------------------------------------------------------------------
+
+# Largest number of index pairs a chunk of the FM join expands at once;
+# bounds its memory at any shape and skew.
+FM_CHUNK = 1 << 24
+
+# The pair key's mixing seeds for a and d (``ref.fm_registers``).
+_FM_SEED_A, _FM_SEED_D = 0x1B873593, 0xE6546B64
+
+
+def fm_pair_keys(a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """The avalanche-mixed key of each (a, d) pair, int64 in [0, 2^32):
+    the bits of the reference's int32 ``mix32(a) ^ mix32(d)``."""
+    from repro_torch.core import hashing
+    return hashing.mix32(a, _FM_SEED_A) ^ hashing.mix32(d, _FM_SEED_D)
+
+
+def fm_fold(registers: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """``registers [B, K]`` int32 with every ``(bucket << 32) | pair`` key
+    folded in: register k of a bucket ORs ``key_bits(pair, k)``."""
+    from repro_torch.core import sketches
+    n_buckets, n_registers = registers.shape
+    base = (keys >> 32) * (32 * n_registers)
+    words = registers.reshape(-1)
+    for k in range(n_registers):
+        slots = base + 32 * k + sketches.bit_index(keys & 0xFFFFFFFF, k)
+        words = words | sketches.or_bits(slots, n_buckets * n_registers)
+    return words.view(n_buckets, n_registers)
+
+
+def _join_pairs(lkey: torch.Tensor, rkey: torch.Tensor):
+    """Every index pair (i, j) with ``lkey[i] == rkey[j]``, at most
+    ``FM_CHUNK`` pairs at a time: the sorted path's searchsorted ranges,
+    expanded a slice of the output at a time."""
+    order = torch.argsort(rkey)
+    srt = rkey[order]
+    lo = torch.searchsorted(srt, lkey, side="left")
+    cnt = torch.searchsorted(srt, lkey, side="right") - lo
+    ends = torch.cumsum(cnt, 0)
+    total = int(ends[-1]) if ends.numel() else 0
+    for start in range(0, total, FM_CHUNK):
+        pos = torch.arange(start, min(start + FM_CHUNK, total),
+                           device=lkey.device)
+        i = torch.searchsorted(ends, pos, side="right")
+        yield i, order[lo[i] + pos - (ends[i] - cnt[i])]
+
+
+def _distinct(acc, x: torch.Tensor) -> torch.Tensor:
+    return torch.unique(x if acc is None else torch.cat([acc, x]))
+
+
+def fm_join_registers(r, s, t, *, n_buckets: int = 1,
+                      n_registers: int = 32) -> torch.Tensor:
+    """FM registers of the distinct (a, d) pairs of R ⋈ S ⋈ T, each row
+    joined only within its bucket, ``[n_buckets, n_registers]`` int32.
+
+    ``r = (bucket, a, b)``, ``s = (bucket, b, c)``, ``t = (bucket, c, d)``
+    are 1-D int tensors, one entry a row.  The join never forms an
+    existence tensor: R ⋈ S on (bucket, b) is expanded in chunks and
+    reduced to its distinct (bucket, c, a); those are joined with T on
+    (bucket, c) in chunks and reduced to the distinct (bucket, pair key),
+    which are folded into the registers once each."""
+    (rq, ra, rb), (sq, sb, sc), (tq, tc, td) = r, s, t
+    from repro_torch.core import hashing
+
+    def key(q, x):   # (bucket, key) as one int64
+        return (q.to(torch.int64) << 32) | hashing._as_u32(x)
+
+    registers = torch.zeros((n_buckets, n_registers), dtype=torch.int32,
+                            device=ra.device)
+    ckeys, s_cid = torch.unique(key(sq, sc), return_inverse=True)
+    ua, r_aid = torch.unique(ra, return_inverse=True)
+    na = max(ua.numel(), 1)
+    ca = None
+    for i, j in _join_pairs(key(rq, rb), key(sq, sb)):
+        ca = _distinct(ca, s_cid[j] * na + r_aid[i])
+    if ca is None:
+        return registers
+    a_of = ua[ca % na]
+    pairs = None
+    for i, j in _join_pairs(ckeys[ca // na], key(tq, tc)):
+        pk = ((tq[j].to(torch.int64) << 32)
+              | fm_pair_keys(a_of[i], td[j]))
+        pairs = _distinct(pairs, pk)
+    if pairs is None:
+        return registers
+    return fm_fold(registers, pairs)
+
+
+def fm_registers(ra, rv, rb, sb, sc, sv, tc, td, tv, *,
+                 n_registers: int = 32):
+    """FM sketch registers over the implicit joined (a, d) pairs of each
+    bucket, ``[B, K]`` int32: register k of bucket i ORs
+    ``key_bits(pair(a, d), k)`` over every (r, t) slot pair of bucket i
+    joined through some s slot (s.b = r.b, s.c = t.c).  Operands are
+    ``[B, C]`` bucket rows (size-1 or expanded batch rows are read as
+    given); invalid slots take their side's sentinel, as the reference's
+    do.  Plain torch on every device (the reference computes it outside
+    any Pallas kernel), through ``fm_join_registers``: no ``[Cr, Ct]``
+    tensor is formed for any bucket."""
+    n_buckets = max(ra.shape[0], sb.shape[0], tc.shape[0])
+
+    def rows(*cols):
+        cols = [c.expand(n_buckets, c.shape[-1]) for c in cols]
+        q = torch.arange(n_buckets, device=cols[0].device)
+        return (q[:, None].expand_as(cols[0]).reshape(-1),
+                *(c.reshape(-1) for c in cols))
+
+    r = rows(_mask(ra, rv, "r"), _mask(rb, rv, "r"))
+    s = rows(_mask(sb, sv, "s"), _mask(sc, sv, "s"))
+    t = rows(_mask(tc, tv, "t"), _mask(td, tv, "t"))
+    return fm_join_registers(r, s, t, n_buckets=n_buckets,
+                             n_registers=n_registers)

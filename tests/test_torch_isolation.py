@@ -1,9 +1,10 @@
 """The port stands alone: no JAX and nothing of the JAX package.
 
-A static scan of every file under ``src/repro_torch/`` and of
-``chip_smoke.py`` for imports of ``jax`` or ``repro``; a subprocess that
-imports the whole port and finds no ``jax`` module loaded; and the
-no-silent-CPU rule of the entry points.
+A static scan of every file under ``src/repro_torch/``, of
+``chip_smoke.py``, the ported examples (``examples/*_torch.py``) and
+``tools/check_port_invariants.py`` for imports of ``jax`` or ``repro``; a
+subprocess that imports the whole port and finds no ``jax`` module loaded;
+and the no-silent-CPU rule of the entry points.
 """
 
 import ast
@@ -34,7 +35,9 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 
 
 def _port_files():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "examples").glob("*_torch.py"))
+             + [ROOT / "tools" / "check_port_invariants.py"])
     assert len(files) > 20
     return files
 
@@ -60,6 +63,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.core.distributed\n"
         "import repro_torch.optim.compression, repro_torch.data\n"
         "import repro_torch.checkpoint, repro_torch.runtime\n"
+        "import repro_torch.data.relations\n"
+        "import repro_torch.analysis.lint_invariants\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"

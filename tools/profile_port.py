@@ -2,7 +2,8 @@
 """Where the time of a warm ``JoinSession.execute``, of serving, or of a
 training step goes, on the card.
 
-    python3 tools/profile_port.py [--seed N] [--serve | --train | --stream]
+    python3 tools/profile_port.py [--seed N] [--serve | --train | --stream
+                                   | --fm]
 
 Default: builds the smoke's Q1 (linear), Q2 (star) and Q3 (triangles)
 data (``chip_smoke.make_data``), runs each query once to warm the plan
@@ -17,7 +18,10 @@ With ``--stream``: the smoke's standing queries W1 (a triangle over
 three 4e6-row edge relations) and W2 (Q5's chain, ``strategy="3way"``),
 each registered with ``JoinSession.watch`` and warmed by the smoke's
 warm-up deltas, then one more delta traced (the ``append`` that runs the
-delta plan).
+delta plan).  With ``--fm``: the smoke's A1 (``linear3_fm_distinct`` at
+Q6's data under ``chip_smoke.fm_plan``'s plan), one warm-up call, then
+one traced call at 32 and one at 64 registers, with the layouts
+(``linear3.layouts``) and the register fold (``ops.fm_fold``) marked.
 Prints, per traced span: the host wall
 time, the summed device kernel time, the device busy share (kernel time
 over wall time; kernels on one stream do not overlap), the kernel
@@ -155,22 +159,26 @@ SKETCH_MARK = "Relation.append: FM sketch update"
 
 
 @contextlib.contextmanager
-def sketch_update_marked():
-    """Mark every ``sketches.add`` call (``Relation.append`` updates each
-    cached sketch with it) as a profiler range."""
+def calls_marked(module, name, mark):
+    """Mark every call of ``module.name`` as a profiler range."""
     from torch.profiler import record_function
-
-    from repro_torch.core import sketches
-    add = sketches.add
+    fn = getattr(module, name)
 
     def marked(*a, **kw):
-        with record_function(SKETCH_MARK):
-            return add(*a, **kw)
-    sketches.add = marked
+        with record_function(mark):
+            return fn(*a, **kw)
+    setattr(module, name, marked)
     try:
         yield
     finally:
-        sketches.add = add
+        setattr(module, name, fn)
+
+
+def sketch_update_marked():
+    """Mark every ``sketches.add`` call (``Relation.append`` updates each
+    cached sketch with it) as a profiler range."""
+    from repro_torch.core import sketches
+    return calls_marked(sketches, "add", SKETCH_MARK)
 
 
 def ops_under(prof, mark):
@@ -227,6 +235,23 @@ def profile_stream(torch, chip_smoke, seed, top):
         torch.cuda.empty_cache()
 
 
+FM_MARKS = ("linear3.layouts", "ops.fm_fold")
+
+
+def profile_fm(torch, chip_smoke, seed, top):
+    from repro_torch.core import linear3
+    from repro_torch.kernels import ops
+    rels = chip_smoke.fm_relations(chip_smoke.make_data(seed)["F6"])
+    plan, _ = chip_smoke.fm_plan(torch, rels)
+    for k in chip_smoke.FM_REGISTERS:
+        with calls_marked(linear3, "layouts", FM_MARKS[0]), \
+                calls_marked(ops, "fm_fold", FM_MARKS[1]):
+            _, row = traced(torch, lambda k=k: linear3.linear3_fm_distinct(
+                *rels, plan, n_registers=k), top, marks=FM_MARKS)
+        print(json.dumps({"fm": f"A1 K={k}", "plan": list(plan), **row}),
+              flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -237,6 +262,8 @@ def main() -> int:
                     help="profile a training step instead of the joins")
     ap.add_argument("--stream", action="store_true",
                     help="profile a standing query's delta instead")
+    ap.add_argument("--fm", action="store_true",
+                    help="profile the FM DISTINCT sketch (A1) instead")
     args = ap.parse_args()
     import torch
 
@@ -251,6 +278,9 @@ def main() -> int:
         return 0
     if args.stream:
         profile_stream(torch, chip_smoke, args.seed, args.top)
+        return 0
+    if args.fm:
+        profile_fm(torch, chip_smoke, args.seed, args.top)
         return 0
     from repro_torch.convert import relation_from_numpy
     from repro_torch.core.query import Query
