@@ -29,7 +29,8 @@ result line):
      the cluster path among them, unaligned views, one hot bucket, dead
      streams, negative keys), the flash forward within
      ``FLASH_TOL`` (the flash kernel tests' cases, ragged S, D = 128 and
-     256, bf16 and f32, strided views), the flash backward within
+     256, bf16 and f32, strided views, the VLM's cross-attention at S =
+     1024 and S = 1 over T = 1601), the flash backward within
      ``FLASH_BWD_TOL`` against its plain version and against autograd of
      the plain forward (``FLASH_BWD_CASES``);
   4. main path — six queries through ``JoinSession(m_budget=16384)
@@ -118,25 +119,40 @@ result line):
      (``train_lm`` cut to 200 steps, its crash and resume kept), each
      asserting its counts against its own oracles; one ``[example]``
      line each with its seconds and printed lines;
-  11. serve — the dense LM served at full width through
+  11. serve — the LM served at full width through
      ``repro_torch.launch.serve``: S1 qwen2-1.5b (batch 8, prompt 1024,
      32 generated tokens, 16 requests), S2 gemma3-1b (batch 4, prompt 2048,
-     16 tokens, 4 requests), random weights from the seed.  The flash
-     counter is zeroed before each and must equal layers x (waves + 1)
-     after the serving and the check: the teacher-forced ``forward`` of
-     two rows over prompt + generated tokens must match the served
-     prefill/decode logits within ``SERVE_TOL``, the served tokens must be
-     the argmax of the served logits, and at every checked position the
-     forward's logit for the served token must be within
-     ``SERVE_TOL["max"]`` of the forward's largest logit;
- 12. train — the dense LM trained at full width through
+     16 tokens, 4 requests), S3 qwen3-moe-30b-a3b cut to 24 of its 48
+     layers (as S1's traffic), S4 llama-3.2-vision-11b whole (batch 4,
+     prompt 1024, 16 tokens, 8 requests, each wave's memory [4, 1601,
+     4096]), random weights from the seed; each run's model freed after
+     it.  The flash counter is zeroed before each and must equal (self +
+     cross layers) x (prefills + checking forwards) + cross layers x
+     decode steps after the serving and the checks: the teacher-forced
+     ``forward`` of two rows over prompt + generated tokens (S4's with
+     the wave's memory) must match the served prefill/decode logits
+     within ``SERVE_TOL``, the served tokens must be the argmax of the
+     served logits, and at every checked position the forward's logit for
+     the served token must be within ``SERVE_TOL["max"]`` of the forward's
+     largest logit.  S3 (``moe_serve_checks``): the last wave's prefill
+     logits against ``forward`` over its 8 prompts, no decode step
+     dropping an assignment, and the teacher-forced check of two rows
+     served with nothing able to drop (``capacity_factor`` = E / k); the
+     dropped shares and the expert-weight casts' ms a decode step
+     printed;
+ 12. train — the LM trained at full width through
      ``repro_torch.launch.train``: T1 qwen2-1.5b (batch 8, seq 1024, 4
      microbatches, remat, 6 steps), T2 gemma3-1b (batch 4, seq 2048, 2
-     microbatches, 2 steps), random weights and ``batch_at`` data from the
-     seed.  The flash counters are zeroed before each and read after every
-     step: layers x microbatches x 2 forward launches (remat) and layers x
-     microbatches backward launches a step; losses and gradient norms
-     finite.  Then the gradient check on T1's model (``GRAD_TOL``), and
+     microbatches, 2 steps), T3 qwen3-moe-30b-a3b cut to 4 layers with
+     ``scan_group`` 2 (batch 8 x 1024, 4 microbatches, 3 steps), T4
+     llama-3.2-vision-11b cut to 5 layers, one cross group (batch 4 x
+     1024 and ``batch_at``'s f32 memory, 4 microbatches, 2 steps), random
+     weights and ``batch_at`` data from the seed.  The flash counters are
+     zeroed before each and read after every step: ``train_flash_passes``
+     x microbatches a step (remat and the groups' recomputes derived
+     there); losses, gradient norms and the MoE's aux loss finite, T3's
+     dropped share printed.  Then the gradient check on T1's model
+     (``GRAD_TOL``), and
      the restart check at the qwen2-1.5b smoke config: a run that fails at
      step 5 and resumes from its newest committed checkpoint ends with the
      parameters of an uninterrupted run;
@@ -154,7 +170,9 @@ friends edges, a 1e9-row fact table) to N = 4e6 edges over 14,000 users
 (the paper's N/d of about 286) and a 2e7-row fact table: the layout grows
 as N^2 / m_budget^2.  The LM widths are the published configs'; only the
 traffic (requests, prompt and generation lengths; training batch,
-sequence length and steps) is chosen here.
+sequence length and steps) is chosen here, and depth is cut only where
+80 GB forces it (S3, T3, T4; each row prints its layers beside the
+config's).
 """
 
 from __future__ import annotations
@@ -739,7 +757,8 @@ def radix_cases(torch, ops, gen):
 
 # (B, S, T, H, KVH, D, causal, window, dtype): the six CASES of
 # tests/test_flash_kernel.py, then S not a multiple of the 64-row tile,
-# D = 128 and 256 (qwen2's and gemma3's heads), D = 8, one row, S != T
+# D = 128 and 256 (qwen2's and gemma3's heads), D = 8, one row, S != T,
+# the VLM's cross-attention shapes and the MoE's and VLM's self-attention
 FLASH_CASES = [
     (1, 128, 128, 4, 4, 32, True, 0, "float32"),
     (2, 128, 128, 4, 2, 32, True, 0, "float32"),
@@ -768,6 +787,16 @@ FLASH_CASES = [
     (1, 300, 300, 4, 2, 128, True, 100, "bfloat16"),
     (1, 200, 200, 8, 1, 256, True, 0, "bfloat16"),
     (1, 200, 70, 4, 2, 64, True, 30, "bfloat16"),
+    # the VLM's cross-attention (S4, T4): text over 1,601 image tokens,
+    # no mask, GQA 4:1 at D = 128, in bf16 (serving) and f32 (training
+    # over batch_at's f32 memory); one decode query over the same memory
+    (1, 1024, 1601, 32, 8, 128, False, 0, "bfloat16"),
+    (1, 1024, 1601, 32, 8, 128, False, 0, "float32"),
+    (4, 1, 1601, 32, 8, 128, False, 0, "bfloat16"),
+    # the self-attention of S3/T3 (qwen3-moe: GQA 8:1, T3's microbatch of
+    # 2 x 1,024) and of S4/T4 (llama-3.2-vision: GQA 4:1), causal, D = 128
+    (2, 1024, 1024, 32, 4, 128, True, 0, "bfloat16"),
+    (1, 1024, 1024, 32, 8, 128, True, 0, "bfloat16"),
 ]
 # Tolerance (atol, rtol) of the flash forward against its plain versions
 # (inputs ~N(0, 1)), |got - want| <= atol + rtol |want| on o, by case name
@@ -807,7 +836,8 @@ def _flash_inputs(torch, gen, b, s, t, nq, nkv, d, dtype, strided=False):
 # causal and bidirectional, windows 0, 64 and 512, g = 1, 2, 4, 6 and MQA,
 # D = 8 to 256, S not a multiple of the 64-row tile, S != T, rows with no
 # visible key (S > T + window), one row; strided q/k/v views of a fused
-# projection with do a transposed [B, H, S, D] view
+# projection with do a transposed [B, H, S, D] view; the VLM's
+# cross-attention shapes and the MoE's and VLM's self-attention (g = 8)
 FLASH_BWD_CASES = [
     (1, 128, 128, 4, 4, 32, True, 0, "float32", False),
     (2, 128, 128, 4, 2, 32, True, 0, "float32", False),
@@ -839,6 +869,14 @@ FLASH_BWD_CASES = [
     (1, 300, 300, 4, 2, 128, True, 100, "bfloat16", True),
     (1, 200, 200, 8, 1, 256, True, 0, "bfloat16", False),
     (1, 200, 70, 4, 2, 64, True, 30, "bfloat16", False),
+    # the VLM's cross-attention, as in FLASH_CASES: T4 runs the f32 one
+    (1, 1024, 1601, 32, 8, 128, False, 0, "bfloat16", False),
+    (1, 1024, 1601, 32, 8, 128, False, 0, "float32", False),
+    (2, 1, 1601, 32, 8, 128, False, 0, "float32", False),
+    # the self-attention of T3 (GQA 8:1: eight dk/dv partials summed a kv
+    # head) and of T4 (GQA 4:1), as in FLASH_CASES
+    (2, 1024, 1024, 32, 4, 128, True, 0, "bfloat16", False),
+    (1, 1024, 1024, 32, 8, 128, True, 0, "bfloat16", False),
 ]
 # Tolerance (a, rtol) of the flash backward's dq, dk, dv (inputs and do
 # ~N(0, 1)): |got - want| <= a max(max|want|, 1) + rtol |want| per tensor,
@@ -2751,12 +2789,17 @@ def analytics_phase(torch, F, d):
 
 
 # --------------------------------------------------------------------------
-# phase 11: the dense LM served at full width
+# phase 11: the LM served at full width
 # --------------------------------------------------------------------------
 
-# (label, arch, batch, prompt length, generated tokens, requests)
-SERVE = [("S1", "qwen2-1.5b", 8, 1024, 32, 16),
-         ("S2", "gemma3-1b", 4, 2048, 16, 4)]
+# (label, arch, batch, prompt length, generated tokens, requests, layers
+# kept (None: the config's)).  S3 keeps 24 of qwen3-moe's 48 layers: its
+# f32 masters are 2.49 GB a layer (122 GB at 48); S4 is whole (40 self +
+# 8 cross layers, 10.1e9 parameters, 40 GB)
+SERVE = [("S1", "qwen2-1.5b", 8, 1024, 32, 16, None),
+         ("S2", "gemma3-1b", 4, 2048, 16, 4, None),
+         ("S3", "qwen3-moe-30b-a3b", 8, 1024, 32, 16, 24),
+         ("S4", "llama-3.2-vision-11b", 4, 1024, 16, 8, None)]
 CHECK_ROWS = 2
 # Teacher-forced check, bf16 compute: the served logits (prefill through
 # the flash kernel, decode through the plain einsum path over the cache)
@@ -2764,19 +2807,25 @@ CHECK_ROWS = 2
 # other GEMM shapes and so other bf16 roundings, which grow over the
 # layers.  Logits are ~N(0, 1) at init.  Stated before the first run:
 # max |diff| <= 0.5 over every compared logit and mean |diff| <= 0.06.
+# S4's forward takes the wave's f32 memory, its serving the cache's bf16
+# copy; S3's checks are in ``moe_serve_checks``.
 SERVE_TOL = {"max": 0.5, "mean": 0.06}
 
 
 def teacher_forced_check(torch, model, params, wave, prompt_len, gen, label):
-    """``forward`` over prompt + generated tokens of CHECK_ROWS rows
-    against the logits the serving loop produced at the same positions."""
+    """``forward`` over prompt + generated tokens of CHECK_ROWS rows (and
+    the wave's memory, for the VLM) against the logits the serving loop
+    produced at the same positions."""
     rows = CHECK_ROWS
     seq = np.concatenate([wave["prompts"][:rows], wave["tokens"][:rows, :gen]],
                          axis=1)
+    memory = (None if wave["memory"] is None
+              else torch.from_numpy(wave["memory"][:rows]).cuda())
     with torch.no_grad():
-        full, _ = model.forward(params, torch.from_numpy(seq).cuda())
+        full, _ = model.forward(params, torch.from_numpy(seq).cuda(),
+                                memory=memory)
     ref = full[:, prompt_len - 1:prompt_len + gen]         # [rows, gen+1, V]
-    served = wave["logits"]
+    served = wave["logits"][:rows]
     if ref.shape != served.shape:
         fail(f"{label}: forward logits {tuple(ref.shape)} against served "
              f"{tuple(served.shape)}")
@@ -2807,19 +2856,145 @@ def teacher_forced_check(torch, model, params, wave, prompt_len, gen, label):
     return out
 
 
+@contextlib.contextmanager
+def moe_recorded(capacity_factor=None):
+    """Swap ``models.moe.moe_mlp_auto`` (which the blocks look up at call
+    time) for one that records (tokens, dropped) of every call, at
+    ``capacity_factor`` when given; restored on exit."""
+    from repro_torch.models import moe
+    calls, auto = [], moe.moe_mlp_auto
+
+    def recorded(x, p, cfg):
+        out, aux = (auto(x, p, cfg) if capacity_factor is None
+                    else moe.moe_mlp(x, p, cfg, capacity_factor))
+        calls.append((x.shape[0] * x.shape[1], aux["dropped"]))
+        return out, aux
+
+    moe.moe_mlp_auto = recorded
+    try:
+        yield calls
+    finally:
+        moe.moe_mlp_auto = auto
+
+
+def _shares(torch, calls, n_layers, top_k):
+    """The dropped share of each call, each pass's mean over its n_layers
+    calls (a pass: one prefill, forward or decode step), and the calls
+    that dropped an assignment (a share of at least half of one of the
+    call's tokens x top_k assignments: with nothing dropped the share is
+    1 - (n k)·f32(1/(n k)), 0 or a rounding error)."""
+    got = torch.stack([d for _, d in calls]).cpu().tolist()
+    dropping = [i for i, ((n, _), d) in enumerate(zip(calls, got))
+                if d * n * top_k >= 0.5]
+    return got, [statistics.fmean(got[i:i + n_layers])
+                 for i in range(0, len(got), n_layers)], dropping
+
+
+def weight_cast_ms(torch, params, n_layers):
+    """Device ms of one decode step's f32 -> bf16 expert-weight casts
+    (the three stacked tensors of every MoE layer, as ``moe_mlp`` casts
+    them on each call), from one layer's casts timed with CUDA events,
+    and their bytes (f32 read, bf16 written)."""
+    blk = params.blocks[0].moe
+    ws = (blk.gate, blk.up, blk.down)
+
+    def casts():
+        return [w.to(torch.bfloat16) for w in ws]
+    ms = time_ms(torch, casts)
+    nb = sum(w.numel() for w in ws) * 6 * n_layers
+    return {"cast_ms_per_decode_step": ms * n_layers,
+            "cast_bytes_per_decode_step": nb,
+            "cast_bound_ms_per_decode_step": nb / HBM_BYTES_PER_S * 1e3}
+
+
+def moe_serve_checks(torch, model, params, cfg, waves, calls, prompt, gen,
+                     label, seed):
+    """S3's checks, stated before its first run.  (a) The last wave's
+    prefill logits against ``forward`` over the same 8 prompts (the same
+    dispatch: 8 x 1024 tokens, capacity 640) within SERVE_TOL.  (b) No
+    decode step dropped an assignment (capacity max(8, ...) >= 8 tokens,
+    each token's experts distinct) and every served token is the argmax
+    of its served logits.  (c) With ``capacity_factor`` = E / k (capacity
+    = tokens: nothing can drop) two rows served and ``forward`` over
+    prompt + generated tokens agree as in ``teacher_forced_check``.  The
+    default capacity's dropped share of every prefill and of (a)'s
+    forward is printed, not limited."""
+    from repro_torch.launch import serve
+    n_layers, batch = cfg.n_layers, waves[-1]["tokens"].shape[0]
+    wave = waves[-1]
+    toks = torch.from_numpy(wave["tokens"]).cuda().long()
+    if not torch.equal(wave["logits"].argmax(-1), toks):
+        fail(f"{label}: the served tokens are not the argmax of the served "
+             "logits")
+    before = len(calls)
+    with torch.no_grad():
+        full, _ = model.forward(params,
+                                torch.from_numpy(wave["prompts"]).cuda())
+    ref = full[:, prompt - 1]
+    del full
+    diff = (ref - wave["logits"][:, 0]).abs()
+    check = {"prefill_vs_forward_max_abs_diff": float(diff.max()),
+             "prefill_vs_forward_mean_abs_diff": float(diff.mean()),
+             "prefill_vs_forward_rows": batch}
+    del ref, diff
+    shares, per_pass, dropping = _shares(torch, calls, n_layers, cfg.top_k)
+    prefill_idx = [w * (1 + gen) for w in range(len(waves))]
+    decode = [i for i in range(before // n_layers) if i not in prefill_idx]
+    decode_dropping = [i for i in dropping
+                       if i < before and i // n_layers in decode]
+    check.update({
+        "dropped_share_prefills": [per_pass[i] for i in prefill_idx],
+        "dropped_share_prefill_layers": [
+            shares[i * n_layers:(i + 1) * n_layers] for i in prefill_idx],
+        "dropped_share_forward": per_pass[before // n_layers],
+        "decode_steps_checked": len(decode),
+        "decode_dropped_max": max(shares[i * n_layers + j] for i in decode
+                                  for j in range(n_layers)),
+        "decode_calls_that_dropped": len(decode_dropping)})
+    if (check["prefill_vs_forward_max_abs_diff"] > SERVE_TOL["max"]
+            or check["prefill_vs_forward_mean_abs_diff"] > SERVE_TOL["mean"]
+            or len(decode) != gen * len(waves) or decode_dropping):
+        fail(f"{label}: MoE serving checks (a)/(b) failed: "
+             f"{json.dumps(check)}")
+    factor = cfg.n_experts / cfg.top_k
+    with moe_recorded(factor) as nodrop:
+        two = serve.serve(model, params, batch=CHECK_ROWS, prompt_len=prompt,
+                          gen=gen, requests=CHECK_ROWS, seed=seed + 1,
+                          device="cuda", keep_rows=CHECK_ROWS,
+                          log=lambda m: log(f"[serve] {label} (c) {m}"))
+        tf = teacher_forced_check(torch, model, params, two[-1], prompt, gen,
+                                  label + " (c)")
+    got, _, dropping = _shares(torch, nodrop, n_layers, cfg.top_k)
+    if dropping:
+        fail(f"{label}: capacity_factor {factor} dropped assignments in "
+             f"{len(dropping)} calls")
+    check.update({"check_c_capacity_factor": factor,
+                  "check_c_dropped_max": max(got),
+                  **{f"check_c_{k}": v for k, v in tf.items()}})
+    return check
+
+
 def serve_phase(torch, seed):
-    """S1 and S2 through ``repro_torch.launch.serve.serve`` at the configs'
-    full widths.  The flash counter is zeroed just before each and read
-    after its teacher-forced check: every prefill and the check's forward
-    run each attention layer once through the kernel."""
+    """S1-S4 through ``repro_torch.launch.serve.serve`` at the configs'
+    full widths (S3 cut to 24 layers).  The flash counter is zeroed just
+    before each run and read after its checks: every prefill and every
+    checking forward run each self and cross layer once through the
+    kernel, and each decode step each cross layer (S4) once."""
+    import dataclasses
+
     from repro_torch import configs
     from repro_torch.kernels import cuda
     from repro_torch.launch import serve
-    from repro_torch.models import zoo
+    from repro_torch.models import transformer, zoo
     rows, flash_launches = [], 0
-    for label, arch, batch, prompt, gen, requests in SERVE:
+    for label, arch, batch, prompt, gen, requests, layers in SERVE:
         cfg = configs.get(arch)
+        full_layers = cfg.n_layers
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
         model = zoo.build(cfg)
+        n_cross = transformer.n_cross_layers(cfg)
+        torch.cuda.empty_cache()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params = model.init(torch.Generator(device="cuda").manual_seed(seed))
@@ -2827,28 +3002,41 @@ def serve_phase(torch, seed):
         init_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
         cuda.reset_launch_counts()
-        waves = serve.serve(model, params, batch=batch, prompt_len=prompt,
-                            gen=gen, requests=requests, seed=seed,
-                            device="cuda", keep_rows=CHECK_ROWS,
-                            log=lambda m, label=label: log(f"[serve] {label}"
-                                                           f" {m}"))
-        served = cuda.LAUNCHES["flash_fwd"]
-        check = teacher_forced_check(torch, model, params, waves[-1], prompt,
-                                     gen, label)
+        keep = batch if cfg.is_moe else CHECK_ROWS
+        with (moe_recorded() if cfg.is_moe
+              else contextlib.nullcontext([])) as calls:
+            waves = serve.serve(model, params, batch=batch, prompt_len=prompt,
+                                gen=gen, requests=requests, seed=seed,
+                                device="cuda", keep_rows=keep,
+                                log=lambda m, label=label: log(
+                                    f"[serve] {label} {m}"))
+            served = cuda.LAUNCHES["flash_fwd"]
+            if cfg.is_moe:
+                check = moe_serve_checks(torch, model, params, cfg, waves,
+                                         calls, prompt, gen, label, seed)
+                check.update(weight_cast_ms(torch, params, cfg.n_layers))
+                passes, steps = len(waves) + 3, gen * (len(waves) + 1)
+            else:
+                check = teacher_forced_check(torch, model, params, waves[-1],
+                                             prompt, gen, label)
+                passes, steps = len(waves) + 1, gen * len(waves)
         launches = cuda.LAUNCHES["flash_fwd"]
-        want = cfg.n_layers * (len(waves) + 1)
+        want = (cfg.n_layers + n_cross) * passes + n_cross * steps
         if launches != want:
             fail(f"{label}: flash_fwd launched {launches} times, expected "
-                 f"{cfg.n_layers} layers x ({len(waves)} prefills + 1 "
-                 "forward)")
+                 f"{want}: ({cfg.n_layers} self + {n_cross} cross layers) x "
+                 f"{passes} prefills and forwards + {n_cross} cross layers "
+                 f"x {steps} decode steps")
         flash_launches += launches
         pre = [w["prefill_s"] for w in waves]
         dec = [w["decode_s"] for w in waves]
         row = {"serve": label, "arch": arch,
                "params": sum(p.numel() for p in params.parameters()),
-               "layers": cfg.n_layers, "batch": batch, "prompt_len": prompt,
-               "gen": gen, "requests": requests, "waves": len(waves),
-               "init_s": init_s, "prefill_s": pre, "decode_s": dec,
+               "layers": cfg.n_layers, "cross_layers": n_cross,
+               "config_layers": full_layers, "batch": batch,
+               "prompt_len": prompt, "gen": gen, "requests": requests,
+               "waves": len(waves), "init_s": init_s, "prefill_s": pre,
+               "decode_s": dec,
                "prefill_tok_s": [batch * prompt / t for t in pre],
                "decode_tok_s": [batch * gen / t for t in dec],
                "flash_launches": launches,
@@ -2857,19 +3045,26 @@ def serve_phase(torch, seed):
                **check}
         log(f"[serve] {json.dumps(row)}")
         rows.append(row)
-        del params, waves, model
+        del params, waves, model, calls
         torch.cuda.empty_cache()
     return rows, {"flash_fwd": flash_launches}
 
 
 # --------------------------------------------------------------------------
-# phase 12: the dense LM trained at full width
+# phase 12: the LM trained at full width
 # --------------------------------------------------------------------------
 
-# (label, arch, batch, sequence length, steps): the configs' own
-# accum_steps (4 and 2) and remat (on)
-TRAIN = [("T1", "qwen2-1.5b", 8, 1024, 6),
-         ("T2", "gemma3-1b", 4, 2048, 2)]
+# (label, arch, batch, sequence length, steps, config overrides): the
+# configs' own accum_steps (4, 2, 4, 4) and remat (on).  Depth is cut
+# where 80 GB forces it (f32 masters, gradients and two AdamW moments, 16
+# B a parameter): T3 keeps 4 of qwen3-moe's 48 layers (~50 GB) with
+# scan_group 2 (its own 8 needs >= 16 layers, ~160 GB); T4 keeps 5 of
+# llama-3.2-vision's 40, one cross group (~35 GB)
+TRAIN = [("T1", "qwen2-1.5b", 8, 1024, 6, {}),
+         ("T2", "gemma3-1b", 4, 2048, 2, {}),
+         ("T3", "qwen3-moe-30b-a3b", 8, 1024, 3,
+          {"n_layers": 4, "scan_group": 2}),
+         ("T4", "llama-3.2-vision-11b", 4, 1024, 2, {"n_layers": 5})]
 GRAD_SEQ = 1024
 # The gradient check, stated before the first run: T1's model on one
 # 1 x 1024 microbatch, bf16 compute, the loss and every parameter's
@@ -2880,6 +3075,28 @@ GRAD_SEQ = 1024
 # worst on the CPU at 8 layers) and a relative loss difference <= 1e-3.
 GRAD_TOL = {"rel_l2": 5e-2, "loss_rel": 1e-3}
 RESTART_STEPS, RESTART_FAIL_AT = 8, 5
+
+
+def train_flash_passes(cfg):
+    """The flash forward and backward launches of one microbatch's
+    forward and backward under ``cfg``: each self and cross block runs
+    the forward once and the backward once; remat runs every block's
+    forward again in its backward.  With ``scan_group`` gk (the dense and
+    MoE stacks) a group's outer checkpoint recomputes the group in the
+    backward, and torch's non-reentrant checkpoint stops that recompute
+    once every tensor the group saved is back: under remat the group
+    saved only its blocks' inputs, so the recompute ends at the last
+    block's input (gk - 1 forwards) and each block then runs once more in
+    its own backward; without remat the recompute runs all gk (the JAX
+    package runs 3 forwards a block under remat and groups, the port
+    3 - 1/gk)."""
+    n, remat, gk = cfg.n_layers, cfg.remat, cfg.scan_group
+    n_cross = n // cfg.cross_attn_every if cfg.cross_attn_every else 0
+    if not n_cross and gk and n % gk == 0 and gk < n:
+        fwd = n + (n // gk) * (2 * gk - 1 if remat else gk)
+    else:
+        fwd = (n + n_cross) * (2 if remat else 1)
+    return {"flash_fwd": fwd, "flash_bwd": n + n_cross}
 
 
 def grad_check(torch, model, params, cfg, seed):
@@ -2936,24 +3153,27 @@ def grad_check(torch, model, params, cfg, seed):
 
 
 def train_phase(torch, seed):
-    """T1 and T2 through ``repro_torch.launch.train.train`` at the configs'
-    full widths, random weights from the seed, the launcher's ``batch_at``
-    data.  The flash counters are zeroed just before each run and read
-    after every step: each step must launch the forward twice (remat) and
-    the backward once per layer and microbatch.  Then the gradient check
-    on T1's model."""
+    """T1-T4 through ``repro_torch.launch.train.train`` at the configs'
+    full widths (T3, T4 cut in depth), random weights from the seed, the
+    launcher's ``batch_at`` data (T4's with its f32 memory).  The flash
+    counters are zeroed just before each run and read after every step:
+    each step must launch ``train_flash_passes`` x microbatches.  Losses,
+    gradient norms and the MoE's aux loss must be finite.  Then the
+    gradient check on T1's model."""
+    import dataclasses
+
     from repro_torch import configs
     from repro_torch.kernels import cuda
     from repro_torch.launch import train
     from repro_torch.models import zoo
     rows, totals, check = [], {"flash_fwd": 0, "flash_bwd": 0}, None
-    for label, arch, batch, seq, steps in TRAIN:
-        cfg = configs.get(arch)
+    for label, arch, batch, seq, steps, over in TRAIN:
+        full_layers = configs.get(arch).n_layers
+        cfg = dataclasses.replace(configs.get(arch), **over)
         model = zoo.build(cfg)
         accum = cfg.accum_steps
-        per_step = {"flash_fwd": cfg.n_layers * accum * (2 if cfg.remat
-                                                         else 1),
-                    "flash_bwd": cfg.n_layers * accum}
+        per_step = {k: v * accum
+                    for k, v in train_flash_passes(cfg).items()}
         snaps = []
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2972,25 +3192,28 @@ def train_phase(torch, seed):
                for a, b in zip([dict.fromkeys(per_step, 0)] + snaps, snaps)]
         if got != [per_step] * steps:
             fail(f"{label}: flash launches per step {got}, expected "
-                 f"{per_step} ({cfg.n_layers} layers x {accum} microbatches"
-                 ", the forward twice under remat)")
+                 f"{per_step} ({train_flash_passes(cfg)} a microbatch x "
+                 f"{accum} microbatches)")
         recs = out["records"]
+        finite = ("loss", "grad_norm") + (("aux_loss", "dropped")
+                                          if cfg.is_moe else ())
         if len(recs) != steps or not all(
-                math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
-                for r in recs):
+                k in r and math.isfinite(r[k]) for r in recs for k in finite):
             fail(f"{label}: {len(recs)} steps, non-finite metrics: {recs}")
         step_s = [r["step_s"] for r in recs]
         warm = statistics.median(step_s[1:]) if steps > 1 else step_s[0]
         params = out["state"].params
         row = {"train": label, "arch": arch,
                "params": sum(p.numel() for p in params.parameters()),
-               "layers": cfg.n_layers, "batch": batch, "seq": seq,
+               "layers": cfg.n_layers, "config_layers": full_layers,
+               "scan_group": cfg.scan_group, "batch": batch, "seq": seq,
                "accum_steps": accum, "remat": cfg.remat, "steps": steps,
                "wall_s": wall, "step_s": step_s, "warm_step_s": warm,
                "tokens_per_s": batch * seq / warm, "peak_gib": peak,
-               "loss": [r["loss"] for r in recs],
-               "grad_norm": [r["grad_norm"] for r in recs],
-               "lr": [r["lr"] for r in recs],
+               **{k: [r[k] for r in recs] for k in ("loss", "grad_norm",
+                                                   "lr", "aux_loss",
+                                                   "dropped")
+                  if k in recs[0]},
                "flash_launches_per_step": per_step,
                "flash_launches": launches}
         log(f"[train] {json.dumps(row)}")

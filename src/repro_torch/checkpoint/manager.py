@@ -105,11 +105,12 @@ def _template_shapes(template) -> dict:
     if not _is_train_state(template):
         return {k: tuple(v.shape) for k, v in _flatten(template).items()}
     from repro_torch import convert
-    n_layers = template.params.cfg.n_layers
+    cfg = template.params.cfg
     shapes = {}
     for (path, layer), p in zip(convert.leaf_paths(template.params),
                                 template.params.parameters()):
-        shape = ((n_layers, *p.shape) if layer >= 0 else tuple(p.shape))
+        shape = ((convert.stack_length(cfg, path), *p.shape) if layer >= 0
+                 else tuple(p.shape))
         for top in ("params", "opt/m", "opt/v"):
             shapes[f"{top}{_SEP}{path}"] = shape
     shapes.update({"opt/step": (), "step": ()})

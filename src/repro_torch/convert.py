@@ -5,7 +5,8 @@ build the port's relations from numpy arrays (and back), so the tests and
 the smoke run feed both packages the same data.  The state of a language
 model is its parameter tree and its KV cache: ``lm_params_from_numpy``
 turns the JAX package's ``init_lm`` tree (numpy leaves, stacked ``[L, ...]``
-per layer) into a ``TransformerLM`` and ``lm_params_to_numpy`` back;
+per layer; dense, MoE and VLM) into a ``TransformerLM`` and
+``lm_params_to_numpy`` back;
 ``cache_from_numpy`` carries a KV cache across.  The state of training is
 the JAX package's ``TrainState(params, opt={"m", "v", "step"}, step)``:
 ``train_state_to_numpy`` gives it as nested dicts with numpy leaves (the
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.relation import Relation, as_int32, resolve_device
-from repro_torch.models import attention, layers, transformer
+from repro_torch.models import attention, layers, moe, transformer
 from repro_torch.models.config import ModelConfig
 
 
@@ -81,7 +82,9 @@ def _tensor(x, device: torch.device) -> torch.Tensor:
 def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
                          device=None) -> transformer.TransformerLM:
     """The port's ``TransformerLM`` from the JAX package's ``init_lm``
-    parameter tree with numpy leaves; ``device=None`` means the card."""
+    parameter tree with numpy leaves (dense or MoE blocks under
+    ``layers``, the VLM's cross blocks under ``cross_layers``);
+    ``device=None`` means the card."""
     dev = resolve_device(device)
     lay = tree["layers"]
     n_layers = np.asarray(lay["ln_attn"]["scale"]).shape[0]
@@ -98,54 +101,90 @@ def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
     def norm(d, i):
         return layers.RMSNorm(t(d["scale"][i]))
 
-    blocks = []
-    for i in range(n_layers):
-        a = lay["attn"]
+    def glu(d, i):
+        return layers.GLUMLP(*(lin(d[n], i) for n in ("gate", "up", "down")))
+
+    def attn(a, i):
         qk = ((norm(a["q_norm"], i), norm(a["k_norm"], i))
               if "q_norm" in a else ())
-        attn = attention.Attention(*(lin(a[n], i) for n in
+        return attention.Attention(*(lin(a[n], i) for n in
                                      ("wq", "wk", "wv", "wo")), *qk)
-        mlp = layers.GLUMLP(*(lin(lay["mlp"][n], i)
-                              for n in ("gate", "up", "down")))
-        blocks.append(transformer.Block(norm(lay["ln_attn"], i), attn,
-                                        norm(lay["ln_mlp"], i), mlp))
+
+    def ffn(i):
+        if "moe" not in lay:
+            return {"mlp": glu(lay["mlp"], i)}
+        m = lay["moe"]
+        return {"moe": moe.MoE(lin(m["router"], i), t(m["gate"][i]),
+                               t(m["up"][i]), t(m["down"][i]),
+                               glu(m["shared"], i) if "shared" in m
+                               else None)}
+
+    blocks = [transformer.Block(norm(lay["ln_attn"], i),
+                                attn(lay["attn"], i),
+                                norm(lay["ln_mlp"], i), **ffn(i))
+              for i in range(n_layers)]
+    cross = tree.get("cross_layers", {})
+    n_cross = (np.asarray(cross["ln"]["scale"]).shape[0] if cross else 0)
+    if n_cross != transformer.n_cross_layers(cfg):
+        raise ValueError(f"the tree has {n_cross} cross layers, {cfg.name} "
+                         f"has {transformer.n_cross_layers(cfg)}")
+    cross_blocks = [transformer.CrossBlock(norm(cross["ln"], j),
+                                           attn(cross["xattn"], j))
+                    for j in range(n_cross)]
     head = (layers.Embed(t(tree["lm_head"]["table"])) if "lm_head" in tree
             else None)
     return transformer.TransformerLM(
         cfg, layers.Embed(t(tree["embed"]["table"])), blocks,
-        layers.RMSNorm(t(tree["final_norm"]["scale"])), head)
+        layers.RMSNorm(t(tree["final_norm"]["scale"])), head, cross_blocks)
 
 
 def lm_params_to_numpy(params: transformer.TransformerLM) -> dict:
     """The JAX package's parameter tree (numpy f32 leaves, per-layer
-    leaves stacked ``[L, ...]`` under ``"layers"``) of a TransformerLM."""
+    leaves stacked ``[L, ...]`` under ``"layers"`` and the cross blocks'
+    under ``"cross_layers"``) of a TransformerLM."""
     return _tree_of(leaf_paths(params), params.parameters())
 
 
 def cache_from_numpy(cache: Mapping, device=None) -> dict:
-    """A KV cache ``{"k", "v": [L, B, T, KVH, D], "length"}`` with numpy
-    leaves (bfloat16 too) as the port's cache, dtypes kept."""
+    """A KV cache ``{"k", "v": [L, B, T, KVH, D], "length"}`` (and the
+    VLM's ``"memory"``) with numpy leaves (bfloat16 too) as the port's
+    cache, dtypes kept."""
     dev = resolve_device(device)
-    return {"k": _tensor(cache["k"], dev), "v": _tensor(cache["v"], dev),
-            "length": int(np.asarray(cache["length"]))}
+    out = {"k": _tensor(cache["k"], dev), "v": _tensor(cache["v"], dev),
+           "length": int(np.asarray(cache["length"]))}
+    if "memory" in cache:
+        out["memory"] = _tensor(cache["memory"], dev)
+    return out
 
 
 # --------------------------------------------------------------------------
 # training state
 # --------------------------------------------------------------------------
 
+_STACKS = {"blocks": "layers", "cross_blocks": "cross_layers"}
+
+
 def leaf_paths(params: transformer.TransformerLM) -> list[tuple[str, int]]:
     """For each tensor of ``params.parameters()``, in that order: its
-    ``/``-joined path in the JAX parameter tree and its layer (-1 outside
-    the stacked ``layers`` leaves)."""
+    ``/``-joined path in the JAX parameter tree and its index in its
+    stack (``layers`` or ``cross_layers``; -1 outside them)."""
     out = []
     for name, _ in params.named_parameters():
         parts = name.split(".")
-        if parts[0] == "blocks":
-            out.append(("/".join(["layers", *parts[2:]]), int(parts[1])))
+        if parts[0] in _STACKS:
+            out.append(("/".join([_STACKS[parts[0]], *parts[2:]]),
+                        int(parts[1])))
         else:
             out.append(("/".join(parts), -1))
     return out
+
+
+def stack_length(cfg: ModelConfig, path: str) -> int:
+    """The stacked leading dimension of the JAX tree's leaf at ``path``
+    (a path ``leaf_paths`` gives with an index >= 0)."""
+    if path.startswith("cross_layers/"):
+        return transformer.n_cross_layers(cfg)
+    return cfg.n_layers
 
 
 def _tree_of(paths: list[tuple[str, int]], tensors) -> dict:

@@ -6,8 +6,9 @@
         --smoke --device cpu
 
 Requests are served in batch waves: prefill fills the KV cache for the
-whole batch (every layer's attention in the flash kernel on the card),
-then ``decode_step`` emits one greedy token per sequence per step.  When a
+whole batch (every layer's attention in the flash kernel on the card;
+the VLM's wave also draws its modality memory, which the prefill puts in
+the cache), then ``decode_step`` emits one greedy token per sequence per step.  When a
 wave finishes, the next wave's prompts get a fresh cache.  Parameters are
 drawn from ``torch.Generator(seed)`` on the serving device and the prompts
 from ``np.random.default_rng(seed)``, as the JAX launcher draws them.
@@ -38,7 +39,9 @@ def serve(model: zoo.Model, params, *, batch: int, prompt_len: int,
     """Serve ``requests`` random prompts in waves of ``batch``.
 
     Returns one dict per wave: ``prefill_s`` and ``decode_s`` (host clock,
-    each ending in a device synchronise), ``prompts`` [batch, prompt_len]
+    each ending in a device synchronise), ``prompts`` [batch, prompt_len],
+    ``memory`` (the VLM's f32 [batch, n_frontend_tokens, d_model], drawn
+    right after the prompts as the JAX launcher draws it; else None)
     and ``tokens`` [batch, gen + 1] (the token greedy decoding picked after
     the prefill, then one per decode step), and with ``keep_rows`` > 0 the
     served f32 ``logits`` [keep_rows, gen + 1, V] of the first rows (the
@@ -53,11 +56,15 @@ def serve(model: zoo.Model, params, *, batch: int, prompt_len: int,
     for wave in range(-(-requests // batch)):
         prompts = rng.integers(0, cfg.vocab_size,
                                size=(batch, prompt_len)).astype(np.int32)
+        memory = (rng.normal(0, 1, size=(batch, cfg.n_frontend_tokens,
+                                         cfg.d_model)).astype(np.float32)
+                  if model.needs_memory else None)
         cache = model.init_cache(batch, max_len, device=device)
+        mem = None if memory is None else torch.from_numpy(memory).to(device)
         _sync(device)
         t0 = time.perf_counter()
         logits, cache = prefill(params, torch.from_numpy(prompts).to(device),
-                                cache)
+                                cache, mem)
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
         _sync(device)
         t1 = time.perf_counter()
@@ -73,7 +80,7 @@ def serve(model: zoo.Model, params, *, batch: int, prompt_len: int,
         t2 = time.perf_counter()
         tokens = torch.cat(toks, dim=1).cpu().numpy()
         rec = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
-               "prompts": prompts, "tokens": tokens}
+               "prompts": prompts, "tokens": tokens, "memory": memory}
         if keep_rows:
             rec["logits"] = torch.stack(kept, dim=1)
         waves.append(rec)

@@ -46,7 +46,8 @@ def train(model: zoo.Model, *, steps: int, batch: int, seq: int,
     ``batch`` x ``seq`` tokens.
 
     Returns ``{"state", "start", "end", "records"}``: one record per step
-    run with its ``loss``, ``lr``, ``grad_norm`` (host floats) and
+    run with its ``loss``, ``lr``, ``grad_norm`` (and the MoE's
+    ``aux_loss`` and ``dropped``; host floats) and
     ``step_s`` (host clock around the batch, the step and a device
     synchronise).  ``metrics_cb(step, metrics, stats)`` is called after
     each step, as the loop calls it."""
@@ -77,13 +78,16 @@ def train(model: zoo.Model, *, steps: int, batch: int, seq: int,
             state = restored
 
     def batch_for_step(step):
+        # inputs, targets and, for the VLM, the f32 memory
         return {k: torch.from_numpy(v).to(device)
                 for k, v in batch_at(gen, step).items()}
 
     records = []
 
     def on_step(step, metrics, stats):
-        rec = {k: float(metrics[k]) for k in ("loss", "lr", "grad_norm")}
+        rec = {k: float(metrics[k]) for k in ("loss", "lr", "grad_norm",
+                                               "aux_loss", "dropped")
+               if k in metrics}
         records.append({"step": step, **rec, "step_s": stats.last})
         if step % log_every == 0:
             log(f"step {step:5d}  loss {rec['loss']:.4f}  "

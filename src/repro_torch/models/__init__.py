@@ -1,5 +1,5 @@
 """LM substrate: the model families of the assigned architectures (the
-dense family in this port so far)."""
+dense, MoE and VLM families in this port so far)."""
 
 from repro_torch.models import zoo  # noqa: F401
 from repro_torch.models.config import ModelConfig  # noqa: F401

@@ -1,4 +1,5 @@
-"""Attention: GQA with causal / sliding-window masks, and KV-cache decode.
+"""Attention: GQA with causal / sliding-window masks, cross-attention over
+a modality memory, and KV-cache decode.
 
 Prefill, the teacher-forced forward and training run ``flash_attention``,
 which on the card launches the hand-written flash forward kernel
@@ -6,7 +7,9 @@ which on the card launches the hand-written flash forward kernel
 package's Pallas ``flash_fwd``): the score matrix never reaches device
 memory.  With grad enabled it goes through ``FlashAttention``, whose
 backward is the flash backward kernel.  On the CPU both take the
-kernels' plain versions, dense masked softmaxes.
+kernels' plain versions, dense masked softmaxes.  Cross-attention (the
+VLM's text -> image layers) takes the same kernels without a mask, at
+S != T, and at S = 1 in decode.
 
 Decode attends one query position against the cache.  Its scores are
 ``[B, KVH, G, 1, T]``, linear in T, and stay plain torch on every device,
@@ -124,6 +127,33 @@ def self_attention(p: Attention, cfg, x, positions=None, *, causal=True,
     if return_kv:
         return out, k, v
     return out
+
+
+def cross_attention(p: Attention, cfg, x, memory):
+    """Text -> memory cross-attention sub-layer: q from x [B,S,d], k/v
+    from memory [B,T,d], no rope, QK-norm when set, no mask.  Without a
+    causal or window mask positions change nothing, so the flash kernel
+    takes its own ``0..S-1`` / ``0..T-1``.
+
+    k/v take the memory's dtype (``linear`` casts the weights to its
+    input's): an f32 memory under bf16 compute (the training batch's)
+    gives f32 k/v, and the attention runs in f32 with q cast up, its
+    output cast back to x's dtype, as the JAX package's flash promotes
+    the mixed operands and returns q's dtype."""
+    b, s, _ = x.shape
+    t = memory.shape[1]
+    hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    q = layers.linear(x, p.wq.w, p.wq.b).reshape(b, s, nq, hd)
+    k = layers.linear(memory, p.wk.w, p.wk.b).reshape(b, t, nkv, hd)
+    v = layers.linear(memory, p.wv.w, p.wv.b).reshape(b, t, nkv, hd)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, p.q_norm.scale, cfg.norm_eps)
+        k = layers.rms_norm(k, p.k_norm.scale, cfg.norm_eps)
+    dt = torch.promote_types(q.dtype, k.dtype)
+    out = flash_attention(q.to(dt), k.to(dt), v.to(dt), None, None,
+                          causal=False)
+    out = out.to(x.dtype).reshape(b, s, nq * hd)
+    return layers.linear(out, p.wo.w)
 
 
 # --------------------------------------------------------------------------

@@ -2,13 +2,16 @@
 
   model = zoo.build(cfg)
   params = model.init(torch.Generator(device="cuda").manual_seed(0))
-  logits, aux = model.forward(params, tokens)
+  logits, aux = model.forward(params, tokens, memory=...)
   cache = model.init_cache(batch, max_len, device=...)
-  logits, cache = model.prefill(params, tokens, cache)
+  logits, cache = model.prefill(params, tokens, cache, memory=...)
   logits, cache = model.decode_step(params, cache, tokens)
 
-Only the dense family is ported; every other family raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+``memory`` is the stubbed modality frontend's output ([B, T_frontend,
+d_model]) for the vlm family (``needs_memory``); None elsewhere.  The
+dense, MoE and VLM families are ported (``models.transformer``); every
+other family raises ``NotImplementedError`` naming the ROADMAP item that
+brings it.
 """
 
 from __future__ import annotations
@@ -24,8 +27,6 @@ from repro_torch.models.config import ModelConfig
 # family -> what is still to port for it (ROADMAP Queue A, "the other LM
 # families")
 NOT_PORTED = {
-    "moe": "MoE (models/moe.py)",
-    "vlm": "VLM cross-attention",
     "ssm": "SSM/hybrid (models/ssm.py, models/hybrid.py)",
     "hybrid": "SSM/hybrid (models/ssm.py, models/hybrid.py)",
     "encdec": "enc-dec (models/encdec.py)",
@@ -37,22 +38,26 @@ NOT_PORTED = {
 class Model:
     config: ModelConfig
     init: Callable             # (generator) -> params (an nn.Module)
-    forward: Callable          # (params, tokens) -> (logits, aux)
+    forward: Callable          # (params, tokens, memory=None)
     init_cache: Callable       # (batch, max_len, dtype=..., device=...)
-    prefill: Callable          # (params, tokens, cache) -> (logits, cache)
+    prefill: Callable          # (params, tokens, cache, memory=None)
     decode_step: Callable      # (params, cache, tokens) -> (logits, cache)
+    needs_memory: bool = False
 
 
 def build(cfg: ModelConfig) -> Model:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         return Model(
             config=cfg,
             init=lambda gen: transformer.init_lm(gen, cfg),
-            forward=lambda p, t: transformer.forward(p, cfg, t),
+            forward=lambda p, t, memory=None: transformer.forward(
+                p, cfg, t, memory=memory),
             init_cache=lambda b, ml, dtype=torch.bfloat16, device=None:
                 transformer.init_cache(cfg, b, ml, dtype, device),
-            prefill=lambda p, t, c: transformer.prefill(p, cfg, t, c),
-            decode_step=lambda p, c, t: transformer.decode_step(p, cfg, c, t))
+            prefill=lambda p, t, c, memory=None: transformer.prefill(
+                p, cfg, t, c, memory=memory),
+            decode_step=lambda p, c, t: transformer.decode_step(p, cfg, c, t),
+            needs_memory=transformer.takes_memory(cfg))
     if cfg.family in NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; "

@@ -1,16 +1,19 @@
 """train_step / serve_step builders: the functions the launchers call.
 
-Batch format: ``{"inputs": [B, S] int, "targets": [B, S] int}`` tensors on
-the model's device.
+Batch format: ``{"inputs": [B, S] int, "targets": [B, S] int, optional
+"memory": [B, T_frontend, d_model]}`` tensors on the model's device (the
+memory is the VLM's stubbed modality frontend).
 
-The train step is the JAX package's: the mean token NLL plus a z-loss,
-microbatch gradient accumulation in f32, then AdamW.  The port's
+The train step is the JAX package's: the mean token NLL plus a z-loss
+(plus ``moe_aux_weight`` times the MoE's load-balance loss), microbatch
+gradient accumulation in f32, then AdamW.  The port's
 parameters are f32 ``nn.Parameter``s, so each microbatch's ``backward()``
 accumulates its gradient into ``.grad`` in f32 (the JAX scan's f32 sum, in
 the same order); the sum is divided by the number of microbatches.  The
 step updates the state in place and returns it with the loss, the learning
-rate and the gradient norm as device tensors: nothing waits on the device
-within a step.  The serve steps run under ``torch.no_grad()``.
+rate, the gradient norm and the model's aux values (the MoE's ``aux_loss``
+and ``dropped``, the mean over the microbatches) as device tensors:
+nothing waits on the device within a step.  The serve steps run under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -47,16 +50,26 @@ def cross_entropy_loss(logits, targets, z_loss: float = 1e-4):
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
+                    moe_aux_weight: float = 1e-2,
                     accum_steps: int | None = None):
     """Returns train_step(state, batch) -> (state, metrics).
 
     ``accum_steps`` (default: the config's ``accum_steps``) splits the
     batch into that many microbatches of consecutive rows, each run
     forward and backward in turn: live activation memory drops by that
-    factor.  Metrics: ``loss`` (the microbatches' mean), ``lr``,
-    ``grad_norm`` (before clipping)."""
+    factor.  Metrics: ``loss`` (the microbatches' mean, the aux term
+    included), ``lr``, ``grad_norm`` (before clipping), and each aux value
+    of the forward (the microbatches' mean)."""
     accum = (accum_steps if accum_steps is not None
              else getattr(model.config, "accum_steps", 1) or 1)
+
+    def loss_fn(params, batch):
+        logits, aux = model.forward(params, batch["inputs"],
+                                    memory=batch.get("memory"))
+        loss = cross_entropy_loss(logits, batch["targets"])
+        if aux and "aux_loss" in aux:
+            loss = loss + moe_aux_weight * aux["aux_loss"]
+        return loss, aux
 
     def train_step(state: TrainState, batch):
         params = list(state.params.parameters())
@@ -69,13 +82,14 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
             p.grad = None
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=params[0].device)
+        auxes = []
         for i in range(accum):
             rows = slice(i * mb, (i + 1) * mb)
-            logits, _ = model.forward(state.params, batch["inputs"][rows])
-            loss = cross_entropy_loss(logits, batch["targets"][rows])
-            del logits
+            loss, aux = loss_fn(state.params,
+                                {k: v[rows] for k, v in batch.items()})
             loss.backward()
             loss_sum += loss.detach()
+            auxes.append({k: v.detach() for k, v in aux.items()})
         grads = [p.grad for p in params]
         for p in params:
             p.grad = None
@@ -83,16 +97,18 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
             torch._foreach_div_(grads, accum)
         _, opt, om = adamw_update(params, grads, state.opt, opt_cfg)
         del grads
-        return (TrainState(state.params, opt, state.step + 1),
-                {"loss": loss_sum / accum, **om})
+        metrics = {"loss": loss_sum / accum, **om}
+        for k in auxes[0]:
+            metrics[k] = torch.stack([a[k] for a in auxes]).mean(dim=0)
+        return TrainState(state.params, opt, state.step + 1), metrics
 
     return train_step
 
 
 def make_prefill_step(model: Model):
     @torch.no_grad()
-    def prefill_step(params, tokens, cache):
-        return model.prefill(params, tokens, cache)
+    def prefill_step(params, tokens, cache, memory=None):
+        return model.prefill(params, tokens, cache, memory=memory)
     return prefill_step
 
 

@@ -319,3 +319,34 @@ def test_flash_attention_none_positions_mean_arange(causal, window):
                                      window=window)
     assert torch.equal(got, want)
     assert torch.equal(attention.arange_positions(q), pos)
+
+
+# (arch, x dtype, memory dtype, S, T): the VLM's smoke config, a QK-norm
+# config, one query position (decode), and bf16 queries over an f32
+# memory (the training batch's), which both packages run in f32
+CROSS = [("llama-3.2-vision-11b", "float32", "float32", 9, 16),
+         ("qwen3-moe-30b-a3b", "float32", "float32", 7, 20),
+         ("llama-3.2-vision-11b", "float32", "float32", 1, 16),
+         ("llama-3.2-vision-11b", "bfloat16", "float32", 9, 16)]
+
+
+@pytest.mark.parametrize("arch,xdt,mdt,s,t", CROSS,
+                         ids=[f"x{i}" for i in range(len(CROSS))])
+def test_cross_attention_matches_repro(arch, xdt, mdt, s, t):
+    cfg = dataclasses.replace(configs.smoke(arch), dtype="float32")
+    jcfg = dataclasses.replace(jconfigs.smoke(arch), dtype="float32")
+    pj, pt = _attn_params(cfg, 10)
+    rng = _rng(11)
+    x = rng.normal(size=(2, s, cfg.d_model)).astype(np.float32)
+    mem = rng.normal(size=(2, t, cfg.d_model)).astype(np.float32)
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+    got = attention.cross_attention(pt, cfg, torch.from_numpy(x).to(tdt[xdt]),
+                                    torch.from_numpy(mem).to(tdt[mdt]))
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (2, s)).copy()
+    want = jattn.cross_attention(pj, jcfg, jnp.asarray(x, jdt[xdt]),
+                                 jnp.asarray(mem, jdt[mdt]), jnp.asarray(pos))
+    assert got.dtype == tdt[xdt] and got.shape == x.shape
+    assert want.dtype == jdt[xdt]
+    tol = F32_ATTN if xdt == "float32" else BF16_ATTN
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)

@@ -1,4 +1,6 @@
-"""The port's dense LM serving path against the JAX package, on the CPU.
+"""The port's LM serving path against the JAX package, on the CPU: the
+dense configs, the MoE ones and the VLM's (its modality memory passed to
+the prefill and the forward).
 
 The JAX package's ``init_lm`` parameters go through
 ``convert.lm_params_from_numpy``; both packages then run the same prompts:
@@ -32,7 +34,20 @@ from repro_torch.launch import serve
 from repro_torch.models import zoo
 
 B, N_DEC = 2, 8
-PROMPT = {"qwen2-1.5b": 20, "gemma3-1b": 24}   # gemma3's smoke window: 16
+PROMPT = {"qwen2-1.5b": 20, "gemma3-1b": 24,   # gemma3's smoke window: 16
+          "qwen3-moe-30b-a3b": 20, "moonshot-v1-16b-a3b": 20,
+          "llama-3.2-vision-11b": 20}
+NEW_FAMILIES = ["qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b",
+                "llama-3.2-vision-11b"]
+
+
+def _memory(cfg):
+    """The VLM's modality memory [B, n_frontend_tokens, d_model] (f32),
+    or None."""
+    if not cfg.n_frontend_tokens:
+        return None
+    return np.random.default_rng(4).normal(
+        size=(B, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
 F32_TOL = 1e-5
 BF16_TOL = 0.1
 
@@ -48,9 +63,9 @@ def _jax_run(arch, dtype, prompt):
     decode = jdecode_step(model)
 
     @jax.jit
-    def run(params, prompt):
+    def run(params, prompt, memory):
         cache = model.init_cache(B, p_len + N_DEC, dtype=cache_dt)
-        pre, cache = model.prefill(params, prompt, cache)
+        pre, cache = model.prefill(params, prompt, cache, memory=memory)
         tok0 = jnp.argmax(pre[:, -1], axis=-1).astype(jnp.int32)[:, None]
 
         def step(carry, _):
@@ -61,10 +76,13 @@ def _jax_run(arch, dtype, prompt):
         (_, last), (dec, fed) = jax.lax.scan(step, (cache, tok0), None,
                                              length=N_DEC)
         seq = jnp.concatenate([prompt, fed.T], axis=1)
-        full, _ = model.forward(params, seq)
+        full, _ = model.forward(params, seq, memory=memory)
         return pre, cache, dec.transpose(1, 0, 2), seq, last, full
 
-    out = jax.tree.map(np.array, run(params, jnp.asarray(prompt)))
+    memory = _memory(cfg)
+    out = jax.tree.map(np.array, run(
+        params, jnp.asarray(prompt),
+        None if memory is None else jnp.asarray(memory)))
     return jax.tree.map(np.asarray, params), out
 
 
@@ -74,10 +92,13 @@ def _port_run(arch, dtype, tree, prompt, seq):
     params = convert.lm_params_from_numpy(tree, cfg, device="cpu")
     cache_dt = torch.float32 if dtype == "float32" else torch.bfloat16
     p_len = prompt.shape[1]
+    memory = _memory(cfg)
+    memory = None if memory is None else torch.from_numpy(memory)
     with torch.no_grad():
         cache = model.init_cache(B, p_len + N_DEC, dtype=cache_dt,
                                  device="cpu")
-        pre, cache = model.prefill(params, torch.from_numpy(prompt), cache)
+        pre, cache = model.prefill(params, torch.from_numpy(prompt), cache,
+                                   memory=memory)
         pre_cache = {k: cache[k].float().numpy().copy() for k in ("k", "v")}
         seq_t = torch.from_numpy(seq)
         dec = []
@@ -85,7 +106,7 @@ def _port_run(arch, dtype, tree, prompt, seq):
             logits, cache = model.decode_step(
                 params, cache, seq_t[:, p_len + i:p_len + i + 1])
             dec.append(logits[:, 0])
-        full, _ = model.forward(params, seq_t)
+        full, _ = model.forward(params, seq_t, memory=memory)
     return (pre.numpy(), pre_cache, torch.stack(dec, 1).numpy(),
             full.numpy(), cache["length"])
 
@@ -95,7 +116,7 @@ def _prompt(arch, vocab):
         0, vocab, size=(B, PROMPT[arch])).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma3-1b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma3-1b", *NEW_FAMILIES])
 def test_serving_path_matches_repro_float32(arch):
     prompt = _prompt(arch, configs.smoke(arch).vocab_size)
     tree, (pre, cache, dec, seq, last, full) = _jax_run(arch, "float32",
@@ -196,10 +217,62 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
 
 
 @pytest.mark.parametrize("arch", [a for a in configs.ARCH_IDS
-                                  if configs.get(a).family != "dense"])
+                                  if configs.get(a).family
+                                  not in ("dense", "moe", "vlm")])
 def test_other_families_are_not_ported_yet(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         zoo.build(configs.get(arch))
+
+
+def test_transformer_families_build_at_full_width():
+    """Every MoE and VLM config and the dense configs that set scan_group
+    build (the parameters are drawn on the card, not here)."""
+    built = [a for a in configs.ARCH_IDS
+             if configs.get(a).family in ("moe", "vlm")
+             or configs.get(a).scan_group]
+    assert sorted(built) == sorted(["moonshot-v1-16b-a3b",
+                                    "qwen3-moe-30b-a3b",
+                                    "llama-3.2-vision-11b", "qwen2.5-14b",
+                                    "yi-34b"])
+    for arch in built:
+        cfg = configs.get(arch)
+        model = zoo.build(cfg)
+        assert model.config is cfg
+        assert model.needs_memory == jzoo.build(
+            jconfigs.get(arch)).needs_memory == (cfg.family == "vlm")
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_moe_and_vlm_params_round_trip_through_numpy(arch):
+    """``lm_params_to_numpy`` gives the JAX package's ``init_lm`` tree
+    (``layers/moe/...``, ``cross_layers/...``), and back."""
+    cfg = configs.smoke(arch)
+    params = zoo.build(cfg).init(torch.Generator().manual_seed(0))
+    tree = convert.lm_params_to_numpy(params)
+    jtree = jzoo.build(jconfigs.smoke(arch)).init(jax.random.key(0))
+    assert (jax.tree.structure(jax.tree.map(np.asarray, jtree))
+            == jax.tree.structure(tree))
+    for a, b in zip(jax.tree.leaves(jtree), jax.tree.leaves(tree)):
+        assert a.shape == b.shape
+    again = convert.lm_params_to_numpy(
+        convert.lm_params_from_numpy(tree, cfg, device="cpu"))
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(again)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_vlm_cache_carries_the_memory():
+    jmodel = jzoo.build(jconfigs.smoke("llama-3.2-vision-11b"))
+    cache = jmodel.init_cache(2, 5)
+    cache = dict(cache, memory=cache["memory"].at[1, 3].set(0.75))
+    got = convert.cache_from_numpy(jax.tree.map(np.asarray, cache),
+                                   device="cpu")
+    want = zoo.build(configs.smoke("llama-3.2-vision-11b")).init_cache(
+        2, 5, device="cpu")
+    assert got.keys() == want.keys() == {"k", "v", "length", "memory"}
+    for k in ("k", "v", "memory"):
+        assert got[k].shape == want[k].shape
+        assert got[k].dtype == want[k].dtype == torch.bfloat16
+    assert float(got["memory"][1, 3].max()) == 0.75
 
 
 @pytest.mark.parametrize("arch", configs.ARCH_IDS)
@@ -209,3 +282,22 @@ def test_configs_are_copies_of_repro(arch):
     assert (dataclasses.asdict(configs.smoke(arch))
             == dataclasses.asdict(jconfigs.smoke(arch)))
     assert configs.get(arch).param_count() == jconfigs.get(arch).param_count()
+
+
+def test_serve_draws_each_waves_memory_after_its_prompts():
+    """The VLM's waves: prompts, then memory, from one
+    ``np.random.default_rng(seed)``, as the JAX launcher draws them."""
+    cfg = configs.smoke("llama-3.2-vision-11b")
+    model = zoo.build(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    waves = serve.serve(model, params, batch=2, prompt_len=6, gen=2,
+                        requests=4, seed=3, device="cpu",
+                        log=lambda *_: None)
+    rng = np.random.default_rng(3)
+    for w in waves:
+        np.testing.assert_array_equal(
+            w["prompts"], rng.integers(0, cfg.vocab_size, size=(2, 6)))
+        np.testing.assert_array_equal(
+            w["memory"], rng.normal(0, 1, size=(
+                2, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32))
+    assert len(waves) == 2 and waves[0]["tokens"].shape == (2, 3)

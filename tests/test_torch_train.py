@@ -31,6 +31,8 @@ stragglers, the launcher, and a loss that drops on a fixed batch.
 import copy
 import dataclasses
 import functools
+import importlib.util
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -58,7 +60,15 @@ from repro_torch.runtime import (RestartableLoop, StragglerMonitor,
 from repro_torch.train import steps
 
 TOL = 1e-5
-ARCHS = ["qwen2-1.5b", "gemma3-1b"]
+# the dense smoke configs; the MoE ones (qwen3-moe: top-2 of 8 experts
+# with QK-norm; moonshot: a shared expert); the VLM's (a cross block
+# after every 2 self blocks, over batch_at's f32 memory); and qwen2.5-14b's
+# and qwen3-moe's cut to 4 layers with scan_group 2 (sqrt-L remat, nested
+# checkpoints; for the MoE, its aux carried through the group's checkpoint)
+ARCHS = ["qwen2-1.5b", "gemma3-1b", "qwen3-moe-30b-a3b",
+         "moonshot-v1-16b-a3b", "llama-3.2-vision-11b", "qwen2.5-14b/sg2",
+         "qwen3-moe-30b-a3b/sg2"]
+VARIANTS = {"sg2": dict(n_layers=4, scan_group=2)}
 BATCH, SEQ = 4, 16
 OPT = dict(lr=1e-3, total_steps=20, warmup_steps=2, eps=1e-5)
 
@@ -70,15 +80,21 @@ def _close(got, want, tol=TOL, err_msg=""):
                                err_msg=err_msg)
 
 
-def _cfgs(arch, remat=False):
-    return (dataclasses.replace(configs.smoke(arch), dtype="float32",
-                                remat=remat),
-            dataclasses.replace(jconfigs.smoke(arch), dtype="float32"))
+def _cfgs(arch, remat=False, **kw):
+    """The port's and the JAX package's smoke configs of ``arch`` (with a
+    ``/variant`` of VARIANTS) in float32."""
+    name, _, variant = arch.partition("/")
+    kw = VARIANTS.get(variant, {}) | kw
+    return (dataclasses.replace(configs.smoke(name), dtype="float32",
+                                remat=remat, **kw),
+            dataclasses.replace(jconfigs.smoke(name), dtype="float32", **kw))
 
 
-def _batch(vocab, step=0, seed=5):
-    gen = synthetic.TokenGenConfig(vocab_size=vocab, batch=BATCH,
-                                   seq_len=SEQ, seed=seed)
+def _batch(cfg, step=0, seed=5):
+    gen = synthetic.TokenGenConfig(vocab_size=cfg.vocab_size, batch=BATCH,
+                                   seq_len=SEQ, seed=seed,
+                                   n_frontend_tokens=cfg.n_frontend_tokens,
+                                   d_model=cfg.d_model)
     return synthetic.batch_at(gen, step)
 
 
@@ -98,15 +114,20 @@ def _jax_run(arch):
     step2 = jsteps.make_train_step(model, opt, accum_steps=2)
 
     def loss_fn(params, batch):
-        logits, _ = model.forward(params, batch["inputs"])
-        return jsteps.cross_entropy_loss(logits, batch["targets"])
+        # the train step's loss: + 1e-2 aux_loss for MoE
+        logits, aux = model.forward(params, batch["inputs"],
+                                    memory=batch.get("memory"))
+        loss = jsteps.cross_entropy_loss(logits, batch["targets"])
+        if aux:
+            loss = loss + 1e-2 * aux["aux_loss"]
+        return loss
 
     @jax.jit
     def run(state, batch):
         loss, grads = jax.value_and_grad(loss_fn)(state.params, batch)
         return loss, grads, step1(state, batch), step2(state, batch)
 
-    batch = {k: jnp.asarray(v) for k, v in _batch(jcfg.vocab_size).items()}
+    batch = {k: jnp.asarray(v) for k, v in _batch(jcfg).items()}
     out = run(state, batch)
     return _np_tree(state._asdict()), _np_tree(out)
 
@@ -117,8 +138,19 @@ def _port_state(arch, remat):
     return cfg, convert.train_state_from_numpy(tree, cfg, device="cpu")
 
 
-def _port_batch(vocab):
-    return {k: torch.from_numpy(v) for k, v in _batch(vocab).items()}
+def _port_batch(cfg):
+    return {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
+
+
+def _port_loss(model, params, batch):
+    """The train step's loss (``make_train_step``'s, moe_aux_weight
+    1e-2) and the forward's aux."""
+    logits, aux = model.forward(params, batch["inputs"],
+                                memory=batch.get("memory"))
+    loss = steps.cross_entropy_loss(logits, batch["targets"])
+    if aux:
+        loss = loss + 1e-2 * aux["aux_loss"]
+    return loss, aux
 
 
 @pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
@@ -127,9 +159,7 @@ def test_loss_and_gradients_match_repro(arch, remat):
     cfg, state = _port_state(arch, remat)
     _, (loss, grads, _, _) = _jax_run(arch)
     model = zoo.build(cfg)
-    batch = _port_batch(cfg.vocab_size)
-    logits, _ = model.forward(state.params, batch["inputs"])
-    got = steps.cross_entropy_loss(logits, batch["targets"])
+    got, _ = _port_loss(model, state.params, _port_batch(cfg))
     got.backward()
     _close(got.item(), loss)
     paths = convert.leaf_paths(state.params)
@@ -147,9 +177,13 @@ def test_train_step_matches_repro(arch, remat, accum):
     want_state, want_metrics = after[accum - 1]
     step = steps.make_train_step(zoo.build(cfg), adamw.AdamWConfig(**OPT),
                                  accum_steps=accum)
-    new, metrics = step(state, _port_batch(cfg.vocab_size))
-    for k in ("loss", "lr", "grad_norm"):
-        _close(metrics[k].item(), want_metrics[k], err_msg=k)
+    new, metrics = step(state, _port_batch(cfg))
+    assert metrics.keys() == want_metrics.keys()
+    for k in ("loss", "lr", "grad_norm", "aux_loss"):
+        if k in want_metrics:
+            _close(metrics[k].item(), want_metrics[k], err_msg=k)
+    if "dropped" in want_metrics:
+        assert metrics["dropped"].item() == float(want_metrics["dropped"])
     got = convert.train_state_to_numpy(new)
     want = want_state._asdict()
     assert got["step"] == want["step"] == 1
@@ -443,24 +477,80 @@ def test_train_entry_points_need_the_card_unless_asked_for_cpu():
         train_main(["--smoke", "--steps", "1"])
 
 
-def test_scan_group_is_not_ported_yet():
-    cfg = dataclasses.replace(configs.smoke("gemma3-1b"), scan_group=2)
-    model = zoo.build(cfg)
-    params = model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-        model.forward(params, torch.zeros((1, 4), dtype=torch.int32))
-    # the message names the dense configs that set scan_group, and no
-    # longer claims that they have 0
-    msg = str(err.value)
-    assert "the other LM families" in msg
-    assert "scan_group=0" not in msg
-    assert "qwen2.5-14b" in msg and "yi-34b" in msg
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_scan_group_gradients_do_not_depend_on_the_group(remat):
+    """The port's loss and gradients with scan_group 2 (an outer
+    checkpoint a group of 2 blocks) equal its own with scan_group 0, and
+    a grad-enabled forward of the dense configs that set scan_group
+    runs."""
     for arch in ("qwen2.5-14b", "yi-34b"):
         assert configs.get(arch).family == "dense"
         assert configs.get(arch).scan_group > 0
-    with torch.no_grad():
-        assert model.forward(params, torch.zeros(
-            (1, 4), dtype=torch.int32))[0].shape == (1, 4, cfg.vocab_size)
+    _, state = _port_state("qwen2.5-14b/sg2", remat)
+    out = {}
+    for gk in (0, 2):
+        cfg, _ = _cfgs("qwen2.5-14b/sg2", remat, scan_group=gk)
+        loss, _ = _port_loss(zoo.build(cfg), state.params,
+                             _port_batch(cfg))
+        loss.backward()
+        out[gk] = (loss.item(), [p.grad.clone()
+                                 for p in state.params.parameters()])
+        for p in state.params.parameters():
+            p.grad = None
+    _close(out[2][0], out[0][0])
+    for (name, _), g2, g0 in zip(state.params.named_parameters(), out[2][1],
+                                 out[0][1]):
+        _close(g2.numpy(), g0.numpy(), err_msg=name)
+
+
+def _smoke_module():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# (arch, n_layers, scan_group, remat): flat, remat, the groups with and
+# without remat (gk 2 and 4), the VLM's cross groups, and T3's and T4's
+# cut configs' shapes
+FLASH_COUNT_CASES = [("qwen2.5-14b", 4, 0, False), ("qwen2.5-14b", 4, 0, True),
+                     ("qwen2.5-14b", 4, 2, False), ("qwen2.5-14b", 4, 2, True),
+                     ("qwen2.5-14b", 8, 4, True),
+                     ("qwen3-moe-30b-a3b", 4, 2, True),
+                     ("llama-3.2-vision-11b", 4, 0, True),
+                     ("llama-3.2-vision-11b", 4, 0, False)]
+
+
+@pytest.mark.parametrize("arch,n_layers,gk,remat", FLASH_COUNT_CASES)
+def test_flash_passes_a_microbatch_match_the_smokes_count(
+        arch, n_layers, gk, remat, monkeypatch):
+    """The flash forwards and backwards one forward + backward runs, as
+    ``chip_smoke.train_flash_passes`` derives them for the card's launch
+    checks: torch's non-reentrant checkpoint stops a group's recompute
+    once the last block's input is saved again, so under remat a group
+    of gk blocks runs gk - 1 forwards there, then each block one more in
+    its own backward."""
+    from repro_torch.kernels import flash_attention as fa
+    counts = {"fwd": 0, "bwd": 0}
+    fwd, bwd = fa.flash_fwd, fa.flash_bwd
+
+    def counted(key, fn):
+        def call(*a, **kw):
+            counts[key] += 1
+            return fn(*a, **kw)
+        return call
+
+    monkeypatch.setattr(fa, "flash_fwd", counted("fwd", fwd))
+    monkeypatch.setattr(fa, "flash_bwd", counted("bwd", bwd))
+    cfg, _ = _cfgs(arch, remat, n_layers=n_layers, scan_group=gk)
+    model = zoo.build(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    loss, _ = _port_loss(model, params, _port_batch(cfg))
+    loss.backward()
+    want = _smoke_module().train_flash_passes(cfg)
+    assert (counts["fwd"], counts["bwd"]) == (want["flash_fwd"],
+                                              want["flash_bwd"])
 
 
 def test_train_loss_decreases():
@@ -488,7 +578,7 @@ def test_train_loss_decreases():
 def test_port_checkpoint_restores_in_repro(tmp_path):
     cfg, state = _port_state("gemma3-1b", False)
     step = steps.make_train_step(zoo.build(cfg), adamw.AdamWConfig(**OPT))
-    state, _ = step(state, _port_batch(cfg.vocab_size))
+    state, _ = step(state, _port_batch(cfg))
     save_pytree(state, tmp_path, 1)
     _, jcfg = _cfgs("gemma3-1b")
     template = jsteps.init_train_state(jzoo.build(jcfg), jax.random.key(0))
@@ -527,3 +617,30 @@ def test_train_state_round_trips_through_numpy():
     assert all(p.requires_grad for p in state.params.parameters())
     assert [m.shape for m in state.opt["m"]] == [
         p.shape for p in state.params.parameters()]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b",
+                                  "llama-3.2-vision-11b"])
+def test_moe_and_vlm_checkpoints_round_trip_with_repro(arch, tmp_path):
+    """A port checkpoint of an MoE or VLM train state restores in the JAX
+    package (``layers/moe/...``, ``cross_layers/...``), and the JAX
+    package's one after a step restores in the port, bit for bit."""
+    cfg, state = _port_state(arch, False)
+    _, jcfg = _cfgs(arch)
+    save_pytree(state, tmp_path / "port", 0)
+    template = jsteps.init_train_state(jzoo.build(jcfg), jax.random.key(0))
+    restored, _ = jckpt.restore_pytree(template, tmp_path / "port")
+    want = convert.train_state_to_numpy(state)
+    got = _np_tree(restored._asdict())
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_array_equal(a, b)
+    _, (_, _, (jstate, _), _) = _jax_run(arch)
+    jckpt.save_pytree(jstate, tmp_path / "jax", 1)
+    back, manifest = restore_pytree(state, tmp_path / "jax", device="cpu")
+    assert manifest["step"] == 1
+    got = convert.train_state_to_numpy(back)
+    want = jstate._asdict()
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_array_equal(a, np.asarray(b))

@@ -9,9 +9,10 @@ Default: builds the smoke's Q1 (linear), Q2 (star) and Q3 (triangles)
 data (``chip_smoke.make_data``), runs each query once to warm the plan
 cache, then traces one more execute with ``torch.profiler``.  With
 ``--serve``: for each of the smoke's serving runs (``chip_smoke.SERVE``:
-S1 qwen2-1.5b, S2 gemma3-1b at full width, random weights), one warm-up
-wave, then a traced prefill of a fresh wave and a traced run of
-``DECODE_STEPS`` decode steps.  With ``--train``: the smoke's T1 run
+S1 qwen2-1.5b, S2 gemma3-1b, S3 qwen3-moe at 24 layers, S4
+llama-3.2-vision, full widths, random weights; ``--runs S3`` picks), one
+warm-up wave, then a traced prefill of a fresh wave (with its memory for
+the VLM) and a traced run of ``DECODE_STEPS`` decode steps.  With ``--train``: the smoke's T1 run
 (``chip_smoke.TRAIN[0]``: qwen2-1.5b at full width, batch 8 x 1024, 4
 microbatches, remat), one warm-up step, then one traced train step.
 With ``--stream``: the smoke's standing queries W1 (a triangle over
@@ -89,25 +90,36 @@ def traced(torch, fn, top, marks=()):
                     if marks else {})}
 
 
-def profile_serving(torch, chip_smoke, seed, top):
+def profile_serving(torch, chip_smoke, seed, top, runs=()):
+    import dataclasses
+
     import numpy as np
 
     from repro_torch import configs
     from repro_torch.launch import serve
     from repro_torch.models import zoo
     from repro_torch.train import make_decode_step, make_prefill_step
-    for label, arch, batch, prompt, gen, _ in chip_smoke.SERVE:
-        model = zoo.build(configs.get(arch))
+    for label, arch, batch, prompt, gen, _, layers in chip_smoke.SERVE:
+        if runs and label not in runs:
+            continue
+        cfg = configs.get(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        model = zoo.build(cfg)
         params = model.init(torch.Generator(device="cuda").manual_seed(seed))
         serve.serve(model, params, batch=batch, prompt_len=prompt, gen=gen,
                     requests=batch, seed=seed, device="cuda",
                     log=lambda m: None)
         prefill, decode = make_prefill_step(model), make_decode_step(model)
-        prompts = np.random.default_rng(seed + 1).integers(
-            0, model.config.vocab_size, size=(batch, prompt)).astype(np.int32)
+        rng = np.random.default_rng(seed + 1)
+        prompts = rng.integers(0, cfg.vocab_size,
+                               size=(batch, prompt)).astype(np.int32)
+        memory = (torch.from_numpy(rng.normal(0, 1, size=(
+            batch, cfg.n_frontend_tokens, cfg.d_model)).astype(
+                np.float32)).cuda() if model.needs_memory else None)
         cache = model.init_cache(batch, prompt + gen, device="cuda")
         (logits, cache), row = traced(torch, lambda: prefill(
-            params, torch.from_numpy(prompts).cuda(), cache), top)
+            params, torch.from_numpy(prompts).cuda(), cache, memory), top)
         print(json.dumps({"serve": label, "span": "prefill", "batch": batch,
                           "prompt_len": prompt, **row}), flush=True)
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
@@ -130,7 +142,7 @@ def profile_training(torch, chip_smoke, seed, top):
     from repro_torch.models import zoo
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import init_train_state, make_train_step
-    label, arch, batch, seq, steps = chip_smoke.TRAIN[0]
+    label, arch, batch, seq, steps, _ = chip_smoke.TRAIN[0]
     cfg = configs.get(arch)
     model = zoo.build(cfg)
     state = init_train_state(
@@ -264,6 +276,9 @@ def main() -> int:
                     help="profile a standing query's delta instead")
     ap.add_argument("--fm", action="store_true",
                     help="profile the FM DISTINCT sketch (A1) instead")
+    ap.add_argument("--runs", default="",
+                    help="with --serve: the serving runs to profile, "
+                         "comma-separated labels (default: all)")
     args = ap.parse_args()
     import torch
 
@@ -271,7 +286,8 @@ def main() -> int:
         raise SystemExit("profile_port: needs a CUDA device")
     import chip_smoke
     if args.serve:
-        profile_serving(torch, chip_smoke, args.seed, args.top)
+        profile_serving(torch, chip_smoke, args.seed, args.top,
+                        tuple(filter(None, args.runs.split(","))))
         return 0
     if args.train:
         profile_training(torch, chip_smoke, args.seed, args.top)
