@@ -30,7 +30,11 @@ result line):
      streams, negative keys), the flash forward within
      ``FLASH_TOL`` (the flash kernel tests' cases, ragged S, D = 128 and
      256, bf16 and f32, strided views, the VLM's cross-attention at S =
-     1024 and S = 1 over T = 1601), the flash backward within
+     1024 and S = 1 over T = 1601, the enc-dec's encoder at S = T = 4096
+     non-causal and its cross-attention at S = 256 and 1 over T = 4096,
+     its decoder's causal self-attention at S = 256 and 512, zamba2's
+     32-head MHA at S = 2048 and 1024, each at its row's batch), the
+     flash backward within
      ``FLASH_BWD_TOL`` against its plain version and against autograd of
      the plain forward (``FLASH_BWD_CASES``);
   4. main path — six queries through ``JoinSession(m_budget=16384)
@@ -125,37 +129,47 @@ result line):
      16 tokens, 4 requests), S3 qwen3-moe-30b-a3b cut to 24 of its 48
      layers (as S1's traffic), S4 llama-3.2-vision-11b whole (batch 4,
      prompt 1024, 16 tokens, 8 requests, each wave's memory [4, 1601,
-     4096]), random weights from the seed; each run's model freed after
-     it.  The flash counter is zeroed before each and must equal (self +
-     cross layers) x (prefills + checking forwards) + cross layers x
-     decode steps after the serving and the checks: the teacher-forced
-     ``forward`` of two rows over prompt + generated tokens (S4's with
-     the wave's memory) must match the served prefill/decode logits
-     within ``SERVE_TOL``, the served tokens must be the argmax of the
-     served logits, and at every checked position the forward's logit for
-     the served token must be within ``SERVE_TOL["max"]`` of the forward's
-     largest logit.  S3 (``moe_serve_checks``): the last wave's prefill
-     logits against ``forward`` over its 8 prompts, no decode step
-     dropping an assignment, and the teacher-forced check of two rows
-     served with nothing able to drop (``capacity_factor`` = E / k); the
-     dropped shares and the expert-weight casts' ms a decode step
-     printed;
+     4096]), S5 mamba2-370m whole (batch 4, prompt 8192, 32 tokens, 8
+     requests; the served cache's bytes after prefills of 8,192 and
+     32,768 tokens must be equal, and the two peaks give the longest
+     prompt that fits),
+     S6 zamba2-1.2b whole (batch 8, prompt 2048, 32 tokens, 16
+     requests), S7 seamless-m4t-medium whole (batch 4, prompt 256, 32
+     tokens, 8 requests, each wave's memory [4, 4096, 1024] f32), random
+     weights from the seed; each run's model freed after it.  The flash
+     counter is zeroed before each and must equal its attention layers x
+     (prefills + checking forwards) + cross-attention layers x decode
+     steps (``serve_flash_passes``) after the serving and the checks:
+     the teacher-forced ``forward`` of two rows over prompt + generated
+     tokens (S4's and S7's with the wave's memory) must match the served
+     prefill/decode logits within ``SERVE_TOL``, the served tokens must be
+     the argmax of the served logits, and at every checked position the
+     forward's logit for the served token must be within
+     ``SERVE_TOL["max"]`` of the forward's largest logit.  S3
+     (``moe_serve_checks``): the last wave's prefill logits against
+     ``forward`` over its 8 prompts, no decode step dropping an
+     assignment, and the teacher-forced check of two rows served with
+     nothing able to drop (``capacity_factor`` = E / k); the dropped
+     shares and the expert-weight casts' ms a decode step printed;
  12. train — the LM trained at full width through
      ``repro_torch.launch.train``: T1 qwen2-1.5b (batch 8, seq 1024, 4
      microbatches, remat, 6 steps), T2 gemma3-1b (batch 4, seq 2048, 2
      microbatches, 2 steps), T3 qwen3-moe-30b-a3b cut to 4 layers with
      ``scan_group`` 2 (batch 8 x 1024, 4 microbatches, 3 steps), T4
      llama-3.2-vision-11b cut to 5 layers, one cross group (batch 4 x
-     1024 and ``batch_at``'s f32 memory, 4 microbatches, 2 steps), random
-     weights and ``batch_at`` data from the seed.  The flash counters are
-     zeroed before each and read after every step: ``train_flash_passes``
-     x microbatches a step (remat and the groups' recomputes derived
-     there); losses, gradient norms and the MoE's aux loss finite, T3's
-     dropped share printed.  Then the gradient check on T1's model
-     (``GRAD_TOL``), and
-     the restart check at the qwen2-1.5b smoke config: a run that fails at
-     step 5 and resumes from its newest committed checkpoint ends with the
-     parameters of an uninterrupted run;
+     1024 and ``batch_at``'s f32 memory, 4 microbatches, 2 steps), T5
+     mamba2-370m and T6 zamba2-1.2b whole (batch 8 x 1024, 2
+     microbatches, 3 steps), T7 seamless-m4t-medium whole (batch 4 x 512
+     and ``batch_at``'s f32 memory [4, 4096, 1024], 2 microbatches, 2
+     steps), random weights and ``batch_at`` data from the seed.  The
+     flash counters are zeroed before each and read after every step:
+     ``train_flash_passes`` x microbatches a step (remat and the groups'
+     recomputes derived there); losses, gradient norms and the MoE's aux
+     loss finite, T3's dropped share printed.  Then the gradient check on
+     T1's model (``GRAD_TOL``), and the restart check at the qwen2-1.5b
+     smoke config: a run that fails at step 5 and resumes from its newest
+     committed checkpoint ends with the parameters of an uninterrupted
+     run;
  13. the flash forward and backward at S1's, T1's microbatch and S2's
      shapes against their plain versions, their bounds and
      ``scaled_dot_product_attention`` (its backward alone on a retained
@@ -172,7 +186,7 @@ as N^2 / m_budget^2.  The LM widths are the published configs'; only the
 traffic (requests, prompt and generation lengths; training batch,
 sequence length and steps) is chosen here, and depth is cut only where
 80 GB forces it (S3, T3, T4; each row prints its layers beside the
-config's).
+config's; S5-S7 and T5-T7 are whole).
 """
 
 from __future__ import annotations
@@ -797,6 +811,20 @@ FLASH_CASES = [
     # 2 x 1,024) and of S4/T4 (llama-3.2-vision: GQA 4:1), causal, D = 128
     (2, 1024, 1024, 32, 4, 128, True, 0, "bfloat16"),
     (1, 1024, 1024, 32, 8, 128, True, 0, "bfloat16"),
+    # the enc-dec's (S7/T7: seamless, MHA, 16 heads, D = 64): the
+    # encoder's bidirectional attention over 4,096 frames, the decoder's
+    # cross-attention over them at S = 256 (S7's prefill), S = 1 (its
+    # decode steps) and T7's 2 x 512, the decoder's causal self-attention
+    # at S7's prompt and T7's microbatch; zamba2's shared block (S6/T6:
+    # MHA, 32 heads, D = 64), causal at S6's prompt and T6's microbatch
+    (4, 4096, 4096, 16, 16, 64, False, 0, "bfloat16"),
+    (4, 256, 4096, 16, 16, 64, False, 0, "bfloat16"),
+    (2, 512, 4096, 16, 16, 64, False, 0, "bfloat16"),
+    (4, 1, 4096, 16, 16, 64, False, 0, "bfloat16"),
+    (4, 256, 256, 16, 16, 64, True, 0, "bfloat16"),
+    (2, 512, 512, 16, 16, 64, True, 0, "bfloat16"),
+    (8, 2048, 2048, 32, 32, 64, True, 0, "bfloat16"),
+    (4, 1024, 1024, 32, 32, 64, True, 0, "bfloat16"),
 ]
 # Tolerance (atol, rtol) of the flash forward against its plain versions
 # (inputs ~N(0, 1)), |got - want| <= atol + rtol |want| on o, by case name
@@ -877,6 +905,17 @@ FLASH_BWD_CASES = [
     # head) and of T4 (GQA 4:1), as in FLASH_CASES
     (2, 1024, 1024, 32, 4, 128, True, 0, "bfloat16", False),
     (1, 1024, 1024, 32, 8, 128, True, 0, "bfloat16", False),
+    # the enc-dec's, as in FLASH_CASES (T7's microbatch of 2: the
+    # encoder over 4,096 frames, the decoder's cross-attention at 512
+    # and at S = 256 and 1, its causal self-attention at 512), and
+    # zamba2's shared block, causal at S6's prompt and T6's microbatch
+    (2, 4096, 4096, 16, 16, 64, False, 0, "bfloat16", False),
+    (2, 512, 4096, 16, 16, 64, False, 0, "bfloat16", False),
+    (2, 256, 4096, 16, 16, 64, False, 0, "bfloat16", False),
+    (2, 1, 4096, 16, 16, 64, False, 0, "bfloat16", False),
+    (2, 512, 512, 16, 16, 64, True, 0, "bfloat16", False),
+    (1, 2048, 2048, 32, 32, 64, True, 0, "bfloat16", False),
+    (4, 1024, 1024, 32, 32, 64, True, 0, "bfloat16", False),
 ]
 # Tolerance (a, rtol) of the flash backward's dq, dk, dv (inputs and do
 # ~N(0, 1)): |got - want| <= a max(max|want|, 1) + rtol |want| per tensor,
@@ -2795,12 +2834,81 @@ def analytics_phase(torch, F, d):
 # (label, arch, batch, prompt length, generated tokens, requests, layers
 # kept (None: the config's)).  S3 keeps 24 of qwen3-moe's 48 layers: its
 # f32 masters are 2.49 GB a layer (122 GB at 48); S4 is whole (40 self +
-# 8 cross layers, 10.1e9 parameters, 40 GB)
+# 8 cross layers, 10.1e9 parameters, 40 GB).  S5-S7 are whole: S5
+# mamba2-370m (48 SSD layers) the long-context serve with bounded state,
+# S6 zamba2-1.2b (38 SSD layers, 6 shared-block calls), S7
+# seamless-m4t-medium (12 encoder + 12 decoder layers, each wave's memory
+# [4, 4096, 1024] f32)
 SERVE = [("S1", "qwen2-1.5b", 8, 1024, 32, 16, None),
          ("S2", "gemma3-1b", 4, 2048, 16, 4, None),
          ("S3", "qwen3-moe-30b-a3b", 8, 1024, 32, 16, 24),
-         ("S4", "llama-3.2-vision-11b", 4, 1024, 16, 8, None)]
+         ("S4", "llama-3.2-vision-11b", 4, 1024, 16, 8, None),
+         ("S5", "mamba2-370m", 4, 8192, 32, 8, None),
+         ("S6", "zamba2-1.2b", 8, 2048, 32, 16, None),
+         ("S7", "seamless-m4t-medium", 4, 256, 32, 8, None)]
 CHECK_ROWS = 2
+# S5 prefilled again, outside the counted run, at its own prompt and at
+# LONG_PROMPT: the served cache's bytes after each must be equal (the
+# SSM's state is bounded), and the two peaks give the prefill's bytes a
+# prompt position, hence the longest prompt that fits at S5's batch
+LONG_PROMPT = 32768
+
+
+def serve_flash_passes(cfg):
+    """(flash forwards a prefill or forward pass runs, flash forwards a
+    decode step runs) under ``cfg``: the dense and MoE self layers and
+    the VLM's cross layers a pass, its cross layers a step; the hybrid's
+    shared-block calls a pass (decode attends over the cache, no kernel;
+    the pure SSM has none); the enc-dec's encoder layers and its decoder
+    layers' self and cross attention a pass, its cross layers a step."""
+    n = cfg.n_layers
+    if cfg.family in ("ssm", "hybrid"):
+        return (n // cfg.hybrid_every if cfg.hybrid_every else 0), 0
+    if cfg.family in ("encdec", "audio"):
+        return cfg.n_enc_layers + 2 * n, n
+    n_cross = n // cfg.cross_attn_every if cfg.cross_attn_every else 0
+    return n + n_cross, n_cross
+
+
+def cache_bytes(torch, cache):
+    """Bytes of a serving cache's tensors."""
+    return sum(v.numel() * v.element_size() for v in cache.values()
+               if isinstance(v, torch.Tensor))
+
+
+def prefill_memory(torch, model, params, cfg, batch, prompts, gen, seed):
+    """Prefill ``batch`` rows of random tokens at each of the two prompt
+    lengths ``prompts`` into a fresh cache: the served cache's bytes
+    after each, the prefill's peak bytes above what was allocated before
+    it, the slope between the two peaks (bytes a prompt position), and
+    the longest prompt whose prefill fits the card's memory beside what
+    is allocated when it is called (the parameters)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    served, peaks = [], []
+    for n in prompts:
+        cache = model.init_cache(batch, n + gen, device="cuda")
+        toks = torch.randint(0, cfg.vocab_size, (batch, n), generator=g,
+                             device="cuda", dtype=torch.int32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.no_grad():
+            _, cache = model.prefill(params, toks, cache)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        served.append(cache_bytes(torch, cache))
+        del cache, toks
+    (n0, n1), (p0, p1) = prompts, peaks
+    per_pos = (p1 - p0) / (n1 - n0)
+    room = torch.cuda.mem_get_info()[1] - torch.cuda.memory_allocated()
+    return {"prefill_prompts": list(prompts),
+            "cache_bytes_after_prefill": served,
+            "prefill_peak_bytes": peaks,
+            "prefill_bytes_a_position": per_pos,
+            "longest_prompt_fits": int((room - (p0 - per_pos * n0))
+                                       // per_pos)}
+
+
 # Teacher-forced check, bf16 compute: the served logits (prefill through
 # the flash kernel, decode through the plain einsum path over the cache)
 # against one forward over prompt + generated tokens (flash kernel), with
@@ -2808,7 +2916,10 @@ CHECK_ROWS = 2
 # layers.  Logits are ~N(0, 1) at init.  Stated before the first run:
 # max |diff| <= 0.5 over every compared logit and mean |diff| <= 0.06.
 # S4's forward takes the wave's f32 memory, its serving the cache's bf16
-# copy; S3's checks are in ``moe_serve_checks``.
+# copy; S3's checks are in ``moe_serve_checks``.  S5-S7 (stated before
+# their first run) are held to the same SERVE_TOL: S5/S6's decode is the
+# SSD recurrence (f32 state) against the forward's chunked scan, S7's
+# forward encodes the wave's f32 memory again (2 rows, other GEMM shapes).
 SERVE_TOL = {"max": 0.5, "mean": 0.06}
 
 
@@ -2975,17 +3086,20 @@ def moe_serve_checks(torch, model, params, cfg, waves, calls, prompt, gen,
 
 
 def serve_phase(torch, seed):
-    """S1-S4 through ``repro_torch.launch.serve.serve`` at the configs'
+    """S1-S7 through ``repro_torch.launch.serve.serve`` at the configs'
     full widths (S3 cut to 24 layers).  The flash counter is zeroed just
     before each run and read after its checks: every prefill and every
-    checking forward run each self and cross layer once through the
-    kernel, and each decode step each cross layer (S4) once."""
+    checking forward run each attention layer once through the kernel,
+    and each decode step each cross-attention layer (S4's, S7's) once
+    (``serve_flash_passes``).  Each row prints its cache's bytes; S5's
+    (the pure SSM's) is read again after prefills at its prompt and at
+    LONG_PROMPT, and must not change (``prefill_memory``)."""
     import dataclasses
 
     from repro_torch import configs
     from repro_torch.kernels import cuda
     from repro_torch.launch import serve
-    from repro_torch.models import transformer, zoo
+    from repro_torch.models import zoo
     rows, flash_launches = [], 0
     for label, arch, batch, prompt, gen, requests, layers in SERVE:
         cfg = configs.get(arch)
@@ -2993,7 +3107,7 @@ def serve_phase(torch, seed):
         if layers:
             cfg = dataclasses.replace(cfg, n_layers=layers)
         model = zoo.build(cfg)
-        n_cross = transformer.n_cross_layers(cfg)
+        per_pass, per_step = serve_flash_passes(cfg)
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3021,19 +3135,30 @@ def serve_phase(torch, seed):
                                              prompt, gen, label)
                 passes, steps = len(waves) + 1, gen * len(waves)
         launches = cuda.LAUNCHES["flash_fwd"]
-        want = (cfg.n_layers + n_cross) * passes + n_cross * steps
+        want = per_pass * passes + per_step * steps
         if launches != want:
             fail(f"{label}: flash_fwd launched {launches} times, expected "
-                 f"{want}: ({cfg.n_layers} self + {n_cross} cross layers) x "
-                 f"{passes} prefills and forwards + {n_cross} cross layers "
-                 f"x {steps} decode steps")
+                 f"{want}: {per_pass} attention layers x {passes} prefills "
+                 f"and forwards + {per_step} cross-attention layers x "
+                 f"{steps} decode steps")
         flash_launches += launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        cache = model.init_cache(batch, prompt + gen, device="cuda")
+        nb = {"cache_bytes": cache_bytes(torch, cache)}
+        del cache
+        if cfg.family == "ssm":
+            nb.update(prefill_memory(torch, model, params, cfg, batch,
+                                     (prompt, LONG_PROMPT), gen, seed))
+            if set(nb["cache_bytes_after_prefill"]) != {nb["cache_bytes"]}:
+                fail(f"{label}: the SSM cache's bytes depend on the prompt "
+                     f"length: {json.dumps(nb)}")
         pre = [w["prefill_s"] for w in waves]
         dec = [w["decode_s"] for w in waves]
         row = {"serve": label, "arch": arch,
                "params": sum(p.numel() for p in params.parameters()),
-               "layers": cfg.n_layers, "cross_layers": n_cross,
-               "config_layers": full_layers, "batch": batch,
+               "layers": cfg.n_layers, "config_layers": full_layers,
+               "flash_layers_a_pass": per_pass,
+               "flash_layers_a_decode_step": per_step, "batch": batch,
                "prompt_len": prompt, "gen": gen, "requests": requests,
                "waves": len(waves), "init_s": init_s, "prefill_s": pre,
                "decode_s": dec,
@@ -3041,8 +3166,7 @@ def serve_phase(torch, seed):
                "decode_tok_s": [batch * gen / t for t in dec],
                "flash_launches": launches,
                "flash_launches_serving": served,
-               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-               **check}
+               "peak_gib": peak_gib, **nb, **check}
         log(f"[serve] {json.dumps(row)}")
         rows.append(row)
         del params, waves, model, calls
@@ -3055,16 +3179,21 @@ def serve_phase(torch, seed):
 # --------------------------------------------------------------------------
 
 # (label, arch, batch, sequence length, steps, config overrides): the
-# configs' own accum_steps (4, 2, 4, 4) and remat (on).  Depth is cut
-# where 80 GB forces it (f32 masters, gradients and two AdamW moments, 16
-# B a parameter): T3 keeps 4 of qwen3-moe's 48 layers (~50 GB) with
+# configs' own accum_steps (4, 2, 4, 4, 2, 2, 2) and remat (on).  Depth is
+# cut where 80 GB forces it (f32 masters, gradients and two AdamW moments,
+# 16 B a parameter): T3 keeps 4 of qwen3-moe's 48 layers (~50 GB) with
 # scan_group 2 (its own 8 needs >= 16 layers, ~160 GB); T4 keeps 5 of
-# llama-3.2-vision's 40, one cross group (~35 GB)
+# llama-3.2-vision's 40, one cross group (~35 GB).  T5-T7 are whole
+# (~6, ~18 and ~16 GB of state): mamba2-370m, zamba2-1.2b, and
+# seamless-m4t-medium over batch_at's f32 memory [4, 4096, 1024]
 TRAIN = [("T1", "qwen2-1.5b", 8, 1024, 6, {}),
          ("T2", "gemma3-1b", 4, 2048, 2, {}),
          ("T3", "qwen3-moe-30b-a3b", 8, 1024, 3,
           {"n_layers": 4, "scan_group": 2}),
-         ("T4", "llama-3.2-vision-11b", 4, 1024, 2, {"n_layers": 5})]
+         ("T4", "llama-3.2-vision-11b", 4, 1024, 2, {"n_layers": 5}),
+         ("T5", "mamba2-370m", 8, 1024, 3, {}),
+         ("T6", "zamba2-1.2b", 8, 1024, 3, {}),
+         ("T7", "seamless-m4t-medium", 4, 512, 2, {})]
 GRAD_SEQ = 1024
 # The gradient check, stated before the first run: T1's model on one
 # 1 x 1024 microbatch, bf16 compute, the loss and every parameter's
@@ -3079,24 +3208,26 @@ RESTART_STEPS, RESTART_FAIL_AT = 8, 5
 
 def train_flash_passes(cfg):
     """The flash forward and backward launches of one microbatch's
-    forward and backward under ``cfg``: each self and cross block runs
-    the forward once and the backward once; remat runs every block's
-    forward again in its backward.  With ``scan_group`` gk (the dense and
-    MoE stacks) a group's outer checkpoint recomputes the group in the
-    backward, and torch's non-reentrant checkpoint stops that recompute
-    once every tensor the group saved is back: under remat the group
-    saved only its blocks' inputs, so the recompute ends at the last
-    block's input (gk - 1 forwards) and each block then runs once more in
-    its own backward; without remat the recompute runs all gk (the JAX
-    package runs 3 forwards a block under remat and groups, the port
-    3 - 1/gk)."""
+    forward and backward under ``cfg``: each attention of the pass (a
+    self or cross block's; the hybrid's shared calls, the enc-dec's
+    encoder layers and its decoder layers' self and cross attention)
+    runs the forward once and the backward once, and remat runs each
+    checkpointed block's forward again in its backward (the pure SSM has
+    none).  With ``scan_group`` gk (the dense and MoE stacks) a group's
+    outer checkpoint recomputes the group in the backward, and torch's
+    non-reentrant checkpoint stops that recompute once every tensor the
+    group saved is back: under remat the group saved only its blocks'
+    inputs, so the recompute ends at the last block's input (gk - 1
+    forwards) and each block then runs once more in its own backward;
+    without remat the recompute runs all gk (the JAX package runs 3
+    forwards a block under remat and groups, the port 3 - 1/gk)."""
     n, remat, gk = cfg.n_layers, cfg.remat, cfg.scan_group
-    n_cross = n // cfg.cross_attn_every if cfg.cross_attn_every else 0
-    if not n_cross and gk and n % gk == 0 and gk < n:
+    attn = serve_flash_passes(cfg)[0]
+    if cfg.family in ("dense", "moe") and gk and n % gk == 0 and gk < n:
         fwd = n + (n // gk) * (2 * gk - 1 if remat else gk)
     else:
-        fwd = (n + n_cross) * (2 if remat else 1)
-    return {"flash_fwd": fwd, "flash_bwd": n + n_cross}
+        fwd = attn * (2 if remat else 1)
+    return {"flash_fwd": fwd, "flash_bwd": attn}
 
 
 def grad_check(torch, model, params, cfg, seed):
@@ -3153,13 +3284,13 @@ def grad_check(torch, model, params, cfg, seed):
 
 
 def train_phase(torch, seed):
-    """T1-T4 through ``repro_torch.launch.train.train`` at the configs'
+    """T1-T7 through ``repro_torch.launch.train.train`` at the configs'
     full widths (T3, T4 cut in depth), random weights from the seed, the
-    launcher's ``batch_at`` data (T4's with its f32 memory).  The flash
-    counters are zeroed just before each run and read after every step:
-    each step must launch ``train_flash_passes`` x microbatches.  Losses,
-    gradient norms and the MoE's aux loss must be finite.  Then the
-    gradient check on T1's model."""
+    launcher's ``batch_at`` data (T4's and T7's with their f32 memory).
+    The flash counters are zeroed just before each run and read after
+    every step: each step must launch ``train_flash_passes`` x
+    microbatches.  Losses, gradient norms and the MoE's aux loss must be
+    finite.  Then the gradient check on T1's model."""
     import dataclasses
 
     from repro_torch import configs

@@ -3,8 +3,8 @@
 Every architecture is selectable by id:  ``configs.get("yi-34b")``.
 ``configs.smoke(id)`` returns the reduced same-family config used by the
 CPU tests.  Data only, copied from the JAX package so that the port
-imports none of it; in this port the dense, MoE and VLM families can be
-built (``models.zoo.build``), at full width on the card.
+imports none of it; every config can be built (``models.zoo.build``),
+at full width on the card.
 """
 
 from __future__ import annotations

@@ -3,12 +3,14 @@
 The state of a join is the relations' columns and validity: these helpers
 build the port's relations from numpy arrays (and back), so the tests and
 the smoke run feed both packages the same data.  The state of a language
-model is its parameter tree and its KV cache: ``lm_params_from_numpy``
-turns the JAX package's ``init_lm`` tree (numpy leaves, stacked ``[L, ...]``
-per layer; dense, MoE and VLM) into a ``TransformerLM`` and
-``lm_params_to_numpy`` back;
-``cache_from_numpy`` carries a KV cache across.  The state of training is
-the JAX package's ``TrainState(params, opt={"m", "v", "step"}, step)``:
+model is its parameter tree and its serving cache:
+``lm_params_from_numpy`` turns the JAX package's ``init_lm`` /
+``init_encdec`` tree (numpy leaves, stacked ``[L, ...]`` per layer) into
+the port's model of the config's family (``TransformerLM``, ``HybridLM``
+or ``EncDecLM``) and ``lm_params_to_numpy`` back; ``cache_from_numpy``
+carries a cache across (KV, SSM state and conv window, memory).  The
+state of training is the JAX package's ``TrainState(params, opt={"m",
+"v", "step"}, step)``:
 ``train_state_to_numpy`` gives it as nested dicts with numpy leaves (the
 moments in the parameters' tree layout), ``train_state_from_numpy`` builds
 the port's ``TrainState`` from such a tree.
@@ -22,7 +24,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.relation import Relation, as_int32, resolve_device
-from repro_torch.models import attention, layers, moe, transformer
+from repro_torch.models import (attention, encdec, hybrid, layers, moe,
+                                ssm, transformer)
 from repro_torch.models.config import ModelConfig
 
 
@@ -79,81 +82,149 @@ def _tensor(x, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(x)).to(device)
 
 
-def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
-                         device=None) -> transformer.TransformerLM:
-    """The port's ``TransformerLM`` from the JAX package's ``init_lm``
-    parameter tree with numpy leaves (dense or MoE blocks under
-    ``layers``, the VLM's cross blocks under ``cross_layers``);
-    ``device=None`` means the card."""
-    dev = resolve_device(device)
-    lay = tree["layers"]
-    n_layers = np.asarray(lay["ln_attn"]["scale"]).shape[0]
-    if n_layers != cfg.n_layers:
-        raise ValueError(f"the tree has {n_layers} layers, {cfg.name} has "
-                         f"{cfg.n_layers}")
+class _Loader:
+    """Modules of the port from the JAX tree's leaves (numpy, f32 on
+    ``dev``); ``i`` indexes a stacked leaf, -1 takes it whole."""
 
-    def t(x):
-        return _tensor(np.asarray(x, dtype=np.float32), dev)
+    def __init__(self, dev: torch.device):
+        self.dev = dev
 
-    def lin(d, i):
-        return layers.Linear(t(d["w"][i]), t(d["b"][i]) if "b" in d else None)
+    def t(self, x, i=-1):
+        x = np.asarray(x, dtype=np.float32)
+        return _tensor(x[i] if i >= 0 else x, self.dev)
 
-    def norm(d, i):
-        return layers.RMSNorm(t(d["scale"][i]))
+    def lin(self, d, i=-1):
+        return layers.Linear(self.t(d["w"], i),
+                             self.t(d["b"], i) if "b" in d else None)
 
-    def glu(d, i):
-        return layers.GLUMLP(*(lin(d[n], i) for n in ("gate", "up", "down")))
+    def norm(self, d, i=-1):
+        return layers.RMSNorm(self.t(d["scale"], i))
 
-    def attn(a, i):
-        qk = ((norm(a["q_norm"], i), norm(a["k_norm"], i))
+    def glu(self, d, i=-1):
+        return layers.GLUMLP(*(self.lin(d[n], i)
+                               for n in ("gate", "up", "down")))
+
+    def attn(self, a, i=-1):
+        qk = ((self.norm(a["q_norm"], i), self.norm(a["k_norm"], i))
               if "q_norm" in a else ())
-        return attention.Attention(*(lin(a[n], i) for n in
+        return attention.Attention(*(self.lin(a[n], i) for n in
                                      ("wq", "wk", "wv", "wo")), *qk)
+
+    def block(self, d, i=-1):
+        """A dense ``transformer.Block`` (no MoE)."""
+        return transformer.Block(self.norm(d["ln_attn"], i),
+                                 self.attn(d["attn"], i),
+                                 self.norm(d["ln_mlp"], i),
+                                 mlp=self.glu(d["mlp"], i))
+
+    def ssm_block(self, d, i):
+        s = d["ssm"]
+        mixer = ssm.SSM(self.lin(s["in_proj"], i),
+                        ssm.DepthwiseConv(self.t(s["conv"]["w"], i),
+                                          self.t(s["conv"]["b"], i)),
+                        self.t(s["a_log"], i), self.t(s["dt_bias"], i),
+                        self.t(s["d_skip"], i), self.norm(s["gate_norm"], i),
+                        self.lin(s["out_proj"], i))
+        return hybrid.SSMBlock(self.norm(d["ln"], i), mixer)
+
+    def dec_block(self, d, i):
+        return encdec.DecBlock(self.norm(d["ln_attn"], i),
+                               self.attn(d["attn"], i),
+                               self.norm(d["ln_cross"], i),
+                               self.attn(d["xattn"], i),
+                               self.norm(d["ln_mlp"], i),
+                               self.glu(d["mlp"], i))
+
+
+def _stack_len(tree: Mapping, key: str, leaf: str, want: int,
+               cfg: ModelConfig) -> int:
+    """The leading dimension of ``tree[key]``'s stacked leaves (read at
+    ``leaf``; 0 where the tree has no ``key``), which must be the
+    config's ``want``."""
+    n = 0
+    if key in tree:
+        node = tree[key]
+        for part in leaf.split("/"):
+            node = node[part]
+        n = np.asarray(node).shape[0]
+    if n != want:
+        raise ValueError(f"the tree has {n} {key}, {cfg.name} has {want}")
+    return n
+
+
+def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None):
+    """The port's model from the JAX package's parameter tree with numpy
+    leaves (``init_lm`` / ``init_encdec``; per-layer leaves stacked
+    ``[L, ...]``), by the config's family: a ``TransformerLM`` (dense or
+    MoE blocks under ``layers``, the VLM's cross blocks under
+    ``cross_layers``), a ``hybrid.HybridLM`` (SSM blocks under ``layers``,
+    the hybrid's unstacked ``shared_block``) or an ``encdec.EncDecLM``
+    (``enc_layers``, ``dec_layers``); ``device=None`` means the card."""
+    dev = resolve_device(device)
+    ld = _Loader(dev)
+    head = (layers.Embed(ld.t(tree["lm_head"]["table"]))
+            if "lm_head" in tree else None)
+    embed = layers.Embed(ld.t(tree["embed"]["table"]))
+    final_norm = ld.norm(tree["final_norm"])
+    if cfg.family in ("ssm", "hybrid"):
+        n = _stack_len(tree, "layers", "ln/scale", cfg.n_layers, cfg)
+        blocks = [ld.ssm_block(tree["layers"], i) for i in range(n)]
+        shared = (ld.block(tree["shared_block"]) if cfg.is_hybrid
+                  else None)
+        return hybrid.HybridLM(cfg, embed, blocks, final_norm, shared, head)
+    if cfg.family in ("encdec", "audio"):
+        ne = _stack_len(tree, "enc_layers", "ln_attn/scale",
+                        cfg.n_enc_layers, cfg)
+        nd = _stack_len(tree, "dec_layers", "ln_attn/scale", cfg.n_layers,
+                        cfg)
+        return encdec.EncDecLM(
+            cfg, embed, [ld.block(tree["enc_layers"], i) for i in range(ne)],
+            ld.norm(tree["enc_norm"]),
+            [ld.dec_block(tree["dec_layers"], i) for i in range(nd)],
+            final_norm, head)
+    lay = tree["layers"]
+    n_layers = _stack_len(tree, "layers", "ln_attn/scale", cfg.n_layers,
+                          cfg)
 
     def ffn(i):
         if "moe" not in lay:
-            return {"mlp": glu(lay["mlp"], i)}
+            return {"mlp": ld.glu(lay["mlp"], i)}
         m = lay["moe"]
-        return {"moe": moe.MoE(lin(m["router"], i), t(m["gate"][i]),
-                               t(m["up"][i]), t(m["down"][i]),
-                               glu(m["shared"], i) if "shared" in m
+        return {"moe": moe.MoE(ld.lin(m["router"], i), ld.t(m["gate"], i),
+                               ld.t(m["up"], i), ld.t(m["down"], i),
+                               ld.glu(m["shared"], i) if "shared" in m
                                else None)}
 
-    blocks = [transformer.Block(norm(lay["ln_attn"], i),
-                                attn(lay["attn"], i),
-                                norm(lay["ln_mlp"], i), **ffn(i))
+    blocks = [transformer.Block(ld.norm(lay["ln_attn"], i),
+                                ld.attn(lay["attn"], i),
+                                ld.norm(lay["ln_mlp"], i), **ffn(i))
               for i in range(n_layers)]
+    n_cross = _stack_len(tree, "cross_layers", "ln/scale",
+                         transformer.n_cross_layers(cfg), cfg)
     cross = tree.get("cross_layers", {})
-    n_cross = (np.asarray(cross["ln"]["scale"]).shape[0] if cross else 0)
-    if n_cross != transformer.n_cross_layers(cfg):
-        raise ValueError(f"the tree has {n_cross} cross layers, {cfg.name} "
-                         f"has {transformer.n_cross_layers(cfg)}")
-    cross_blocks = [transformer.CrossBlock(norm(cross["ln"], j),
-                                           attn(cross["xattn"], j))
+    cross_blocks = [transformer.CrossBlock(ld.norm(cross["ln"], j),
+                                           ld.attn(cross["xattn"], j))
                     for j in range(n_cross)]
-    head = (layers.Embed(t(tree["lm_head"]["table"])) if "lm_head" in tree
-            else None)
-    return transformer.TransformerLM(
-        cfg, layers.Embed(t(tree["embed"]["table"])), blocks,
-        layers.RMSNorm(t(tree["final_norm"]["scale"])), head, cross_blocks)
+    return transformer.TransformerLM(cfg, embed, blocks, final_norm, head,
+                                     cross_blocks)
 
 
-def lm_params_to_numpy(params: transformer.TransformerLM) -> dict:
+def lm_params_to_numpy(params) -> dict:
     """The JAX package's parameter tree (numpy f32 leaves, per-layer
-    leaves stacked ``[L, ...]`` under ``"layers"`` and the cross blocks'
-    under ``"cross_layers"``) of a TransformerLM."""
+    leaves stacked ``[L, ...]`` under their stack's key, ``leaf_paths``)
+    of any of the port's models."""
     return _tree_of(leaf_paths(params), params.parameters())
 
 
 def cache_from_numpy(cache: Mapping, device=None) -> dict:
-    """A KV cache ``{"k", "v": [L, B, T, KVH, D], "length"}`` (and the
-    VLM's ``"memory"``) with numpy leaves (bfloat16 too) as the port's
-    cache, dtypes kept."""
+    """A serving cache with numpy leaves (bfloat16 too) as the port's,
+    dtypes kept: the KV cache ``{"k", "v": [L, B, T, KVH, D], "length"}``
+    (and the VLM's and enc-dec's ``"memory"``), or the SSM/hybrid cache
+    (``"state"``, ``"conv"``, ``"length"``, and the hybrid's ``"k"``,
+    ``"v"``)."""
     dev = resolve_device(device)
-    out = {"k": _tensor(cache["k"], dev), "v": _tensor(cache["v"], dev),
-           "length": int(np.asarray(cache["length"]))}
-    if "memory" in cache:
-        out["memory"] = _tensor(cache["memory"], dev)
+    out = {k: _tensor(v, dev) for k, v in cache.items() if k != "length"}
+    out["length"] = int(np.asarray(cache["length"]))
     return out
 
 
@@ -161,13 +232,17 @@ def cache_from_numpy(cache: Mapping, device=None) -> dict:
 # training state
 # --------------------------------------------------------------------------
 
-_STACKS = {"blocks": "layers", "cross_blocks": "cross_layers"}
+# the port's module lists -> the JAX tree's stacked keys
+_STACKS = {"blocks": "layers", "cross_blocks": "cross_layers",
+           "enc_blocks": "enc_layers", "dec_blocks": "dec_layers"}
 
 
-def leaf_paths(params: transformer.TransformerLM) -> list[tuple[str, int]]:
+def leaf_paths(params) -> list[tuple[str, int]]:
     """For each tensor of ``params.parameters()``, in that order: its
     ``/``-joined path in the JAX parameter tree and its index in its
-    stack (``layers`` or ``cross_layers``; -1 outside them)."""
+    stack (``layers``, ``cross_layers``, ``enc_layers`` or
+    ``dec_layers``; -1 outside them, as for the hybrid's
+    ``shared_block``)."""
     out = []
     for name, _ in params.named_parameters():
         parts = name.split(".")
@@ -184,6 +259,8 @@ def stack_length(cfg: ModelConfig, path: str) -> int:
     (a path ``leaf_paths`` gives with an index >= 0)."""
     if path.startswith("cross_layers/"):
         return transformer.n_cross_layers(cfg)
+    if path.startswith("enc_layers/"):
+        return cfg.n_enc_layers
     return cfg.n_layers
 
 

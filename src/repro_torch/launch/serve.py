@@ -5,11 +5,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --smoke --device cpu
 
-Requests are served in batch waves: prefill fills the KV cache for the
-whole batch (every layer's attention in the flash kernel on the card;
-the VLM's wave also draws its modality memory, which the prefill puts in
-the cache), then ``decode_step`` emits one greedy token per sequence per step.  When a
-wave finishes, the next wave's prompts get a fresh cache.  Parameters are
+Requests are served in batch waves: prefill fills the cache for the whole
+batch (every attention layer in the flash kernel on the card; the SSM
+layers' states and conv windows; the VLM's and enc-dec's waves also draw
+their modality memory, which the prefill puts in the cache, encoded for
+the enc-dec), then ``decode_step`` emits one greedy token per sequence
+per step.  When a wave finishes, the next wave's prompts get a fresh
+cache.  Parameters are
 drawn from ``torch.Generator(seed)`` on the serving device and the prompts
 from ``np.random.default_rng(seed)``, as the JAX launcher draws them.
 """
@@ -40,8 +42,9 @@ def serve(model: zoo.Model, params, *, batch: int, prompt_len: int,
 
     Returns one dict per wave: ``prefill_s`` and ``decode_s`` (host clock,
     each ending in a device synchronise), ``prompts`` [batch, prompt_len],
-    ``memory`` (the VLM's f32 [batch, n_frontend_tokens, d_model], drawn
-    right after the prompts as the JAX launcher draws it; else None)
+    ``memory`` (the VLM's or enc-dec's f32 [batch, n_frontend_tokens,
+    d_model], drawn right after the prompts as the JAX launcher draws it;
+    else None)
     and ``tokens`` [batch, gen + 1] (the token greedy decoding picked after
     the prefill, then one per decode step), and with ``keep_rows`` > 0 the
     served f32 ``logits`` [keep_rows, gen + 1, V] of the first rows (the

@@ -78,7 +78,7 @@ def train(model: zoo.Model, *, steps: int, batch: int, seq: int,
             state = restored
 
     def batch_for_step(step):
-        # inputs, targets and, for the VLM, the f32 memory
+        # inputs, targets and, for the VLM and the enc-dec, the f32 memory
         return {k: torch.from_numpy(v).to(device)
                 for k, v in batch_at(gen, step).items()}
 

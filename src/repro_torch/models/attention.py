@@ -22,6 +22,11 @@ before the ``PV`` product, as in JAX.
 The cache is ``{"k", "v": [L, B, T, KVH, D], "length": int}``; the port
 updates it in place (the JAX package returns a new one), and its length is
 a host integer, so no decode step waits on the device to build its masks.
+The transformer decodes with ``project_kv_token`` +
+``decode_attention_append`` (the cache read only, the new token scored
+from its own k); the SSM/hybrid and enc-dec families with ``append_kv`` +
+``decode_attention``, as the JAX package does: the new k/v are written at
+``length`` first, cast to the cache's dtype, and scored from there.
 """
 
 from __future__ import annotations
@@ -160,9 +165,13 @@ def cross_attention(p: Attention, cfg, x, memory):
 # KV cache (decode)
 # --------------------------------------------------------------------------
 
-def init_kv_cache(cfg, batch, max_len, dtype=torch.bfloat16, device=None):
-    """[L, B, T, KVH, D] stacked cache (+ current length)."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+def init_kv_cache(cfg, batch, max_len, dtype=torch.bfloat16, device=None,
+                  n_layers=None):
+    """[L, B, T, KVH, D] stacked cache (+ current length); L is
+    ``n_layers`` when given (the hybrid's shared-block calls), else the
+    config's layers."""
+    nl = cfg.n_layers if n_layers is None else n_layers
+    shape = (nl, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "length": 0}
@@ -187,43 +196,51 @@ def project_kv_token(p: Attention, cfg, x, length: int, *, theta=None):
     return k, v
 
 
-def decode_attention_append(p: Attention, cfg, x, layer_k, layer_v, k_new,
-                            v_new, length: int, *, window=0, theta=None):
-    """One-token attention: scores against the cache slots before
-    ``length`` plus the new token's own score, computed separately (the
-    cache is read only).  x [B,1,d]; layer_k/v [B,T,KVH,D]."""
+def _decode_query(p: Attention, cfg, x, length: int, theta):
+    """This step's query, grouped by kv head: [B,1,KVH,G,D]."""
     b = x.shape[0]
-    t = layer_k.shape[1]
     hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    g = nq // nkv
     theta = cfg.rope_theta if theta is None else theta
-
     q = layers.linear(x, p.wq.w, p.wq.b).reshape(b, 1, nq, hd)
     if cfg.qk_norm:
         q = layers.rms_norm(q, p.q_norm.scale, cfg.norm_eps)
     if theta is not None:
         q = layers.rope(q, _token_positions(x, length), theta)
-    qg = q.reshape(b, 1, nkv, g, hd)
+    return q.reshape(b, 1, nkv, nq // nkv, hd)
 
-    # operands in q's dtype, products in f32
-    qf = qg.float()
-    s = torch.einsum("bqkgd,btkd->bkgqt", qf,
-                     layer_k.to(qg.dtype).float()) / (hd ** 0.5)
+
+def _decode_scores(qg, keys):
+    """f32 scores [B,KVH,G,1,T] of the grouped query against keys
+    [B,T,KVH,D]: operands in q's dtype, products in f32."""
+    return torch.einsum("bqkgd,btkd->bkgqt", qg.float(),
+                        keys.to(qg.dtype).float()) / (qg.shape[-1] ** 0.5)
+
+
+def _decode_values(wts, values):
+    """f32 [B,1,KVH,G,D]: the weights, cast to the values' dtype, times
+    the values [B,T,KVH,D]."""
+    return torch.einsum("bkgqt,btkd->bqkgd", wts.to(values.dtype).float(),
+                        values.float())
+
+
+def decode_attention_append(p: Attention, cfg, x, layer_k, layer_v, k_new,
+                            v_new, length: int, *, window=0, theta=None):
+    """One-token attention: scores against the cache slots before
+    ``length`` plus the new token's own score, computed separately (the
+    cache is read only).  x [B,1,d]; layer_k/v [B,T,KVH,D]."""
+    b, t = x.shape[0], layer_k.shape[1]
+    qg = _decode_query(p, cfg, x, length, theta)
+    s = _decode_scores(qg, layer_k)
     kpos = torch.arange(t, device=x.device)
     mask = kpos < length                       # strictly-past cache slots
     if window > 0:
         mask = mask & (kpos > length - window)
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    s_new = torch.einsum("bqkgd,btkd->bkgqt", qf,
-                         k_new.to(qg.dtype).float()) / (hd ** 0.5)
-    sc = torch.cat([s, s_new], dim=-1)         # [B,KVH,G,1,T+1]
+    s = s.masked_fill(~mask, NEG_INF)
+    sc = torch.cat([s, _decode_scores(qg, k_new)], dim=-1)  # [..., T+1]
     wts = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bkgqt,btkd->bqkgd",
-                       wts[..., :t].to(layer_v.dtype).float(),
-                       layer_v.float()) \
-        + torch.einsum("bkgqt,btkd->bqkgd",
-                       wts[..., t:].to(v_new.dtype).float(), v_new.float())
-    out = out.reshape(b, 1, nq * hd).to(x.dtype)
+    out = (_decode_values(wts[..., :t], layer_v)
+           + _decode_values(wts[..., t:], v_new))
+    out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x.dtype)
     return layers.linear(out, p.wo.w)
 
 
@@ -233,3 +250,33 @@ def write_kv_stack(cache_k, cache_v, ks, vs, length: int):
     cache_k[:, :, length:length + 1] = ks.to(cache_k.dtype)
     cache_v[:, :, length:length + 1] = vs.to(cache_v.dtype)
     return cache_k, cache_v
+
+
+def append_kv(p: Attention, cfg, x, layer_k, layer_v, length: int, *,
+              theta=None):
+    """Project this step's k/v and write them into layer_k/v
+    [B,T,KVH,D] at ``length``, cast to the cache's dtype, in place;
+    returns (layer_k, layer_v).  With ``decode_attention`` this is the
+    SSM/hybrid and enc-dec families' decode (the transformer's is
+    ``project_kv_token`` + ``decode_attention_append``)."""
+    k, v = project_kv_token(p, cfg, x, length, theta=theta)
+    layer_k[:, length:length + 1] = k.to(layer_k.dtype)
+    layer_v[:, length:length + 1] = v.to(layer_v.dtype)
+    return layer_k, layer_v
+
+
+def decode_attention(p: Attention, cfg, x, layer_k, layer_v, length: int,
+                     *, theta=None):
+    """One-token self-attention against the cache, which already holds
+    this step's k/v at ``length`` (``append_kv``): the new token is scored
+    from its cache copy, in the cache's dtype, as the JAX package scores
+    it.  x [B,1,d]; layer_k/v [B,T,KVH,D]; returns [B,1,d].  No window:
+    no family that decodes through it has one."""
+    b, t = x.shape[0], layer_k.shape[1]
+    qg = _decode_query(p, cfg, x, length, theta)
+    s = _decode_scores(qg, layer_k)
+    kpos = torch.arange(t, device=x.device)
+    s = s.masked_fill(kpos > length, NEG_INF)
+    out = _decode_values(torch.softmax(s, dim=-1), layer_v)
+    out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x.dtype)
+    return layers.linear(out, p.wo.w)

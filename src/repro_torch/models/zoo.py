@@ -8,10 +8,10 @@
   logits, cache = model.decode_step(params, cache, tokens)
 
 ``memory`` is the stubbed modality frontend's output ([B, T_frontend,
-d_model]) for the vlm family (``needs_memory``); None elsewhere.  The
-dense, MoE and VLM families are ported (``models.transformer``); every
-other family raises ``NotImplementedError`` naming the ROADMAP item that
-brings it.
+d_model]) for the vlm, encdec and audio families (``needs_memory``); None
+elsewhere.  The dense, MoE and VLM families are ``models.transformer``,
+the SSM and hybrid ones ``models.hybrid``, the enc-dec and audio ones
+``models.encdec``.
 """
 
 from __future__ import annotations
@@ -21,17 +21,8 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, hybrid, transformer
 from repro_torch.models.config import ModelConfig
-
-# family -> what is still to port for it (ROADMAP Queue A, "the other LM
-# families")
-NOT_PORTED = {
-    "ssm": "SSM/hybrid (models/ssm.py, models/hybrid.py)",
-    "hybrid": "SSM/hybrid (models/ssm.py, models/hybrid.py)",
-    "encdec": "enc-dec (models/encdec.py)",
-    "audio": "enc-dec (models/encdec.py)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,9 +49,25 @@ def build(cfg: ModelConfig) -> Model:
                 p, cfg, t, c, memory=memory),
             decode_step=lambda p, c, t: transformer.decode_step(p, cfg, c, t),
             needs_memory=transformer.takes_memory(cfg))
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; "
-            f"ROADMAP Queue A, \"the other LM families\", lists "
-            f"{NOT_PORTED[cfg.family]}")
+    if cfg.family in ("ssm", "hybrid"):
+        return Model(
+            config=cfg,
+            init=lambda gen: hybrid.init_lm(gen, cfg),
+            forward=lambda p, t, memory=None: hybrid.forward(p, cfg, t),
+            init_cache=lambda b, ml, dtype=torch.bfloat16, device=None:
+                hybrid.init_cache(cfg, b, ml, dtype, device),
+            prefill=lambda p, t, c, memory=None: hybrid.prefill(p, cfg, t, c),
+            decode_step=lambda p, c, t: hybrid.decode_step(p, cfg, c, t))
+    if cfg.family in ("encdec", "audio"):
+        return Model(
+            config=cfg,
+            init=lambda gen: encdec.init_encdec(gen, cfg),
+            forward=lambda p, t, memory=None: encdec.forward(
+                p, cfg, t, memory=memory),
+            init_cache=lambda b, ml, dtype=torch.bfloat16, device=None:
+                encdec.init_cache(cfg, b, ml, dtype, device),
+            prefill=lambda p, t, c, memory=None: encdec.prefill(
+                p, cfg, t, c, memory=memory),
+            decode_step=lambda p, c, t: encdec.decode_step(p, cfg, c, t),
+            needs_memory=True)
     raise ValueError(f"unknown family {cfg.family!r}")

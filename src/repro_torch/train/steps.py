@@ -2,7 +2,7 @@
 
 Batch format: ``{"inputs": [B, S] int, "targets": [B, S] int, optional
 "memory": [B, T_frontend, d_model]}`` tensors on the model's device (the
-memory is the VLM's stubbed modality frontend).
+memory is the VLM's or the enc-dec's stubbed modality frontend).
 
 The train step is the JAX package's: the mean token NLL plus a z-loss
 (plus ``moe_aux_weight`` times the MoE's load-balance loss), microbatch
@@ -27,7 +27,7 @@ from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
 
 class TrainState(NamedTuple):
-    params: Any            # the model's parameters (a TransformerLM)
+    params: Any            # the model's parameters (an nn.Module)
     opt: dict              # {"m": [f32], "v": [f32], "step": int32}
     step: torch.Tensor     # int32 scalar
 

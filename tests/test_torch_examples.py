@@ -1,16 +1,18 @@
 """The ported examples (``examples/*_torch.py``) against the reference's.
 
 Each pair runs as subprocesses at the same arguments: the reference under
-``JAX_PLATFORMS=cpu``, the port with ``--device cpu``.  All ten start at
-once (module fixture) and each case waits for its pair.  The printed lines
+``JAX_PLATFORMS=cpu``, the port with ``--device cpu``.  All twelve start
+at once (module fixture) and each case waits for its pair.  The printed lines
 must be equal once the host-clock times, the checkpoint path and the
 straggler lines (both from the host's clock) are masked.  ``train_lm``'s
 losses are masked too: the port draws its parameters from
 ``torch.Generator`` and the reference from ``jax.random``, so the two runs
 train different models; its model line, the steps it logs, the crash,
 the checkpoint and the resumed step must be equal, and each example
-asserts that its loss fell.  The ported examples also check their counts
-against oracles of their own.
+asserts that its loss fell.  ``serve_lm``'s sampled tokens are masked for
+the same reason, and its tok/s (host clock); its lines, configs, prompt
+and generation lengths must be equal.  The ported examples also check
+their counts against oracles of their own.
 """
 
 import os
@@ -24,7 +26,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 EXAMPLES = ROOT / "examples"
 TIMEOUT_S = 300
-# ten processes at once: one thread each keeps them from oversubscribing
+# twelve processes at once: one thread each keeps them from oversubscribing
 # the cores (and the other test workers')
 ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1",
               "XLA_FLAGS": "--xla_cpu_multi_thread_eigen=false "
@@ -39,6 +41,7 @@ CASES = {
     "streaming_counts": [],
     "train_lm": ["--steps", "110", "--d-model", "64", "--layers", "2",
                  "--vocab", "256", "--batch", "4", "--seq", "32"],
+    "serve_lm": [],
 }
 
 _MASKS = [
@@ -52,6 +55,8 @@ _MASKS = [
     (re.compile(r"^(Pallas )?bucket_pair_count \([^)]*\): "),
      "bucket_pair_count: "),
 ]
+_SAMPLES = [(re.compile(r" +\d+\.\d+ tok/s   sample: \[[\d, ]*\]$"),
+             " <x> tok/s   sample: <tokens>")]
 _LOSSES = [(re.compile(r"loss \d+\.\d+ -> \d+\.\d+"), "loss <x> -> <x>"),
            (re.compile(r"(loss|gnorm) \d+\.\d+"), r"\1 <x>")]
 
@@ -61,8 +66,8 @@ def _normalized(text, name):
     for line in text.splitlines():
         if line.startswith("[ft] straggler"):
             continue
-        for pattern, repl in _MASKS + (_LOSSES if name == "train_lm"
-                                       else []):
+        extra = {"train_lm": _LOSSES, "serve_lm": _SAMPLES}.get(name, [])
+        for pattern, repl in _MASKS + extra:
             line = pattern.sub(repl, line)
         lines.append(line)
     return lines
@@ -107,11 +112,9 @@ def test_ported_example_prints_the_reference_counts(runs, name):
     assert len(got) >= 5
 
 
-def test_every_reference_example_but_serving_is_ported():
+def test_every_reference_example_is_ported():
     ported = {p.name[:-len("_torch.py")]
               for p in EXAMPLES.glob("*_torch.py")}
     reference = {p.stem for p in EXAMPLES.glob("*.py")} - {
         p.stem for p in EXAMPLES.glob("*_torch.py")}
-    # serve_lm waits for the other LM families (ROADMAP Queue A item 7)
-    assert reference - ported == {"serve_lm"}
-    assert ported == set(CASES)
+    assert reference == ported == set(CASES)

@@ -1,6 +1,9 @@
 """The port's LM serving path against the JAX package, on the CPU: the
 dense configs, the MoE ones and the VLM's (its modality memory passed to
-the prefill and the forward).
+the prefill and the forward).  The SSM, hybrid and enc-dec families'
+parity is in ``test_torch_ssm.py``, ``test_torch_hybrid.py`` and
+``test_torch_encdec.py``; here each is served and trained once through
+the launchers.
 
 The JAX package's ``init_lm`` parameters go through
 ``convert.lm_params_from_numpy``; both packages then run the same prompts:
@@ -216,12 +219,38 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
         convert.lm_params_from_numpy(tree, configs.smoke("qwen2-1.5b"))
 
 
-@pytest.mark.parametrize("arch", [a for a in configs.ARCH_IDS
-                                  if configs.get(a).family
-                                  not in ("dense", "moe", "vlm")])
-def test_other_families_are_not_ported_yet(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zoo.build(configs.get(arch))
+SSM_HYBRID_ENCDEC = ["mamba2-370m", "zamba2-1.2b", "seamless-m4t-medium"]
+
+
+@pytest.mark.parametrize("arch", SSM_HYBRID_ENCDEC)
+def test_ssm_hybrid_and_encdec_families_serve_and_train(arch, capsys):
+    """Each smoke config builds, serves one request of two generated tokens
+    through ``launch.serve`` (the enc-dec's wave drawing its memory) and
+    trains one step through ``launch.train``, on the CPU."""
+    from repro_torch.launch import train
+    waves = serve.main(["--arch", arch, "--smoke", "--batch", "1",
+                        "--prompt-len", "8", "--gen", "2", "--requests", "1",
+                        "--device", "cpu"])
+    cfg = configs.smoke(arch)
+    assert len(waves) == 1 and waves[0]["tokens"].shape == (1, 3)
+    assert (waves[0]["memory"] is None) == (cfg.family != "audio")
+    state, losses = train.main(["--arch", arch, "--smoke", "--steps", "1",
+                                "--batch", "2", "--seq", "8", "--device",
+                                "cpu"])
+    assert len(losses) == 1 and np.isfinite(losses[0])
+    assert int(state.step) == 1
+    out = capsys.readouterr().out.splitlines()
+    assert out[1].startswith("served 1 requests, 2 decode steps in ")
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_every_config_builds(arch):
+    """``zoo.build`` builds every config at full width (the parameters are
+    drawn on the card, not here), with the JAX package's ``needs_memory``."""
+    cfg = configs.get(arch)
+    model = zoo.build(cfg)
+    assert model.config is cfg
+    assert model.needs_memory == jzoo.build(jconfigs.get(arch)).needs_memory
 
 
 def test_transformer_families_build_at_full_width():

@@ -513,13 +513,19 @@ def _smoke_module():
 
 # (arch, n_layers, scan_group, remat): flat, remat, the groups with and
 # without remat (gk 2 and 4), the VLM's cross groups, and T3's and T4's
-# cut configs' shapes
+# cut configs' shapes; the hybrid's shared calls (2 calls and a tail
+# layer, and 3 calls), the pure SSM (none), and the enc-dec's encoder,
+# decoder self and cross layers
 FLASH_COUNT_CASES = [("qwen2.5-14b", 4, 0, False), ("qwen2.5-14b", 4, 0, True),
                      ("qwen2.5-14b", 4, 2, False), ("qwen2.5-14b", 4, 2, True),
                      ("qwen2.5-14b", 8, 4, True),
                      ("qwen3-moe-30b-a3b", 4, 2, True),
                      ("llama-3.2-vision-11b", 4, 0, True),
-                     ("llama-3.2-vision-11b", 4, 0, False)]
+                     ("llama-3.2-vision-11b", 4, 0, False),
+                     ("zamba2-1.2b", 5, 0, True), ("zamba2-1.2b", 5, 0, False),
+                     ("zamba2-1.2b", 6, 0, True), ("mamba2-370m", 4, 0, True),
+                     ("seamless-m4t-medium", 2, 0, True),
+                     ("seamless-m4t-medium", 3, 0, False)]
 
 
 @pytest.mark.parametrize("arch,n_layers,gk,remat", FLASH_COUNT_CASES)

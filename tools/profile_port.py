@@ -10,11 +10,13 @@ data (``chip_smoke.make_data``), runs each query once to warm the plan
 cache, then traces one more execute with ``torch.profiler``.  With
 ``--serve``: for each of the smoke's serving runs (``chip_smoke.SERVE``:
 S1 qwen2-1.5b, S2 gemma3-1b, S3 qwen3-moe at 24 layers, S4
-llama-3.2-vision, full widths, random weights; ``--runs S3`` picks), one
-warm-up wave, then a traced prefill of a fresh wave (with its memory for
-the VLM) and a traced run of ``DECODE_STEPS`` decode steps.  With ``--train``: the smoke's T1 run
-(``chip_smoke.TRAIN[0]``: qwen2-1.5b at full width, batch 8 x 1024, 4
-microbatches, remat), one warm-up step, then one traced train step.
+llama-3.2-vision, S5 mamba2, S6 zamba2, S7 seamless, full widths, random
+weights; ``--runs S3`` picks), one warm-up wave, then a traced prefill of
+a fresh wave (with its memory for the VLM and the enc-dec) and a traced
+run of ``DECODE_STEPS`` decode steps.  With ``--train``: the smoke's
+training runs (``chip_smoke.TRAIN``; T1 by default, qwen2-1.5b at full
+width, batch 8 x 1024, 4 microbatches, remat; ``--runs T5,T6`` picks),
+one warm-up step each, then one traced train step.
 With ``--stream``: the smoke's standing queries W1 (a triangle over
 three 4e6-row edge relations) and W2 (Q5's chain, ``strategy="3way"``),
 each registered with ``JoinSession.watch`` and warmed by the smoke's
@@ -135,36 +137,45 @@ def profile_serving(torch, chip_smoke, seed, top, runs=()):
         torch.cuda.empty_cache()
 
 
-def profile_training(torch, chip_smoke, seed, top):
+def profile_training(torch, chip_smoke, seed, top, runs=("T1",)):
+    import dataclasses
+
     from repro_torch import configs
     from repro_torch.data.synthetic import TokenGenConfig, batch_at
     from repro_torch.kernels import cuda
     from repro_torch.models import zoo
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import init_train_state, make_train_step
-    label, arch, batch, seq, steps, _ = chip_smoke.TRAIN[0]
-    cfg = configs.get(arch)
-    model = zoo.build(cfg)
-    state = init_train_state(
-        model, torch.Generator(device="cuda").manual_seed(seed))
-    gen = TokenGenConfig(vocab_size=cfg.vocab_size, batch=batch,
-                         seq_len=seq, seed=seed)
-    step = make_train_step(model, AdamWConfig(total_steps=steps,
-                                              warmup_steps=5))
+    for label, arch, batch, seq, steps, over in chip_smoke.TRAIN:
+        if label not in runs:
+            continue
+        cfg = dataclasses.replace(configs.get(arch), **over)
+        model = zoo.build(cfg)
+        state = init_train_state(
+            model, torch.Generator(device="cuda").manual_seed(seed))
+        gen = TokenGenConfig(vocab_size=cfg.vocab_size, batch=batch,
+                             seq_len=seq, seed=seed,
+                             n_frontend_tokens=cfg.n_frontend_tokens,
+                             d_model=cfg.d_model)
+        step = make_train_step(model, AdamWConfig(total_steps=steps,
+                                                  warmup_steps=5))
 
-    def data(i):
-        return {k: torch.from_numpy(v).cuda()
-                for k, v in batch_at(gen, i).items()}
-    state, _ = step(state, data(0))
-    cuda.reset_launch_counts()
-    (state, metrics), row = traced(torch, lambda: step(state, data(1)), top)
-    print(json.dumps({"train": label, "span": "one train step",
-                      "batch": batch, "seq": seq,
-                      "accum_steps": cfg.accum_steps, "remat": cfg.remat,
-                      "loss": float(metrics["loss"]),
-                      "flash_launches": {k: cuda.LAUNCHES[k] for k in
-                                         ("flash_fwd", "flash_bwd")},
-                      **row}), flush=True)
+        def data(i):
+            return {k: torch.from_numpy(v).cuda()
+                    for k, v in batch_at(gen, i).items()}
+        state, _ = step(state, data(0))
+        cuda.reset_launch_counts()
+        (state, metrics), row = traced(
+            torch, lambda: step(state, data(1)), top)
+        print(json.dumps({"train": label, "span": "one train step",
+                          "batch": batch, "seq": seq,
+                          "accum_steps": cfg.accum_steps, "remat": cfg.remat,
+                          "loss": float(metrics["loss"]),
+                          "flash_launches": {k: cuda.LAUNCHES[k] for k in
+                                             ("flash_fwd", "flash_bwd")},
+                          **row}), flush=True)
+        del state, model
+        torch.cuda.empty_cache()
 
 
 SKETCH_MARK = "Relation.append: FM sketch update"
@@ -277,20 +288,22 @@ def main() -> int:
     ap.add_argument("--fm", action="store_true",
                     help="profile the FM DISTINCT sketch (A1) instead")
     ap.add_argument("--runs", default="",
-                    help="with --serve: the serving runs to profile, "
-                         "comma-separated labels (default: all)")
+                    help="with --serve or --train: the runs to profile, "
+                         "comma-separated labels (default: every serving "
+                         "run, or T1)")
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: needs a CUDA device")
     import chip_smoke
+    runs = tuple(filter(None, args.runs.split(",")))
     if args.serve:
-        profile_serving(torch, chip_smoke, args.seed, args.top,
-                        tuple(filter(None, args.runs.split(","))))
+        profile_serving(torch, chip_smoke, args.seed, args.top, runs)
         return 0
     if args.train:
-        profile_training(torch, chip_smoke, args.seed, args.top)
+        profile_training(torch, chip_smoke, args.seed, args.top,
+                         runs or ("T1",))
         return 0
     if args.stream:
         profile_stream(torch, chip_smoke, args.seed, args.top)
