@@ -170,14 +170,28 @@ result line):
      smoke config: a run that fails at step 5 and resumes from its newest
      committed checkpoint ends with the parameters of an uninterrupted
      run;
- 13. the flash forward and backward at S1's, T1's microbatch and S2's
+ 13. lm mesh — the LM's mesh on one NCCL rank: L1 ``moe_mlp_sharded``
+     at qwen3-moe-30b-a3b's width (d 2048, 128 experts top-8, expert ff
+     768) on a 1 x 1 ("data", "model") mesh over x [8, 1024, 2048],
+     against ``moe_mlp`` in f32 within ``LM_MOE_TOL`` with ``dropped``
+     equal, then the bf16 ms of each; L2 T1 for 3 steps through
+     ``launch.train`` on ``make_host_mesh()`` from T1's seed, each
+     step's loss and gradient norm against the meshless T1's first
+     steps within ``LM_TRAIN_TOL``, the flash counters zeroed before and
+     read after every step (``train_flash_passes`` x microbatches), the
+     step seconds beside T1's and the gradients' ``all_reduce`` timed
+     apart; L3 L2's checkpoint restored with ``specs.state_shardings``
+     onto the host mesh, every leaf a DTensor whose ``full_tensor()`` is
+     the saved array, bit for bit;
+ 14. the flash forward and backward at S1's, T1's microbatch and S2's
      shapes against their plain versions, their bounds and
      ``scaled_dot_product_attention`` (its backward alone on a retained
      graph).  Prints one ``kernels`` JSON line with all twelve kernels
      (a ``kernel_ms`` whose trace is incomplete is null, with
      ``kernel_ms_missing`` saying why); the join kernels' launches are
-     the main path's (the stream deltas' are in the ``[stream]`` lines);
- 14. the last line: ``{"ok": true, "device": {...}}``.
+     the main path's (the stream deltas' are in the ``[stream]`` lines),
+     the flash kernels' those of serving, training and L2;
+ 15. the last line: ``{"ok": true, "device": {...}}``.
 
 Join sizes are cut from the paper's (Fig 4: N = 2e8
 friends edges, a 1e9-row fact table) to N = 4e6 edges over 14,000 users
@@ -3425,6 +3439,228 @@ def restart_phase(torch, seed):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 13: the LM's mesh — expert-parallel MoE, meshed training, restore
+# --------------------------------------------------------------------------
+
+# L1: qwen3-moe-30b-a3b's MoE FFN at full width over x [8, 1024, 2048]
+LM_MOE = ("qwen3-moe-30b-a3b", 8, 1024)
+# Stated before the first run: on a 1 x 1 ("data", "model") mesh the
+# expert-parallel path runs moe_mlp's ops on the same values (its
+# all_reduces over one rank copy), TF32 off, so in f32 its output is
+# within 1e-6 of the largest |value| of moe_mlp's (bit-equal expected)
+# and ``dropped`` is equal.
+LM_MOE_TOL = 1e-6
+# L2: T1's run (qwen2-1.5b, batch 8 x 1024, 4 microbatches, remat) for 3
+# steps through launch.train on make_host_mesh() (one NCCL rank), from T1's
+# seed.  Stated before the first run: each step's loss within 1e-5 and
+# gradient norm within 1e-4 (relative) of the meshless T1's first 3 steps
+# (the same ops on the same values, plus an all_reduce a gradient over one
+# rank; bit-equal expected unless a kernel's summation order varies
+# between runs).
+LM_TRAIN_STEPS = 3
+LM_TRAIN_TOL = {"loss_rel": 1e-5, "grad_norm_rel": 1e-4}
+
+
+def lm_moe_check(torch, seed, mesh):
+    """L1: ``moe_mlp_sharded`` on the 1 x 1 mesh against ``moe_mlp`` in
+    f32 (LM_MOE_TOL, ``dropped`` equal), then the bf16 ms of each."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding
+    arch, b, s = LM_MOE
+    cfg = dataclasses.replace(configs.get(arch), dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    layer = moe.init_moe(gen, cfg)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda")
+    sharding.set_context(mesh)
+    try:
+        with torch.no_grad():
+            want, wa = moe.moe_mlp(x, layer, cfg)
+            got, ga = moe.moe_mlp_sharded(x, layer, cfg)
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            row = {"lm_mesh": "L1", "arch": arch, "x": [b, s, cfg.d_model],
+                   "experts": cfg.n_experts, "top_k": cfg.top_k,
+                   "expert_ff": cfg.moe_d_ff, "mesh": [1, 1],
+                   "max_abs_err": err, "max_abs": scale,
+                   "tol": LM_MOE_TOL * scale,
+                   "dropped": float(ga["dropped"]),
+                   "dropped_plain": float(wa["dropped"]),
+                   "aux_loss": float(ga["aux_loss"]),
+                   "aux_loss_plain": float(wa["aux_loss"])}
+            del want, got
+            xb = x.to(torch.bfloat16)
+            row["bf16_ms"] = time_ms(
+                torch, lambda: moe.moe_mlp_sharded(xb, layer, cfg))
+            row["bf16_plain_ms"] = time_ms(
+                torch, lambda: moe.moe_mlp(xb, layer, cfg))
+    finally:
+        sharding.set_context(None)
+    log(f"[lm mesh] {json.dumps(row)}")
+    if (not math.isfinite(err) or err > row["tol"]
+            or row["dropped"] != row["dropped_plain"]):
+        fail(f"L1: moe_mlp_sharded against moe_mlp: {json.dumps(row)}")
+    del layer, x, xb
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_train_check(torch, seed, mesh, t1):
+    """L2: T1 for LM_TRAIN_STEPS steps through ``launch.train`` on the
+    host mesh, against the meshless T1's first steps (LM_TRAIN_TOL); the
+    flash counters zeroed just before and read after every step.  Then
+    one ``all_reduce`` of every parameter over the mesh's "data" group
+    (the step's reductions, timed apart; a sum over one rank leaves the
+    values as they are).  Returns the row, the run's output and the
+    flash launches."""
+    import dataclasses
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import train
+    from repro_torch.models import zoo
+    label, arch, batch, seq, _steps, over = TRAIN[0]
+    cfg = dataclasses.replace(configs.get(arch), **over)
+    per_step = {k: v * cfg.accum_steps
+                for k, v in train_flash_passes(cfg).items()}
+    ckpt = ROOT / ".smoke_ckpt" / "lm_mesh"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    snaps = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launch_counts()
+    out = train.train(
+        zoo.build(cfg), steps=LM_TRAIN_STEPS, batch=batch, seq=seq,
+        seed=seed, device="cuda", log_every=1, mesh=mesh,
+        ckpt_dir=str(ckpt),
+        log=lambda m: log(f"[lm mesh] L2 {m}"),
+        metrics_cb=lambda *_: snaps.append(
+            {k: cuda.LAUNCHES[k] for k in per_step}))
+    launches = {k: cuda.LAUNCHES[k] for k in per_step}
+    got = [{k: b[k] - a[k] for k in per_step}
+           for a, b in zip([dict.fromkeys(per_step, 0)] + snaps, snaps)]
+    if got != [per_step] * LM_TRAIN_STEPS:
+        fail(f"L2: flash launches per step {got}, expected {per_step}")
+    recs = out["records"]
+    diffs = {"loss_rel": max(abs(r["loss"] - w) / abs(w) for r, w in
+                             zip(recs, t1["loss"])),
+             "grad_norm_rel": max(abs(r["grad_norm"] - w) / abs(w)
+                                  for r, w in zip(recs, t1["grad_norm"]))}
+    params = list(out["state"].params.parameters())
+    group = mesh.get_group("data")
+    reduce_ms = time_ms(torch, lambda: [torch.distributed.all_reduce(
+        p.detach(), group=group) for p in params], reps=3)
+    step_s = [r["step_s"] for r in recs]
+    warm = statistics.median(step_s[1:])
+    row = {"lm_mesh": "L2", "train": label, "arch": arch,
+           "mesh": {"data": 1}, "batch": batch, "seq": seq,
+           "accum_steps": cfg.accum_steps, "remat": cfg.remat,
+           "steps": LM_TRAIN_STEPS, "loss": [r["loss"] for r in recs],
+           "grad_norm": [r["grad_norm"] for r in recs],
+           "t1_loss": t1["loss"][:LM_TRAIN_STEPS],
+           "t1_grad_norm": t1["grad_norm"][:LM_TRAIN_STEPS],
+           "max_rel_diff": diffs, "tol": LM_TRAIN_TOL, "step_s": step_s,
+           "warm_step_s": warm, "t1_step_s": t1["step_s"],
+           "t1_warm_step_s": t1["warm_step_s"],
+           "grad_all_reduce_ms": reduce_ms,
+           "grad_all_reduce_share": reduce_ms / 1e3 / warm,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "flash_launches_per_step": per_step, "flash_launches": launches}
+    log(f"[lm mesh] {json.dumps(row)}")
+    if len(recs) != LM_TRAIN_STEPS or any(diffs[k] > LM_TRAIN_TOL[k]
+                                          for k in diffs):
+        fail(f"L2: the meshed steps differ from T1's: {json.dumps(diffs)}")
+    return row, out, ckpt, launches
+
+
+def lm_restore_check(torch, mesh, out, ckpt):
+    """L3: L2's checkpoint restored with ``specs.state_shardings`` on the
+    host mesh: every leaf a DTensor whose ``full_tensor()`` is the saved
+    array, bit for bit."""
+    import shutil
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import convert
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import specs
+    from repro_torch.parallel import sharding
+    try:
+        t0 = time.perf_counter()
+        ctx = sharding.MeshContext(mesh, sharding.DEFAULT_RULES)
+        state = out["state"]
+        restored, manifest = CheckpointManager(ckpt).restore(
+            state, device="cuda", shardings=specs.state_shardings(state,
+                                                                  ctx))
+        restore_s = time.perf_counter() - t0
+        path = ckpt / f"step_{manifest['step']:08d}" / "arrays.npz"
+        paths = convert.leaf_paths(restored.params)
+        by_key: dict = {}            # checkpoint key -> [(layer, leaf)]
+        for top, xs in (("params", list(restored.params.parameters())),
+                        ("opt/m", restored.opt["m"]),
+                        ("opt/v", restored.opt["v"])):
+            for (p, i), x in zip(paths, xs):
+                by_key.setdefault(f"{top}/{p}", []).append((i, x))
+        by_key["opt/step"] = [(-1, restored.opt["step"])]
+        by_key["step"] = [(-1, restored.step)]
+        bad, dtensors, n = [], 0, 0
+        with np.load(path) as data:
+            for key, xs in by_key.items():
+                want = data[key]              # each array read once
+                for layer, x in xs:
+                    n += 1
+                    dtensors += isinstance(x, DTensor)
+                    full = (x.full_tensor() if isinstance(x, DTensor)
+                            else x).detach().cpu().numpy()
+                    if not np.array_equal(full, want if layer < 0
+                                          else want[layer]):
+                        bad.append(f"{key}[{layer}]")
+        row = {"lm_mesh": "L3", "step": manifest["step"],
+               "leaves": n, "dtensors": dtensors,
+               "placements": str(restored.opt["m"][0].placements),
+               "bit_equal": not bad, "restore_s": restore_s,
+               "checkpoint_bytes": path.stat().st_size,
+               "seconds": time.perf_counter() - t0}
+        log(f"[lm mesh] {json.dumps(row)}")
+        if bad or dtensors != n:
+            fail(f"L3: {len(bad)} leaves differ from the checkpoint "
+                 f"({bad[:4]}), {dtensors} of {n} DTensors")
+        return row
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def lm_mesh_phase(torch, seed, t1):
+    """L1-L3 on one rank, NCCL (the launcher's world of one): the
+    expert-parallel MoE at qwen3-moe's width on a 1 x 1 ("data", "model")
+    mesh, T1 trained through the host mesh, and its checkpoint restored
+    onto the mesh's placements."""
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    mesh_lib.init_world(timeout=MESH_TIMEOUT_S)     # one rank, NCCL
+    try:
+        rows = [lm_moe_check(torch, seed, distributed.make_mesh(
+            1, 1, "data", "model", timeout=MESH_TIMEOUT_S))]
+        host = mesh_lib.make_host_mesh()
+        row, out, ckpt, launches = lm_train_check(torch, seed, host, t1)
+        rows.append(row)
+        rows.append(lm_restore_check(torch, host, out, ckpt))
+        del out
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    log(f"[lm mesh] phase took {time.perf_counter() - t0:.1f}s")
+    return rows, launches
+
+
 def sdpa_kernels(torch, fn):
     """The device kernels one call of ``fn`` runs, by device time (which
     SDPA backend took the inputs), from ``torch.profiler``."""
@@ -3612,15 +3848,17 @@ def main() -> int:
     s_rows, s_launches = serve_phase(torch, args.seed)
     t_rows, t_launches, grad = train_phase(torch, args.seed)
     restart = restart_phase(torch, args.seed)
+    lm_rows, lm_launches = lm_mesh_phase(torch, args.seed, t_rows[0])
     lines += flash_kernel_phase(
         torch, errs, {"flash_fwd": s_launches["flash_fwd"]
-                      + t_launches["flash_fwd"],
-                      "flash_bwd": t_launches["flash_bwd"]}, args.seed)
+                      + t_launches["flash_fwd"] + lm_launches["flash_fwd"],
+                      "flash_bwd": t_launches["flash_bwd"]
+                      + lm_launches["flash_bwd"]}, args.seed)
     log(json.dumps({"queries": rows, "baselines": b_rows, "radix": r_rows,
                     "stream": st_rows, "mesh": m_rows,
                     "mesh_launches": m_launches, "analytics": a_rows,
                     "serve": s_rows, "train": t_rows, "grad_check": grad,
-                    "restart": restart}))
+                    "restart": restart, "lm_mesh": lm_rows}))
     print(card, flush=True)
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,10 @@ reserved ``shards`` field), plus a ``COMMITTED`` marker.  A port
 Writes go to a temporary directory that is renamed when complete; a
 checkpoint without its ``COMMITTED`` marker is ignored by restore.  Arrays
 are saved unsharded, on the host; ``restore_pytree`` places them on
-``device`` (where the JAX package takes ``shardings``).
+``device``, and with ``shardings`` (a matching tree of ``(mesh,
+placements)``, e.g. ``launch.specs.state_shardings``) distributes each
+leaf onto its mesh as a DTensor: a checkpoint restores onto any mesh,
+whatever the mesh it was saved from.
 """
 
 from __future__ import annotations
@@ -138,13 +141,53 @@ def _rebuild(template, tree, device):
     return _tensor(tree, device)
 
 
+def _distribute(x: torch.Tensor, sharding):
+    """``x`` distributed onto ``sharding = (mesh, placements)`` (every rank
+    holds the whole ``x``; each keeps its shard), or as it is for None."""
+    if sharding is None:
+        return x
+    from torch.distributed.tensor import distribute_tensor
+    mesh, placements = sharding
+    return distribute_tensor(x, mesh, list(placements))
+
+
+def _place_tree(tree, shardings):
+    if isinstance(tree, Mapping):
+        return {k: _place_tree(v, shardings[k]) for k, v in tree.items()}
+    return _distribute(tree, shardings)
+
+
+def _place_state(state, shardings):
+    """A port TrainState with each tensor distributed by the matching
+    ``TrainState`` of shardings (parameters in ``parameters()`` order,
+    which the moments' lists follow)."""
+    from torch import nn
+
+    from repro_torch.train.steps import TrainState
+    params = state.params
+    for (name, p), sh in zip(list(params.named_parameters()),
+                             shardings.params):
+        if sh is not None:
+            owner, _, leaf = name.rpartition(".")
+            setattr(params.get_submodule(owner), leaf, nn.Parameter(
+                _distribute(p.detach(), sh), requires_grad=p.requires_grad))
+    opt = {k: [_distribute(x, sh) for x, sh in zip(state.opt[k],
+                                                   shardings.opt[k])]
+           for k in ("m", "v")}
+    opt["step"] = _distribute(state.opt["step"], shardings.opt["step"])
+    return TrainState(params, opt, _distribute(state.step, shardings.step))
+
+
 def restore_pytree(template, directory: str | os.PathLike,
                    step: int | None = None, device=None,
-                   verify: bool = True):
+                   verify: bool = True, shardings=None):
     """Restore into the structure of ``template``: a port TrainState (its
     config and layout; its tensors are not read) or a tree of mappings of
     arrays or tensors.  Returns (the restored tree, leaves as tensors on
-    ``device``, and the manifest); ``device=None`` means the card."""
+    ``device``, and the manifest); ``device=None`` means the card.
+    ``shardings``: a matching tree of ``(mesh, placements)`` (None for a
+    leaf that stays a plain tensor); each leaf is distributed onto its
+    mesh as a DTensor (elastic re-mesh)."""
     from repro_torch import convert
     from repro_torch.core.relation import resolve_device
     dev = resolve_device(device)
@@ -173,9 +216,15 @@ def restore_pytree(template, directory: str | os.PathLike,
             flat[key] = arr
     tree = _unflatten(flat)
     if _is_train_state(template):
-        return (convert.train_state_from_numpy(tree, template.params.cfg,
-                                               device=dev), manifest)
-    return _rebuild(template, tree, dev), manifest
+        state = convert.train_state_from_numpy(tree, template.params.cfg,
+                                               device=dev)
+        if shardings is not None:
+            state = _place_state(state, shardings)
+        return state, manifest
+    out = _rebuild(template, tree, dev)
+    if shardings is not None:
+        out = _place_tree(out, shardings)
+    return out, manifest
 
 
 class CheckpointManager:
@@ -195,8 +244,10 @@ class CheckpointManager:
         self._gc()
         return path
 
-    def restore(self, template, step: int | None = None, device=None):
-        return restore_pytree(template, self.dir, step, device)
+    def restore(self, template, step: int | None = None, device=None,
+                shardings=None):
+        return restore_pytree(template, self.dir, step, device,
+                              shardings=shardings)
 
     def latest_step(self):
         return latest_step(self.dir)

@@ -26,6 +26,10 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import partition, sketches
+from repro_torch.core.reference import host_join_count  # noqa: F401  (the
+#   parity oracle of this module; it lives in core.reference, the one
+#   module allowed np.unique, and is re-exported here as the JAX package
+#   re-exports it)
 from repro_torch.core.relation import SENTINEL, Relation
 from repro_torch.kernels import ops as kops
 

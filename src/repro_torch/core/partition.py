@@ -1,5 +1,10 @@
 """Radix hash partitioning (the paper's Fig 2 / Fig 3 data reorganization).
 
+``partition_sorted`` / ``partition_sorted2`` give the relation sorted by
+bucket id plus a CSR-style offsets array: the paper's partition files
+("S_ij partitions are ordered first on H(B) and then on g(C)"), composite
+partitioning being a sort on the (outer, inner) bucket pair.
+
 ``bucketize`` / ``bucketize_by_ids`` scatter a relation into a
 fixed-capacity ``[n_buckets, capacity]`` grid with per-bucket counts and an
 overflow indicator.  Bucket i is the contents of PMU i (one tile of the
@@ -34,6 +39,12 @@ def _check_flat_range(n_slots: int, what: str) -> None:
             "use fewer/coarser bucket levels or smaller capacities")
 
 
+class SortedPartition(NamedTuple):
+    rel: Relation              # rows sorted by bucket id (invalid rows last)
+    bucket_ids: torch.Tensor   # (capacity,) int32, n_buckets for invalid rows
+    offsets: torch.Tensor      # (n_buckets + 1,) int32 CSR offsets
+
+
 class Buckets(NamedTuple):
     columns: dict              # name -> (*out_shape, capacity) int32, sentinel-padded
     valid: torch.Tensor        # (*out_shape, capacity) bool
@@ -46,6 +57,42 @@ def bucket_ids_for(rel: Relation, key_col: str, n_buckets: int, fn: str,
     """Bucket id per row; invalid rows get id == n_buckets (sorts last)."""
     ids = hashing.hash_bucket(rel.col(key_col), n_buckets, fn, salt)
     return torch.where(rel.valid, ids, torch.full_like(ids, n_buckets))
+
+
+def _sorted_partition(rel: Relation, ids: torch.Tensor,
+                      n_buckets: int) -> SortedPartition:
+    """Rows stably sorted by ``ids`` (invalid rows carry ``n_buckets``)
+    and the CSR offsets of every bucket, by a searchsorted over
+    ``arange(n_buckets + 1)``."""
+    sorted_ids, order = torch.sort(ids, stable=True)
+    sorted_rel = rel.select(order, torch.ones_like(order, dtype=torch.bool))
+    bounds = torch.arange(n_buckets + 1, dtype=sorted_ids.dtype,
+                          device=ids.device)
+    offsets = torch.searchsorted(sorted_ids, bounds, side="left")
+    return SortedPartition(sorted_rel, sorted_ids, offsets.to(torch.int32))
+
+
+def partition_sorted(rel: Relation, key_col: str, n_buckets: int,
+                     fn: str = "H", salt: int = 0) -> SortedPartition:
+    """The relation sorted by its one-level bucket id, with CSR offsets."""
+    return _sorted_partition(
+        rel, bucket_ids_for(rel, key_col, n_buckets, fn, salt), n_buckets)
+
+
+def partition_sorted2(rel: Relation, outer_col: str, inner_col: str,
+                      n_outer: int, n_inner: int, outer_fn: str = "H",
+                      inner_fn: str = "g") -> SortedPartition:
+    """Composite two-level partitioning: sort by (outer, inner) bucket pair.
+
+    Bucket id = outer * n_inner + inner, matching the paper's S layout
+    (ordered by H(B), then by g(C) within each H(B) partition); invalid
+    rows last, at n_outer * n_inner.
+    """
+    outer = bucket_ids_for(rel, outer_col, n_outer, outer_fn)
+    inner = bucket_ids_for(rel, inner_col, n_inner, inner_fn)
+    flat = torch.where(rel.valid, outer * n_inner + inner,
+                       torch.full_like(outer, n_outer * n_inner))
+    return _sorted_partition(rel, flat, n_outer * n_inner)
 
 
 def bucketize(rel: Relation, key_col: str, n_buckets: int, capacity: int,

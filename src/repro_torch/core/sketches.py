@@ -96,6 +96,11 @@ def add(registers: torch.Tensor, keys: torch.Tensor,
     return registers | torch.cat(regs).to(registers.device)
 
 
+def merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sketch union (distributive over any sharding of the data)."""
+    return a | b
+
+
 def _lowest_zero_index(x: torch.Tensor) -> torch.Tensor:
     """Index of the lowest zero bit of each int32 (32 if none)."""
     y = (~x).to(torch.int64) & 0xFFFFFFFF

@@ -10,9 +10,24 @@ The flow is the JAX launcher's: the data pipeline is a pure function of the
 step (``data.synthetic.batch_at``), checkpoints are atomic and only
 committed ones are resumed (``--ckpt-dir``), a straggler monitor watches
 the step times, and ``--fail-at`` simulates a node failure.  Parameters
-are drawn from ``torch.Generator(seed)`` on the training device.  The
-mesh and XLA-TPU flags (``--production``, ``--multi-pod``, ``--overlap``)
-have no counterpart on one card yet and raise.
+are drawn from ``torch.Generator(seed)`` on the training device.
+
+The mesh is the JAX launcher's: ``--production`` builds the (16, 16)
+("data", "model") mesh, with ``--multi-pod`` the (2, 16, 16) one (256 or
+512 ranks, started with ``torchrun``); otherwise ``make_host_mesh()``, a
+("data",) mesh over the world's ranks, which is one rank when the
+launcher is not started under ``torchrun``.  The step is data-parallel
+over the batch axes (``train.steps``); the MoE's experts are parallel
+over "model".
+
+``--overlap`` is the counterpart of the JAX launcher's XLA
+latency-hiding flags (collectives overlapped with compute): each
+gradient's ``all_reduce`` is issued asynchronously from a post-accumulate
+hook during the last microbatch's backward, and awaited before the
+optimizer; the parameters are the same with and without it.
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch qwen2-1.5b --steps 6 --batch 8 --seq 1024
 """
 
 from __future__ import annotations
@@ -26,10 +41,15 @@ from repro_torch import configs
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.relation import resolve_device
 from repro_torch.data.synthetic import TokenGenConfig, batch_at
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import zoo
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import RestartableLoop, StragglerMonitor
 from repro_torch.train import init_train_state, make_train_step
+
+
+def _quiet(msg: str) -> None:
+    pass
 
 
 def _sync(device: torch.device) -> None:
@@ -40,7 +60,8 @@ def _sync(device: torch.device) -> None:
 def train(model: zoo.Model, *, steps: int, batch: int, seq: int,
           lr: float = 3e-4, seed: int = 0, device=None, ckpt_dir: str = "",
           ckpt_every: int = 50, fail_at: int | None = None,
-          log_every: int = 10, log=print, metrics_cb=None) -> dict:
+          log_every: int = 10, log=print, metrics_cb=None, mesh=None,
+          overlap: bool = False) -> dict:
     """Train ``model`` from ``init_train_state(seed)`` (or the newest
     committed checkpoint in ``ckpt_dir``) for ``steps`` steps of
     ``batch`` x ``seq`` tokens.
@@ -50,7 +71,14 @@ def train(model: zoo.Model, *, steps: int, batch: int, seq: int,
     ``aux_loss`` and ``dropped``; host floats) and
     ``step_s`` (host clock around the batch, the step and a device
     synchronise).  ``metrics_cb(step, metrics, stats)`` is called after
-    each step, as the loop calls it."""
+    each step, as the loop calls it.
+
+    ``mesh`` (a ``DeviceMesh``; every rank calls ``train`` alike): each
+    rank of the batch axes takes its rows of every microbatch and the
+    gradients are averaged over them (``train.make_train_step``); the
+    records hold the global loss and gradient norm.  Only rank 0 writes
+    checkpoints and logs.  ``overlap`` reduces the gradients during the
+    backward."""
     cfg = model.config
     device = resolve_device(device)
     gen = TokenGenConfig(vocab_size=cfg.vocab_size, batch=batch,
@@ -59,21 +87,24 @@ def train(model: zoo.Model, *, steps: int, batch: int, seq: int,
                          d_model=cfg.d_model)
     opt_cfg = AdamWConfig(lr=lr, total_steps=steps,
                           warmup_steps=max(steps // 20, 5))
-    train_step = make_train_step(model, opt_cfg)
+    train_step = make_train_step(model, opt_cfg, mesh=mesh, overlap=overlap)
+    lead = mesh is None or torch.distributed.get_rank() == 0
 
     def step_fn(state, b):
         state, metrics = train_step(state, b)
         _sync(device)
         return state, metrics
 
-    manager = (CheckpointManager(ckpt_dir, every=ckpt_every) if ckpt_dir
-               else None)
+    manager = (CheckpointManager(ckpt_dir, every=ckpt_every)
+               if ckpt_dir and lead else None)
     loop = RestartableLoop(manager, monitor=StragglerMonitor(), log=log)
     state = init_train_state(
         model, torch.Generator(device=device).manual_seed(seed))
     start = 0
     if ckpt_dir:
-        restored, start = loop.resume_step(state, device=device)
+        restored, start = RestartableLoop(
+            CheckpointManager(ckpt_dir), log=log if lead else _quiet
+        ).resume_step(state, device=device)
         if restored is not None:
             state = restored
 
@@ -89,7 +120,7 @@ def train(model: zoo.Model, *, steps: int, batch: int, seq: int,
                                                "aux_loss", "dropped")
                if k in metrics}
         records.append({"step": step, **rec, "step_s": stats.last})
-        if step % log_every == 0:
+        if lead and step % log_every == 0:
             log(f"step {step:5d}  loss {rec['loss']:.4f}  "
                 f"lr {rec['lr']:.2e}  gnorm {rec['grad_norm']:.3f}  "
                 f"dt {stats.last:.3f}s")
@@ -103,7 +134,7 @@ def train(model: zoo.Model, *, steps: int, batch: int, seq: int,
     dt = time.perf_counter() - t0
     if manager is not None and end > start:
         manager.save(state, end)
-    if records:
+    if records and lead:
         log(f"done: steps [{start},{end}) in {dt:.1f}s  first loss "
             f"{records[0]['loss']:.4f}  last loss {records[-1]['loss']:.4f}")
     return {"state": state, "start": start, "end": end, "records": records}
@@ -127,24 +158,33 @@ def main(argv=None):
     ap.add_argument("--fail-at", type=int, default=None,
                     help="simulate a node failure at this step (tests)")
     ap.add_argument("--overlap", action="store_true",
-                    help="XLA latency-hiding scheduler flags")
+                    help="reduce the gradients during the backward")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a card) or cpu")
     args = ap.parse_args(argv)
 
-    for flag in ("production", "multi_pod", "overlap"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: the LM's mesh is not ported "
-                "yet (ROADMAP Queue A, \"the LM's mesh\"); the port trains "
-                "on one card")
     device = resolve_device(None if args.device == "cuda" else args.device)
-    cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
-    out = train(zoo.build(cfg), steps=args.steps, batch=args.batch,
-                seq=args.seq, lr=args.lr, seed=args.seed, device=device,
-                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                fail_at=args.fail_at, log_every=args.log_every)
+    owned = mesh_lib.init_world(device)
+    try:
+        if args.production:
+            mesh = mesh_lib.make_production_mesh(multi_pod=args.multi_pod,
+                                                 device=device)
+        else:
+            mesh = mesh_lib.make_host_mesh(device=device)
+        mesh_lib.activate(mesh)
+        cfg = (configs.smoke(args.arch) if args.smoke
+               else configs.get(args.arch))
+        out = train(zoo.build(cfg), steps=args.steps, batch=args.batch,
+                    seq=args.seq, lr=args.lr, seed=args.seed, device=device,
+                    ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                    fail_at=args.fail_at, log_every=args.log_every,
+                    mesh=mesh, overlap=args.overlap)
+    finally:
+        from repro_torch.parallel import sharding
+        sharding.set_context(None)
+        if owned:
+            torch.distributed.destroy_process_group()
     return out["state"], [r["loss"] for r in out["records"]]
 
 

@@ -7,8 +7,10 @@ one onto the other by name.  Weights are f32 masters, cast to the config's
 compute dtype per op.  Weights of a linear map are stored ``[d_in, d_out]``
 as in JAX.
 
-The JAX package annotates logical sharding axes here; on one card they do
-nothing, so the port has none.  Init draws from an explicit
+The JAX package annotates logical sharding axes here; the port's model
+code runs on plain tensors (a rank's rows of the batch under the LM's
+mesh, ``parallel.sharding``), where such an annotation is the identity,
+so it has none.  Init draws from an explicit
 ``torch.Generator`` (the parameters land on its device) with the scales of
 the JAX package; the bits differ, so tests carry JAX's parameters across.
 Parameters are trainable (``requires_grad=True``).

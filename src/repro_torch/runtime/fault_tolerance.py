@@ -15,8 +15,9 @@ backend-agnostic way:
     fleet the flag feeds the scheduler's eviction hook (here: logged and
     surfaced in metrics; tests assert detection).
   * elastic_restore — restore a checkpoint written under any device count
-    onto this process's device (checkpoints are host-format; the device is
-    applied at restore, where the JAX package applies shardings).
+    onto this process's device, or with ``shardings`` onto the current
+    mesh (checkpoints are host-format; the placement is applied at
+    restore).
 
 A port step function updates its state in place; the loop holds whatever
 it returns.  Without a checkpoint directory (``manager=None``) the loop
@@ -79,11 +80,15 @@ class StragglerMonitor:
         return StragglerStats(self._mean, std, dt, z, flagged)
 
 
-def elastic_restore(template, directory, device=None, step=None):
-    """Restore the newest committed checkpoint onto ``device`` — the
-    device count at save time is irrelevant (host-format arrays)."""
+def elastic_restore(template, directory, shardings=None, step=None,
+                    device=None):
+    """Restore the newest committed checkpoint onto the *current* mesh
+    (``shardings``: a matching tree of ``(mesh, placements)``) or onto
+    ``device`` — the device count at save time is irrelevant (host-format
+    arrays)."""
     from repro_torch.checkpoint import restore_pytree
-    return restore_pytree(template, directory, step=step, device=device)
+    return restore_pytree(template, directory, step=step, device=device,
+                          shardings=shardings)
 
 
 class RestartableLoop:
@@ -113,14 +118,15 @@ class RestartableLoop:
         except ValueError:
             return None  # not on main thread (tests)
 
-    def resume_step(self, state_template, device=None):
-        """(state, start_step): restored, or (None, 0) without a committed
-        checkpoint."""
+    def resume_step(self, state_template, shardings=None, device=None):
+        """(state, start_step): restored (onto ``shardings`` when given),
+        or (None, 0) without a committed checkpoint."""
         last = None if self.manager is None else self.manager.latest_step()
         if last is None:
             return None, 0
         state, manifest = self.manager.restore(state_template,
-                                               device=device)
+                                               device=device,
+                                               shardings=shardings)
         self.log(f"[ft] resumed from committed step {last}")
         return state, int(manifest["step"])
 

@@ -14,6 +14,21 @@ step updates the state in place and returns it with the loss, the learning
 rate, the gradient norm and the model's aux values (the MoE's ``aux_loss``
 and ``dropped``, the mean over the microbatches) as device tensors:
 nothing waits on the device within a step.  The serve steps run under ``torch.no_grad()``.
+
+Under the LM's mesh (``make_train_step(..., mesh=)``, a ``DeviceMesh``
+whose batch axes are "pod" and "data") every rank is handed the global
+batch and takes its rows as the JAX package's sharded microbatches give
+them: microbatch j is rows [j·mb, (j+1)·mb) of the batch, and rank i of
+the batch axes takes the i-th of its n equal slices.  Where mb does not
+divide n, every rank takes the whole microbatch (the rule's replicated
+fallback; ``sharding.replicated_batch``).  The rank's gradients are
+summed over the batch axes (one ``all_reduce`` a tensor and axis) and
+divided by n and the number of microbatches, so every rank applies the
+global gradient; the loss is the mean over the batch axes.  With
+``overlap`` each gradient's ``all_reduce`` over the first batch axis is
+issued asynchronously from a post-accumulate hook during the last
+microbatch's backward and awaited before the optimizer: the same
+reductions, the same values.
 """
 
 from __future__ import annotations
@@ -21,9 +36,11 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.zoo import Model
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.parallel import sharding
 
 
 class TrainState(NamedTuple):
@@ -49,9 +66,42 @@ def cross_entropy_loss(logits, targets, z_loss: float = 1e-4):
     return loss
 
 
+def _batch_groups(mesh) -> tuple[list, int, int]:
+    """The process groups of the mesh's batch axes in mesh order, their
+    size product n and this rank's index among the n."""
+    sizes = sharding.axis_sizes(mesh)
+    axes = [a for a in sharding.BATCH_AXES if a in sizes]
+    n, index = 1, 0
+    for a in axes:
+        n *= sizes[a]
+        index = index * sizes[a] + mesh.get_local_rank(a)
+    return [mesh.get_group(a) for a in axes], n, index
+
+
+class _MeshStep:
+    """The sharding context of ``mesh`` (the caller's, when it already
+    holds this mesh) for the length of one step."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        self.prev = sharding.current_context()
+        if self.prev is None or self.prev.mesh is not self.mesh:
+            sharding.set_context(self.mesh)
+
+    def __exit__(self, *exc):
+        if self.prev is None:
+            sharding.set_context(None)
+        else:
+            sharding.set_context(self.prev.mesh, self.prev.rules)
+        return False
+
+
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
                     moe_aux_weight: float = 1e-2,
-                    accum_steps: int | None = None):
+                    accum_steps: int | None = None, *, mesh=None,
+                    overlap: bool = False):
     """Returns train_step(state, batch) -> (state, metrics).
 
     ``accum_steps`` (default: the config's ``accum_steps``) splits the
@@ -59,9 +109,13 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     forward and backward in turn: live activation memory drops by that
     factor.  Metrics: ``loss`` (the microbatches' mean, the aux term
     included), ``lr``, ``grad_norm`` (before clipping), and each aux value
-    of the forward (the microbatches' mean)."""
+    of the forward (the microbatches' mean).  ``mesh``: data-parallel
+    over its batch axes, as the module docstring says; ``overlap``
+    reduces the gradients during the backward."""
     accum = (accum_steps if accum_steps is not None
              else getattr(model.config, "accum_steps", 1) or 1)
+    groups, n_shards, shard = (_batch_groups(mesh) if mesh is not None
+                               else ([], 1, 0))
 
     def loss_fn(params, batch):
         logits, aux = model.forward(params, batch["inputs"],
@@ -71,6 +125,45 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
             loss = loss + moe_aux_weight * aux["aux_loss"]
         return loss, aux
 
+    def run(state, batch, params, mb, split):
+        """Forward and backward of this rank's rows of each microbatch;
+        the gradient sums are left in ``.grad``."""
+        each = mb // n_shards if split else mb
+        first = shard * each if split else 0
+        last_mb, works, hooks = [False], [], []
+        if split and overlap:
+            def reduce_now(p):
+                if last_mb[0]:
+                    works.append(dist.all_reduce(p.grad, group=groups[0],
+                                                 async_op=True))
+            hooks = [p.register_post_accumulate_grad_hook(reduce_now)
+                     for p in params]
+        loss_sum = torch.zeros((), dtype=torch.float32,
+                               device=params[0].device)
+        auxes = []
+        try:
+            for i in range(accum):
+                last_mb[0] = i == accum - 1
+                rows = slice(i * mb + first, i * mb + first + each)
+                loss, aux = loss_fn(state.params,
+                                    {k: v[rows] for k, v in batch.items()})
+                loss.backward()
+                loss_sum += loss.detach()
+                auxes.append({k: v.detach() for k, v in aux.items()})
+        finally:
+            for h in hooks:
+                h.remove()
+        if split:
+            for w in works:
+                w.wait()
+            for g in groups[1:] if overlap else groups:
+                for p in params:
+                    dist.all_reduce(p.grad, group=g)
+            for g in groups:
+                dist.all_reduce(loss_sum, group=g)
+            loss_sum /= n_shards
+        return loss_sum, auxes
+
     def train_step(state: TrainState, batch):
         params = list(state.params.parameters())
         b = batch["inputs"].shape[0]
@@ -78,23 +171,25 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
             raise ValueError(f"batch {b} is not a multiple of "
                              f"accum_steps {accum}")
         mb = b // accum
+        split = mesh is not None and mb % n_shards == 0
         for p in params:
             p.grad = None
-        loss_sum = torch.zeros((), dtype=torch.float32,
-                               device=params[0].device)
-        auxes = []
-        for i in range(accum):
-            rows = slice(i * mb, (i + 1) * mb)
-            loss, aux = loss_fn(state.params,
-                                {k: v[rows] for k, v in batch.items()})
-            loss.backward()
-            loss_sum += loss.detach()
-            auxes.append({k: v.detach() for k, v in aux.items()})
+        if mesh is None:
+            loss_sum, auxes = run(state, batch, params, mb, False)
+        else:
+            with _MeshStep(mesh):
+                if split:
+                    loss_sum, auxes = run(state, batch, params, mb, True)
+                else:
+                    with sharding.replicated_batch():
+                        loss_sum, auxes = run(state, batch, params, mb,
+                                              False)
         grads = [p.grad for p in params]
         for p in params:
             p.grad = None
-        if accum > 1:
-            torch._foreach_div_(grads, accum)
+        div = accum * (n_shards if split else 1)
+        if div > 1:
+            torch._foreach_div_(grads, div)
         _, opt, om = adamw_update(params, grads, state.opt, opt_cfg)
         del grads
         metrics = {"loss": loss_sum / accum, **om}

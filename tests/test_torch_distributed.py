@@ -19,13 +19,13 @@ rank that hangs fails the tests instead of stalling the run.
   and at 1 × 1 the single-card ``JoinSession.execute`` beside the mesh.
 * A rank that never joins a collective makes the others fail within the
   groups' timeout; ``make_mesh`` without CUDA names ``device="cpu"``.
+
+The same launches also run the LM's mesh cases, which
+``tests/test_torch_lm_mesh.py`` reads (``cases.shared_launch``: one
+launch a test session, whichever file asks first).
 """
 
 import json
-import os
-import pathlib
-import subprocess
-import sys
 import time
 
 import numpy as np
@@ -36,84 +36,23 @@ from conftest import oracle_cyclic3_count, oracle_linear3_count
 
 from repro_torch.core import distributed
 
-HELPER = pathlib.Path(cases.__file__)
-WALL_S = 420             # every launch of the module's fixture, together
-SHAPES = {"4x2": (4, 2), "2x2": (2, 2), "1x1": (1, 1)}
+SHAPES = cases.SHAPES
 PARITY = [c["name"] for c in cases.parity_suite()[1]]
 ORACLE = {shape: [c["name"] for c in cases.oracle_suite(*rc)[1]]
           for shape, rc in SHAPES.items() if shape != "4x2"}
 
 
-def _env():
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (str(cases.ROOT / "src"), env.get("PYTHONPATH")) if p)
-    env["OMP_NUM_THREADS"] = "1"
-    return env
-
-
-def _start(argv, log: pathlib.Path):
-    with open(log, "w") as f:
-        return subprocess.Popen([sys.executable, str(HELPER), *argv],
-                                stdout=f, stderr=subprocess.STDOUT,
-                                env=_env())
-
-
-def _port_argv(out, rows, cols, suite, rank, timeout):
-    return ["port", "--suite", suite, "--rank", str(rank), "--rows",
-            str(rows), "--cols", str(cols), "--store", str(out / "store"),
-            "--out", str(out), "--timeout", str(timeout)]
-
-
-def _wait(procs: dict, wall: float) -> dict:
-    """Exit codes by name; a process still running at the wall-clock limit
-    is killed and reported as None."""
-    deadline = time.monotonic() + wall
-    codes = {}
-    try:
-        for name, p in procs.items():
-            try:
-                codes[name] = p.wait(timeout=max(0.1, deadline
-                                                 - time.monotonic()))
-            except subprocess.TimeoutExpired:
-                codes[name] = None
-    finally:
-        for p in procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    return codes
-
-
-def _tail(path: pathlib.Path, n=30) -> str:
-    return "\n".join(path.read_text(errors="replace").splitlines()[-n:])
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Launch the reference and the port's three mesh shapes at once; read
-    every rank's results (and the primitives' arrays) back."""
-    root = tmp_path_factory.mktemp("mesh")
-    procs, logs = {}, {}
-    (root / "ref").mkdir()
-    logs["ref"] = root / "ref" / "log"
-    procs["ref"] = _start(["reference", "--out", str(root / "ref")],
-                          logs["ref"])
-    for shape, (rows, cols) in SHAPES.items():
-        out = root / shape
-        out.mkdir()
-        suite = "parity" if shape == "4x2" else "oracle"
-        for k in range(rows * cols):
-            name = f"{shape}/{k}"
-            logs[name] = out / f"log{k}"
-            procs[name] = _start(_port_argv(out, rows, cols, suite, k, 120),
-                                 logs[name])
-    codes = _wait(procs, WALL_S)
-    bad = {n: c for n, c in codes.items() if c != 0}
-    if bad:
-        pytest.fail(f"mesh launches failed {bad} (None: killed at the "
-                    f"{WALL_S} s limit):\n" + "\n".join(
-                        f"--- {n}\n{_tail(logs[n])}" for n in bad))
+    """The reference and the port's three mesh shapes, launched at once
+    (once a session: ``tests/test_torch_lm_mesh.py`` reads the same
+    launches); every rank's results (and the primitives' arrays) read
+    back."""
+    root, status = cases.shared_launch(tmp_path_factory.getbasetemp())
+    if status["bad"]:
+        pytest.fail(f"mesh launches failed {status['bad']} (None: killed "
+                    f"at the {cases.WALL_S} s limit):\n" + "\n".join(
+                        f"--- {n}\n{t}" for n, t in status["tails"].items()))
     got = {"ref": json.loads((root / "ref" / "reference.json").read_text()),
            "ref_prims": dict(np.load(root / "ref" / "prims_ref.npz"))}
     for shape, (rows, cols) in SHAPES.items():
@@ -213,14 +152,14 @@ def test_stalled_rank_fails_within_the_timeout(tmp_path):
     procs, logs = {}, {}
     for k in range(2):
         logs[k] = tmp_path / f"log{k}"
-        procs[k] = _start(_port_argv(tmp_path, 1, 2, "oracle", k, 3)
-                          + ["--stall"], logs[k])
+        procs[k] = cases.start(cases.port_argv(tmp_path, 1, 2, "oracle", k,
+                                               3) + ["--stall"], logs[k])
     t0 = time.monotonic()
-    codes = _wait({0: procs[0]}, 90)
+    codes = cases.wait({0: procs[0]}, 90)
     elapsed = time.monotonic() - t0
-    _wait({1: procs[1]}, 0.1)
-    assert codes[0] not in (0, None), _tail(logs[0])
-    assert "timed out" in logs[0].read_text().lower(), _tail(logs[0])
+    cases.wait({1: procs[1]}, 0.1)
+    assert codes[0] not in (0, None), cases.tail(logs[0])
+    assert "timed out" in logs[0].read_text().lower(), cases.tail(logs[0])
     assert elapsed < 60, elapsed
 
 

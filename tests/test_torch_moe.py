@@ -189,5 +189,7 @@ def test_moe_mlp_auto_is_the_single_card_path_and_sharded_raises():
     want, waux = moe.moe_mlp(xt, p, cfg)
     assert torch.equal(out, want) and torch.equal(aux["dropped"],
                                                   waux["dropped"])
-    with pytest.raises(NotImplementedError, match="the LM's mesh"):
+    # the expert-parallel path needs the LM's mesh (a DeviceMesh context;
+    # tests/test_torch_lm_mesh.py runs it on gloo ranks)
+    with pytest.raises(RuntimeError, match="the LM's mesh"):
         moe.moe_mlp_sharded(xt, p, cfg)

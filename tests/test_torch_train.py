@@ -463,10 +463,19 @@ def test_train_launcher_smoke(tmp_path):
 
 
 def test_train_launcher_refuses_the_mesh_flags():
+    """The production meshes need their 256 / 512 ranks (a launcher not
+    under torchrun is a world of one); ``--multi-pod`` without
+    ``--production`` and ``--overlap`` train on the host mesh."""
     from repro_torch.launch.train import main as train_main
-    for flag in ("--production", "--multi-pod", "--overlap"):
-        with pytest.raises(NotImplementedError, match="the LM's mesh"):
-            train_main(["--smoke", "--device", "cpu", flag])
+    small = ["--smoke", "--device", "cpu", "--steps", "2", "--batch", "4",
+             "--seq", "16"]
+    for flags, ranks in ((["--production"], "256"),
+                         (["--production", "--multi-pod"], "512")):
+        with pytest.raises(ValueError, match=f"needs {ranks} ranks"):
+            train_main(small + flags)
+    for flag in ("--multi-pod", "--overlap"):
+        _, losses = train_main(small + [flag])
+        assert len(losses) == 2 and all(np.isfinite(losses))
 
 
 def test_train_entry_points_need_the_card_unless_asked_for_cpu():

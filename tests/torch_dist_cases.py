@@ -20,6 +20,16 @@ capacities (padded to the mesh) and a heavy-key linear case whose count,
 and one rank's partial, passes 2^31; at 1 × 1 it also runs
 ``JoinSession.execute``.  ``--stall`` makes rank 1 sit out the first
 collective for longer than the groups' timeout.
+
+The parity launches also run the LM's mesh cases (``lm_reference`` /
+``lm_port``) on a (4, 2) ("data", "model") mesh: the expert-parallel
+MoE FFN at two capacity factors with its gradients, two train steps of
+a dense and an MoE smoke config (2 microbatches), the port's
+``overlap`` path, and a checkpoint restored onto ``Shard`` placements.
+Their inputs are numpy draws and the port's own seeded initialisation
+(the reference carries it across with ``convert``), written to
+``lm_ref.npz`` / ``lm_ref.json`` and ``lm_port_<rank>.npz`` /
+``lm_port_<rank>.json``.
 """
 
 from __future__ import annotations
@@ -304,6 +314,8 @@ def run_port(args):
     if args.suite == "parity":
         np.savez(out / f"prims_{args.rank}.npz",
                  **port_primitives(D, mesh, place(PRIM_TABLE)))
+        lm_port(D.make_mesh(ROWS, COLS, "data", "model", device="cpu",
+                            timeout=args.timeout), args.rank, out)
     (out / f"port_{args.rank}.json").write_text(json.dumps(results))
     dist.destroy_process_group()
 
@@ -328,6 +340,279 @@ def port_primitives(D, mesh, r):
         out.update({f"{tag}_{k}": v for k, v in x.columns.items()})
         out[f"{tag}_valid"] = x.valid
     return {k: v.numpy() for k, v in out.items()}
+
+
+# --------------------------------------------------------------------------
+# the LM's mesh: (4, 2) ("data", "model")
+# --------------------------------------------------------------------------
+
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_X = (8, 64)                    # global [B, S]: 2 x 64 tokens a shard
+MOE_CFS = (8.0, 1.25)              # nothing dropped at 8.0 (>= E/k)
+MOE_AUX_W = 0.37                   # the aux loss's weight in the objective
+TRAIN_ARCHS = ("qwen2-1.5b", "qwen3-moe-30b-a3b")
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 16, 32, 2, 2
+TRAIN_OPT = dict(lr=1e-3, total_steps=20, warmup_steps=2, eps=1e-5)
+REPLICATED_MB = 3                  # rows of a microbatch that 4 cannot split
+INIT_SEED = 3
+
+
+def moe_inputs(cfg):
+    rng = np.random.default_rng(5)
+    shape = MOE_X + (cfg.d_model,)
+    return (rng.normal(size=shape).astype(np.float32),
+            rng.normal(size=shape).astype(np.float32))
+
+
+def train_batches(cfg):
+    rng = np.random.default_rng(17)
+    out = []
+    for _ in range(TRAIN_STEPS):
+        toks = rng.integers(0, cfg.vocab_size,
+                            (TRAIN_BATCH, TRAIN_SEQ + 1)).astype(np.int32)
+        out.append({"inputs": toks[:, :-1], "targets": toks[:, 1:]})
+    return out
+
+
+def port_init(arch):
+    """The port's seeded MoE layer or train state (its smoke config, in
+    float32)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import moe, zoo
+    from repro_torch.train import init_train_state
+    gen = torch.Generator().manual_seed(INIT_SEED)
+    if arch == "moe":
+        cfg = configs.smoke(MOE_ARCH)
+        return cfg, moe.init_moe(gen, cfg)
+    cfg = dataclasses.replace(configs.smoke(arch), dtype="float32")
+    return cfg, init_train_state(zoo.build(cfg), gen)
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: np.asarray(tree)}
+
+
+def lm_reference(out: pathlib.Path):
+    """The JAX package on the (4, 2) ("data", "model") mesh of the 8
+    forced devices: ``moe_mlp_sharded`` (output, aux, gradients of
+    ``sum(out * ct) / 4 + MOE_AUX_W * aux_loss``; also ``moe_mlp``'s
+    gradients of the aux-free objective), and ``make_train_step`` jitted
+    under the mesh context for TRAIN_STEPS steps."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs as jconfigs
+    from repro.launch import mesh as mesh_lib
+    from repro.models import moe as jmoe
+    from repro.models import zoo as jzoo
+    from repro.optim import AdamWConfig
+    from repro.parallel import sharding as jshd
+    from repro.train import steps as jsteps
+    from repro import compat
+    from repro_torch import convert
+    mesh = compat.make_mesh((ROWS, COLS), ("data", "model"))
+    arrays, meta = {}, {}
+
+    _, layer = port_init("moe")
+    cfg = jconfigs.smoke(MOE_ARCH)
+    p = jax.tree.map(jnp.asarray, convert.lm_params_to_numpy(layer))
+    x, ct = map(jnp.asarray, moe_inputs(cfg))
+    for cf in MOE_CFS:
+        # "aux": the sharded function with the aux term; "noaux": the
+        # unsharded moe_mlp without it where nothing drops (the port's
+        # sharded path must give its gradients there)
+        for sharded, w in ((True, MOE_AUX_W),) + (
+                ((False, 0.0),) if cf == MOE_CFS[0] else ()):
+            fn = jmoe.moe_mlp_sharded if sharded else jmoe.moe_mlp
+
+            def objective(x, p, fn=fn, cf=cf, w=w):
+                y, aux = fn(x, p, cfg, capacity_factor=cf)
+                return jnp.sum(y * ct) / ROWS + w * aux["aux_loss"], (y, aux)
+
+            if sharded:
+                mesh_lib.activate(mesh)
+            try:
+                (_, (y, aux)), (gx, gp) = jax.jit(jax.value_and_grad(
+                    objective, argnums=(0, 1), has_aux=True))(x, p)
+            finally:
+                jshd.set_context(None)
+            tag = f"moe/{cf}/{'aux' if sharded else 'noaux'}"
+            arrays[f"{tag}/out"] = np.asarray(y)
+            arrays[f"{tag}/aux_loss"] = np.asarray(aux["aux_loss"])
+            arrays[f"{tag}/dropped"] = np.asarray(aux["dropped"])
+            arrays[f"{tag}/grad/x"] = np.asarray(gx)
+            for k, v in _flat(jax.tree.map(np.asarray, gp)).items():
+                arrays[f"{tag}/grad/{k}"] = v
+
+    for arch in TRAIN_ARCHS:
+        cfg, state = port_init(arch)
+        jcfg = dataclasses.replace(jconfigs.smoke(arch), dtype="float32")
+        tree = convert.train_state_to_numpy(state)
+        jstate = jsteps.TrainState(
+            jax.tree.map(jnp.asarray, tree["params"]),
+            jax.tree.map(jnp.asarray, tree["opt"]), jnp.asarray(tree["step"]))
+        step = jsteps.make_train_step(
+            jzoo.build(jcfg), AdamWConfig(**TRAIN_OPT),
+            accum_steps=TRAIN_ACCUM)
+        mesh_lib.activate(mesh)
+        try:
+            step = jax.jit(step)
+            recs = []
+            for batch in train_batches(cfg):
+                jstate, m = step(jstate, {k: jnp.asarray(v)
+                                          for k, v in batch.items()})
+                recs.append({k: float(v) for k, v in m.items()})
+        finally:
+            jshd.set_context(None)
+        meta[arch] = recs
+        for k, v in _flat(jax.tree.map(np.asarray, jstate.params)).items():
+            arrays[f"train/{arch}/{k}"] = v
+    np.savez(out / "lm_ref.npz", **arrays)
+    (out / "lm_ref.json").write_text(json.dumps(meta))
+
+
+def _expected_local(full, placements, coords, sizes):
+    """This rank's shard of ``full`` under ``placements``: mesh dims in
+    order, each ``Shard(d)`` taking its coordinate's ``torch.chunk``."""
+    for pl, c, n in zip(placements, coords, sizes):
+        if pl.is_shard():
+            full = full.chunk(n, dim=pl.dim)[c]
+    return full
+
+
+def lm_port(mesh, rank, out: pathlib.Path):
+    """One rank of the port on the (4, 2) ("data", "model") mesh: its rows
+    of the MoE input through ``moe_mlp_sharded`` (and its gradients, the
+    parameters' averaged over "data"), the train steps on the global
+    batches, the same dense run with ``overlap``, an MoE step whose
+    microbatch does not divide "data" against the meshless step, and rank
+    0's checkpoint restored onto ``state_shardings`` placements."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import convert
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import specs
+    from repro_torch.models import moe, zoo
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import sharding
+    from repro_torch.train import make_train_step
+    arrays, meta = {}, {"rank": rank}
+    data_group = mesh.get_group("data")
+    row = mesh.get_local_rank("data")
+
+    cfg, layer = port_init("moe")
+    x, ct = moe_inputs(cfg)
+    lb = MOE_X[0] // ROWS
+    rows = slice(row * lb, (row + 1) * lb)
+    for cf in MOE_CFS:
+        for tag, w in (("aux", MOE_AUX_W),) + (
+                (("noaux", 0.0),) if cf == MOE_CFS[0] else ()):
+            tag = f"moe/{cf}/{tag}"
+            lay = copy.deepcopy(layer)
+            xt = torch.from_numpy(x[rows]).requires_grad_(True)
+            sharding.set_context(mesh)
+            try:
+                y, aux = moe.moe_mlp_sharded(xt, lay, cfg,
+                                             capacity_factor=cf)
+            finally:
+                sharding.set_context(None)
+            obj = (y * torch.from_numpy(ct[rows])).sum() + \
+                w * aux["aux_loss"]
+            obj.backward()
+            grads = dict(zip((pth for pth, _ in convert.leaf_paths(lay)),
+                             (q.grad for q in lay.parameters())))
+            for g in grads.values():
+                dist.all_reduce(g, group=data_group)
+                g /= ROWS
+            arrays[f"{tag}/out"] = y.detach().numpy()
+            arrays[f"{tag}/aux_loss"] = aux["aux_loss"].detach().numpy()
+            arrays[f"{tag}/dropped"] = aux["dropped"].numpy()
+            arrays[f"{tag}/grad/x"] = (xt.grad / ROWS).numpy()
+            for k, g in grads.items():
+                arrays[f"{tag}/grad/{k}"] = g.numpy()
+
+    ctx = sharding.MeshContext(mesh, sharding.DEFAULT_RULES)
+    for arch in TRAIN_ARCHS + ("overlap",):
+        cfg, state = port_init(TRAIN_ARCHS[0] if arch == "overlap"
+                               else arch)
+        step = make_train_step(zoo.build(cfg), AdamWConfig(**TRAIN_OPT),
+                               accum_steps=TRAIN_ACCUM, mesh=mesh,
+                               overlap=arch == "overlap")
+        recs = []
+        for batch in train_batches(cfg):
+            state, m = step(state, {k: torch.from_numpy(v)
+                                    for k, v in batch.items()})
+            recs.append({k: float(v) for k, v in m.items()})
+        meta[arch] = recs
+        params = convert.lm_params_to_numpy(state.params)
+        flat = _flat(params)
+        meta[f"{arch}/checksum"] = float(sum(np.float64(v).sum()
+                                             for v in flat.values()))
+        for k, v in flat.items():
+            arrays[f"train/{arch}/{k}"] = v
+        if arch == TRAIN_ARCHS[0]:
+            dense = state
+
+    # a microbatch of 3 rows does not divide the 4 "data" ranks: every
+    # rank takes it whole (replicated), the MoE runs moe_mlp, and the step
+    # equals the meshless one
+    cfg, state = port_init(TRAIN_ARCHS[1])
+    alone = copy.deepcopy(state)
+    batch = {k: torch.from_numpy(v[:2 * REPLICATED_MB])
+             for k, v in train_batches(cfg)[0].items()}
+    for st, m in ((state, mesh), (alone, None)):
+        make_train_step(zoo.build(cfg), AdamWConfig(**TRAIN_OPT),
+                        accum_steps=2, mesh=m)(st, batch)
+    meta["replicated_max_abs_diff"] = max(
+        float((a.detach() - b.detach()).abs().max()) for a, b in
+        zip(state.params.parameters(), alone.params.parameters()))
+
+    # rank 0 saves the dense run's state; every rank restores it sharded
+    ckpt = out / "ckpt"
+    if rank == 0:
+        CheckpointManager(ckpt).save(dense, TRAIN_STEPS)
+    dist.barrier()
+    shardings = specs.state_shardings(dense, ctx)
+    restored, manifest = CheckpointManager(ckpt).restore(
+        dense, device="cpu", shardings=shardings)
+    coords = mesh.get_coordinate()
+    sizes = tuple(mesh.shape)
+    saved = ([p.detach() for p in dense.params.parameters()]
+             + list(dense.opt["m"]) + list(dense.opt["v"]))
+    got = (list(restored.params.parameters()) + list(restored.opt["m"])
+           + list(restored.opt["v"]))
+    placed = (list(shardings.params) + list(shardings.opt["m"])
+              + list(shardings.opt["v"]))
+    local_ok = whole_ok = True
+    n_sharded = 0
+    for want, dt, (_, placements) in zip(saved, got, placed):
+        n_sharded += any(pl.is_shard() for pl in dt.placements)
+        local_ok &= tuple(dt.placements) == tuple(placements)
+        local_ok &= torch.equal(dt.to_local(), _expected_local(
+            want, placements, coords, sizes))
+        whole_ok &= torch.equal(dt.full_tensor(), want)
+    meta["restore"] = {
+        "step": manifest["step"], "leaves": len(got),
+        "sharded": int(n_sharded), "local_equal": bool(local_ok),
+        "full_equal": bool(whole_ok),
+        "steps_replicated": [restored.step.full_tensor().item(),
+                             restored.opt["step"].full_tensor().item()]}
+    np.savez(out / f"lm_port_{rank}.npz", **arrays)
+    (out / f"lm_port_{rank}.json").write_text(json.dumps(meta))
 
 
 # --------------------------------------------------------------------------
@@ -376,6 +661,9 @@ def run_reference(args):
     out = pathlib.Path(args.out)
     np.savez(out / "prims_ref.npz",
              **reference_primitives(jax, D, mesh, place(PRIM_TABLE)))
+    t0 = time.perf_counter()
+    lm_reference(out)
+    print(f"lm_reference {time.perf_counter() - t0:.1f}s", flush=True)
     (out / "reference.json").write_text(json.dumps(results))
 
 
@@ -411,6 +699,116 @@ def reference_primitives(jax, D, mesh, r):
                           out_specs=spec)
     res = jax.jit(fn)(dict(r.columns), r.valid)
     return {k: np.asarray(v).reshape(ROWS * COLS, -1) for k, v in res.items()}
+
+
+# --------------------------------------------------------------------------
+# launching: every mesh shape's ranks and the reference at once, once a
+# test session (the test files that read them share one launch)
+# --------------------------------------------------------------------------
+
+SHAPES = {"4x2": (4, 2), "2x2": (2, 2), "1x1": (1, 1)}
+WALL_S = 420             # every launch of a session, together
+RANK_TIMEOUT_S = 120     # a collective's limit in the launched ranks
+
+
+def child_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT / "src"), env.get("PYTHONPATH")) if p)
+    env["OMP_NUM_THREADS"] = "1"
+    return env
+
+
+def start(argv, log: pathlib.Path):
+    import subprocess
+    with open(log, "w") as f:
+        return subprocess.Popen([sys.executable, str(pathlib.Path(__file__)),
+                                 *argv], stdout=f, stderr=subprocess.STDOUT,
+                                env=child_env())
+
+
+def port_argv(out, rows, cols, suite, rank, timeout):
+    return ["port", "--suite", suite, "--rank", str(rank), "--rows",
+            str(rows), "--cols", str(cols), "--store", str(out / "store"),
+            "--out", str(out), "--timeout", str(timeout)]
+
+
+def wait(procs: dict, wall: float) -> dict:
+    """Exit codes by name; a process still running at the wall-clock limit
+    is killed and reported as None."""
+    import subprocess
+    deadline = time.monotonic() + wall
+    codes = {}
+    try:
+        for name, p in procs.items():
+            try:
+                codes[name] = p.wait(timeout=max(0.1, deadline
+                                                 - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                codes[name] = None
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return codes
+
+
+def tail(path: pathlib.Path, n=30) -> str:
+    return "\n".join(path.read_text(errors="replace").splitlines()[-n:])
+
+
+def launch_all(root: pathlib.Path) -> dict:
+    """The reference and the port's three mesh shapes, all at once, their
+    outputs under ``root``; returns the failed launches' exit codes and
+    log tails."""
+    procs, logs = {}, {}
+    (root / "ref").mkdir()
+    logs["ref"] = root / "ref" / "log"
+    procs["ref"] = start(["reference", "--out", str(root / "ref")],
+                         logs["ref"])
+    for shape, (rows, cols) in SHAPES.items():
+        out = root / shape
+        out.mkdir()
+        suite = "parity" if shape == "4x2" else "oracle"
+        for k in range(rows * cols):
+            name = f"{shape}/{k}"
+            logs[name] = out / f"log{k}"
+            procs[name] = start(port_argv(out, rows, cols, suite, k,
+                                          RANK_TIMEOUT_S), logs[name])
+    codes = wait(procs, WALL_S)
+    bad = {n: c for n, c in codes.items() if c != 0}
+    return {"bad": bad, "tails": {n: tail(logs[n]) for n in bad}}
+
+
+def shared_launch(basetemp: pathlib.Path) -> tuple[pathlib.Path, dict]:
+    """``launch_all`` once a test session: the first caller launches, a
+    caller on another xdist worker of the same run waits for its status
+    (the directory is keyed by the run's id, beside the workers' own
+    temporary directories).  Returns (the outputs' root, the status)."""
+    uid = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    root = basetemp.parent / f"mesh-{uid}" if uid else basetemp / "mesh"
+    root.mkdir(parents=True, exist_ok=True)
+    status = root / "status.json"
+    try:
+        (root / "lock").mkdir()
+    except FileExistsError:
+        deadline = time.monotonic() + WALL_S + 300
+        while not status.exists():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no launch status in {root}")
+            time.sleep(1.0)
+        return root, json.loads(status.read_text())
+    try:
+        got = launch_all(root)
+    except BaseException as exc:
+        got = {"bad": {"launch": repr(exc)}, "tails": {}}
+        raise
+    finally:
+        tmp = root / "status.tmp"
+        tmp.write_text(json.dumps(got))
+        tmp.rename(status)
+    return root, got
 
 
 def main(argv=None):
