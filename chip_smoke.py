@@ -183,7 +183,19 @@ result line):
      apart; L3 L2's checkpoint restored with ``specs.state_shardings``
      onto the host mesh, every leaf a DTensor whose ``full_tensor()`` is
      the saved array, bit for bit;
- 14. the flash forward and backward at S1's, T1's microbatch and S2's
+ 14. dryrun — the dry-run (``repro_torch.launch.dryrun``) on this
+     machine's CPU in a process of its own, CUDA hidden: T1's train step
+     and S1's prefill as cells on a world of one rank (``estimate``, the
+     function ``run_cell`` runs a cell with), while the same step and
+     prefill run once more on the card from fresh inputs under
+     ``FlopCounterMode``; each estimate printed beside the card's and
+     beside T1's and S1's rows.  Fails unless the flops agree within
+     ``DRYRUN_FLOPS_TOL``, the peak within ``DRYRUN_PEAK_TOL`` of the
+     card's one-step peak, and the roofline's ``step_time_lb_s`` (its
+     memory term the HBM floor) is no more than T1's warm step and S1's
+     warm prefill.  Then qwen2-1.5b x
+     train_4k on the fake (16, 16) world, its summary printed;
+ 15. the flash forward and backward at S1's, T1's microbatch and S2's
      shapes against their plain versions, their bounds and
      ``scaled_dot_product_attention`` (its backward alone on a retained
      graph).  Prints one ``kernels`` JSON line with all twelve kernels
@@ -191,7 +203,7 @@ result line):
      ``kernel_ms_missing`` saying why); the join kernels' launches are
      the main path's (the stream deltas' are in the ``[stream]`` lines),
      the flash kernels' those of serving, training and L2;
- 15. the last line: ``{"ok": true, "device": {...}}``.
+ 16. the last line: ``{"ok": true, "device": {...}}``.
 
 Join sizes are cut from the paper's (Fig 4: N = 2e8
 friends edges, a 1e9-row fact table) to N = 4e6 edges over 14,000 users
@@ -3661,6 +3673,174 @@ def lm_mesh_phase(torch, seed, t1):
     return rows, launches
 
 
+# --------------------------------------------------------------------------
+# phase 14: the dry-run's estimates against the card
+# --------------------------------------------------------------------------
+
+# The dry-run (launch/dryrun.py, fake CPU tensors, a world of one rank) at
+# T1's train step and S1's prefill against one such step on the card from
+# freshly built inputs: its flops within DRYRUN_FLOPS_TOL (relative) of
+# FlopCounterMode over the card's step (the same ops and formulas; equal
+# expected), its peak (arguments + the most the step allocates) within
+# DRYRUN_PEAK_TOL of the card's (max_memory_allocated less what was
+# allocated before the inputs), and its roofline's step_time_lb_s (the
+# largest of three floors: flops at the bf16 peak, the HBM floor, the
+# wire) no more than T1's and S1's measured warm seconds.  Two card runs
+# put the peak at -0.040% and -0.050% of the card's for T1, -0.022% and
+# -0.034% for S1: 1% sits well above that spread and well below a missed
+# AdamW moment (6.2 GB of T1's 31.1 GB) or a dropped cache.
+DRYRUN_FLOPS_TOL = 1e-3
+DRYRUN_PEAK_TOL = 0.01
+DRYRUN_CELL = ("qwen2-1.5b", "train_4k")     # one production cell, pod1
+DRYRUN_TIMEOUT_S = 600
+
+
+def dryrun_cells():
+    """T1's train step and S1's prefill as dry-run cells: their configs,
+    batch and sequence length."""
+    import dataclasses
+
+    from repro_torch.launch import specs
+    _, arch, batch, seq, _, over = TRAIN[0]
+    t1 = dataclasses.replace(
+        specs.build_cell(arch, "train_4k", overrides=over or None),
+        shape="T1", seq_len=seq, global_batch=batch)
+    _, arch, batch, prompt, *_ = SERVE[0]
+    s1 = dataclasses.replace(
+        specs.build_cell(arch, "prefill_32k",
+                         overrides={"max_cache_len": prompt}),
+        shape="S1", seq_len=prompt, global_batch=batch)
+    return {"T1": t1, "S1": s1}
+
+
+def _dryrun_worker(out_path):
+    """The dry-run on this machine's CPU, CUDA hidden: T1's and S1's cells
+    through ``dryrun.estimate`` (the function ``run_cell`` runs a cell
+    with), then DRYRUN_CELL on the fake (16, 16) world."""
+    import os
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    import torch
+
+    from repro_torch.launch import dryrun
+    out = {}
+    for label, cell in dryrun_cells().items():
+        est, _ = dryrun.estimate(cell)
+        out[label] = est
+    art = dryrun.run_cell(*DRYRUN_CELL, False)
+    out["cell"] = {**dryrun.summary(art),
+                   "collective_groups": art["collective_groups"],
+                   "hlo_stats": art["hlo_stats"],
+                   "roofline": art["roofline"]}
+    out["cuda_initialized"] = torch.cuda.is_initialized()
+    pathlib.Path(out_path).write_text(json.dumps(out))
+
+
+def _card_step(torch, label, seed):
+    """One step of ``label``'s cell on the card from fresh inputs:
+    FlopCounterMode's flops, the seconds, and the peak bytes above what
+    was allocated before the inputs."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (init_train_state, make_prefill_step,
+                                   make_train_step)
+    cell = dryrun_cells()[label]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    tokens = torch.randint(0, cell.cfg.vocab_size,
+                           (cell.global_batch, cell.seq_len), device="cuda",
+                           dtype=torch.int32, generator=gen)
+    if cell.kind == "train":
+        state = init_train_state(cell.model, gen)
+        args = (state, {"inputs": tokens, "targets": tokens.roll(-1, 1)})
+        step = make_train_step(cell.model, AdamWConfig())
+    else:
+        args = (cell.model.init(gen), tokens, cell.model.init_cache(
+            cell.global_batch, cell.seq_len, device="cuda"))
+        step = make_prefill_step(cell.model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        out = step(*args)
+        torch.cuda.synchronize()
+    row = {"flops": fc.get_total_flops(),
+           "seconds_under_flop_counter": time.perf_counter() - t0,
+           "peak_bytes": torch.cuda.max_memory_allocated() - base}
+    del out, args
+    torch.cuda.empty_cache()
+    return row
+
+
+def dryrun_phase(torch, seed, s1, t1):
+    """The dry-run on the CPU in a process of its own (this one holds the
+    card and has held a NCCL group) while T1's step and S1's prefill run
+    once more on the card, each under FlopCounterMode with its peak read;
+    each estimate printed beside the card's and beside T1's and S1's rows
+    (their peak GiB and warm seconds).  Fails unless the flops, the peak
+    and the roofline's lower bound hold as stated above."""
+    import multiprocessing
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = pathlib.Path(tmp) / "dryrun.json"
+        proc = multiprocessing.get_context("spawn").Process(
+            target=_dryrun_worker, args=(str(out_path),))
+        proc.start()
+        try:
+            card = {label: _card_step(torch, label, seed)
+                    for label in ("T1", "S1")}
+        finally:
+            proc.join(DRYRUN_TIMEOUT_S)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+        if proc.exitcode != 0 or not out_path.exists():
+            fail(f"dryrun: the CPU process ended with {proc.exitcode}")
+        est = json.loads(out_path.read_text())
+    if est["cuda_initialized"]:
+        fail("dryrun: the dry-run initialised CUDA")
+    measured = {"T1": (t1["warm_step_s"], t1["peak_gib"]),
+                "S1": (s1["prefill_s"][-1], s1["peak_gib"])}
+    rows, bad = [], []
+    for label, (warm_s, row_peak_gib) in measured.items():
+        e, c = est[label], card[label]
+        lb = e["roofline"]["step_time_lb_s"]
+        flops_rel = abs(e["hlo_stats"]["flops"] - c["flops"]) / c["flops"]
+        peak = e["per_device_peak_bytes_est"]
+        peak_rel = (peak - c["peak_bytes"]) / c["peak_bytes"]
+        row = {"dryrun": label, "kind": "train" if label == "T1"
+               else "prefill", "est_flops": e["hlo_stats"]["flops"],
+               "card_flops": c["flops"], "flops_rel_diff": flops_rel,
+               "est_peak_bytes": peak, "card_step_peak_bytes":
+               c["peak_bytes"], "peak_rel_diff": peak_rel,
+               "row_peak_gib": row_peak_gib, "memory": e["memory"],
+               "traffic_bytes": e["hlo_stats"]["traffic_bytes"],
+               "hbm_floor": e["hbm_floor"],
+               "roofline": e["roofline"], "measured_warm_s": warm_s,
+               "lb_over_measured": lb / warm_s,
+               "card_seconds_under_flop_counter":
+                   c["seconds_under_flop_counter"],
+               "attn_substitution": e["attn_substitution"],
+               "tol": {"flops": DRYRUN_FLOPS_TOL, "peak": DRYRUN_PEAK_TOL}}
+        log(f"[dryrun] {json.dumps(row)}")
+        rows.append(row)
+        if flops_rel > DRYRUN_FLOPS_TOL:
+            bad.append(f"{label} flops {flops_rel:.2e}")
+        if abs(peak_rel) > DRYRUN_PEAK_TOL:
+            bad.append(f"{label} peak {peak_rel:+.3f}")
+        if lb > warm_s:
+            bad.append(f"{label} step_time_lb_s {lb:.4f} > {warm_s:.4f}")
+    log(f"[dryrun] {json.dumps(est['cell'])}")
+    rows.append(est["cell"])
+    log(f"[dryrun] phase took {time.perf_counter() - t0:.1f}s")
+    if bad:
+        fail(f"dryrun: {'; '.join(bad)}")
+    return rows
+
+
 def sdpa_kernels(torch, fn):
     """The device kernels one call of ``fn`` runs, by device time (which
     SDPA backend took the inputs), from ``torch.profiler``."""
@@ -3849,6 +4029,7 @@ def main() -> int:
     t_rows, t_launches, grad = train_phase(torch, args.seed)
     restart = restart_phase(torch, args.seed)
     lm_rows, lm_launches = lm_mesh_phase(torch, args.seed, t_rows[0])
+    dr_rows = dryrun_phase(torch, args.seed, s_rows[0], t_rows[0])
     lines += flash_kernel_phase(
         torch, errs, {"flash_fwd": s_launches["flash_fwd"]
                       + t_launches["flash_fwd"] + lm_launches["flash_fwd"],
@@ -3858,7 +4039,8 @@ def main() -> int:
                     "stream": st_rows, "mesh": m_rows,
                     "mesh_launches": m_launches, "analytics": a_rows,
                     "serve": s_rows, "train": t_rows, "grad_check": grad,
-                    "restart": restart, "lm_mesh": lm_rows}))
+                    "restart": restart, "lm_mesh": lm_rows,
+                    "dryrun": dr_rows}))
     print(card, flush=True)
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {

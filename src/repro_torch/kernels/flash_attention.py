@@ -29,11 +29,23 @@ flash_fwd.cu`` and ``flash_bwd.cu`` through ``kernels.cuda``); a CPU
 tensor takes the plain versions beside them, dense masked softmaxes in f32
 (f64 for f64 inputs).  ``flash_fwd`` and ``flash_bwd`` record no autograd
 graph on either device: gradients go through ``FlashAttention``.
+
+Both are custom operators, ``torch.ops.repro_torch.flash_fwd`` and
+``flash_bwd`` (``torch.library.custom_op``): a CUDA kernel, a CPU kernel
+(the plain version), any other device refused; a fake implementation
+that gives the outputs' shapes and dtypes only, so under
+``FakeTensorMode`` (the dry-run, ``launch/dryrun.py``) each call is one op
+with the kernel's own outputs and no score matrix; and a flop formula
+(``torch.utils.flop_counter``), 4·D flops a visible (query, key) pair
+forward and 10·D backward, the count the kernels' bound uses, on either
+device.  ``hbm_bytes`` is the JAX package's HBM contract of the kernel.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 NEG_INF = -2.0e38
 
@@ -136,21 +148,87 @@ def _check_operands(q, k, v) -> None:
                          f"of {k.shape[2]} kv heads")
 
 
-def _route(op: str, x: torch.Tensor) -> bool:
-    """True for a CUDA tensor (the kernel), False for a CPU one."""
-    if x.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{op}: unsupported device {x.device}")
-    return x.device.type == "cuda"
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, window: int
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    raise ValueError(f"flash_fwd: unsupported device {q.device}")
+
+
+@_flash_fwd_op.register_kernel("cuda")
+def _(q, k, v, causal, window):
+    from repro_torch.kernels import cuda
+    return cuda.flash_fwd(q, k, v, causal=causal, window=window)
+
+
+@_flash_fwd_op.register_kernel("cpu")
+def _(q, k, v, causal, window):
+    return _flash_fwd_ref(q, k, v, causal=causal, window=window)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal, window):
+    b, s_len, h, _ = q.shape
+    stats = q.new_empty((b, h, s_len, 1), dtype=_acc_dtype(q))
+    return torch.empty_like(q), stats, torch.empty_like(stats)
+
+
+@torch.library.custom_op("repro_torch::flash_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                  do: torch.Tensor, causal: bool, window: int
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    raise ValueError(f"flash_bwd: unsupported device {q.device}")
+
+
+@_flash_bwd_op.register_kernel("cuda")
+def _(q, k, v, o, m, l, do, causal, window):
+    from repro_torch.kernels import cuda
+    return cuda.flash_bwd(q, k, v, o, m, l, do, causal=causal,
+                          window=window)
+
+
+@_flash_bwd_op.register_kernel("cpu")
+def _(q, k, v, o, m, l, do, causal, window):
+    return _flash_bwd_ref(q, k, v, o, m, l, do, causal=causal,
+                          window=window)
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, o, m, l, do, causal, window):
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            torch.empty_like(k, memory_format=torch.contiguous_format),
+            torch.empty_like(v, memory_format=torch.contiguous_format))
+
+
+def visible_pairs(s_len: int, t_len: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs a row of one head sees: query positions
+    ``0..S-1``, key positions ``0..T-1``, the mask of ``_visible``."""
+    s = np.arange(s_len, dtype=np.int64)
+    hi = np.minimum(s, t_len - 1) if causal else np.full_like(s, t_len - 1)
+    lo = np.maximum(s - window + 1, 0) if window > 0 else np.zeros_like(s)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def _flash_fwd_flops(q_shape, k_shape, v_shape, causal, window, *args,
+                     **kwargs) -> int:
+    b, s_len, h, d = q_shape
+    return 4 * d * b * h * visible_pairs(s_len, k_shape[1], causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_bwd)
+def _flash_bwd_flops(q_shape, k_shape, *args, **kwargs) -> int:
+    b, s_len, h, d = q_shape
+    causal, window = args[-2:]
+    return 10 * d * b * h * visible_pairs(s_len, k_shape[1], causal, window)
 
 
 def flash_fwd(q, k, v, *, causal: bool = True, window: int = 0):
     """-> (o [B,S,H,D] in q's dtype, m [B,H,S,1] f32, l [B,H,S,1] f32)."""
     _check_operands(q, k, v)
-    if _route("flash_fwd", q):
-        from repro_torch.kernels import cuda
-        return cuda.flash_fwd(q, k, v, causal=causal, window=window)
     with torch.no_grad():
-        return _flash_fwd_ref(q, k, v, causal=causal, window=window)
+        return _flash_fwd_op(q, k, v, causal, window)
 
 
 def flash_bwd(q, k, v, o, m, l, do, *, causal: bool = True,
@@ -158,13 +236,8 @@ def flash_bwd(q, k, v, o, m, l, do, *, causal: bool = True,
     """-> (dq [B,S,H,D], dk [B,T,KVH,D], dv [B,T,KVH,D]) in the inputs'
     dtypes, from the forward's o, m, l and the output gradient do."""
     _check_operands(q, k, v)
-    if _route("flash_bwd", q):
-        from repro_torch.kernels import cuda
-        return cuda.flash_bwd(q, k, v, o, m, l, do, causal=causal,
-                              window=window)
     with torch.no_grad():
-        return _flash_bwd_ref(q, k, v, o, m, l, do, causal=causal,
-                              window=window)
+        return _flash_bwd_op(q, k, v, o, m, l, do, causal, window)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -189,3 +262,18 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention_kernel(q, k, v, causal: bool = True, window: int = 0):
     """Differentiable attention through ``FlashAttention`` -> o."""
     return FlashAttention.apply(q, k, v, causal, window)
+
+
+def hbm_bytes(cfg, batch: int, seq: int, *, train: bool) -> float:
+    """The kernel's HBM traffic contract (per layer, per device inputs):
+    fwd reads q,k,v (+stats) and writes o; bwd reads q,k,v,o,do and writes
+    dq,dk,dv.  The JAX package's formula (bf16 operands), which the
+    dry-run reports beside the flash ops' own traffic."""
+    bt = 2  # bf16
+    qo = batch * seq * cfg.n_heads * cfg.head_dim * bt
+    kv = batch * seq * cfg.n_kv_heads * cfg.head_dim * bt
+    fwd = 2 * qo + 2 * kv + 2 * (batch * seq * cfg.n_heads * 4) * 2
+    if not train:
+        return fwd
+    bwd = 3 * qo + 2 * kv + (qo + 2 * kv)      # q,o,do reads + dq,dk,dv
+    return fwd + bwd

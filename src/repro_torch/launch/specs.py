@@ -17,16 +17,28 @@ take a ``MeshContext`` whose mesh may be a ``DeviceMesh`` or a shape-only
 state as the port's ``TrainState``; batches and caches as dicts of
 tensors (the meta device gives shapes without memory: ``abstract_state``).
 
-The cell builders (``build_cell``, ``input_specs``,
-``step_and_shardings``) belong to the dry-run tooling, which is not
-ported yet (ROADMAP Queue A).
+The cell builders are the dry-run's (``launch/dryrun.py``): a ``Cell``
+is one (architecture x input shape) of ``configs.SHAPES``; ``input_specs``
+gives every input of the cell's step in the order the step takes them,
+the JAX package's ``ShapeDtypeStruct`` stand-ins leaf by leaf (a stacked
+``[L, ...]`` leaf is L port tensors, paired through
+``convert.leaf_paths``).  Built under a ``FakeTensorMode`` they are fake
+CPU tensors, shapes without memory; outside one, real CPU tensors from
+the seed.  ``cell_step`` gives the step of ``train/steps.py`` the cell
+runs; ``step_and_shardings`` gives it with the placements of its inputs
+and outputs.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Any
+
 import torch
 
-from repro_torch import convert
+from repro_torch import configs, convert
+from repro_torch.models import zoo
+from repro_torch.models.config import ModelConfig
 from repro_torch.parallel.sharding import (MeshContext, placements_for,
                                            spec_for)
 
@@ -227,3 +239,145 @@ def abstract_state(model):
     """The model's ``TrainState`` on the meta device (shapes, no memory)."""
     from repro_torch.train.steps import init_train_state
     return init_train_state(model, _MetaGenerator())
+
+
+# --------------------------------------------------------------------------
+# inputs per cell
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Cell:
+    arch: str
+    shape: str
+    cfg: ModelConfig
+    model: Any
+    kind: str                  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+def build_cell(arch: str, shape: str, *, overrides: dict | None = None
+               ) -> Cell:
+    cfg = configs.get(arch)
+    sh = configs.SHAPES[shape]
+    if not configs.shape_applicable(cfg, shape):
+        raise ValueError(f"{arch} × {shape}: skipped per DESIGN.md "
+                         "§Arch-applicability (full-attention at 500k)")
+    upd: dict = {}
+    if sh["kind"] in ("decode", "prefill"):
+        upd["max_cache_len"] = sh["seq_len"]
+    if overrides:
+        upd.update(overrides)
+    if upd:
+        cfg = dataclasses.replace(cfg, **upd)
+    return Cell(arch, shape, cfg, zoo.build(cfg), sh["kind"], sh["seq_len"],
+                sh["global_batch"])
+
+
+def train_batch_abs(cell: Cell, gen: torch.Generator) -> dict:
+    """inputs / targets [B, S] int32 (and the frontend's memory [B, F, d]
+    f32), drawn from ``gen``."""
+    b, s = cell.global_batch, cell.seq_len
+    batch = {k: torch.randint(0, cell.cfg.vocab_size, (b, s),
+                              generator=gen, dtype=torch.int32)
+             for k in ("inputs", "targets")}
+    if cell.cfg.n_frontend_tokens:
+        batch["memory"] = torch.randn(
+            (b, cell.cfg.n_frontend_tokens, cell.cfg.d_model), generator=gen)
+    return batch
+
+
+def abstract_cache(cell: Cell, batch: int, max_len: int) -> dict:
+    """The model's cache of ``max_len`` positions, on the CPU."""
+    return cell.model.init_cache(batch, max_len, device="cpu")
+
+
+def cell_inputs(cell: Cell, seed: int = 0) -> tuple:
+    """Every input of the cell's step at its global batch, in the order
+    the step takes it: train ``(state, batch)``; prefill ``(params,
+    tokens [B, S] int32, cache[, memory [B, F, d] f32])``; decode
+    ``(params, cache, tokens [B, 1] int32)`` with a full cache of
+    ``seq_len`` (its length ``seq_len - 1``)."""
+    from repro_torch.train.steps import init_train_state
+    gen = torch.Generator().manual_seed(seed)
+    b, s = cell.global_batch, cell.seq_len
+    if cell.kind == "train":
+        state = init_train_state(cell.model, gen)
+        return state, train_batch_abs(cell, gen)
+    params = cell.model.init(gen)
+    cache = abstract_cache(cell, b, s)
+    if cell.kind == "prefill":
+        args = [params, torch.randint(0, cell.cfg.vocab_size, (b, s),
+                                      generator=gen, dtype=torch.int32),
+                cache]
+        if cell.cfg.n_frontend_tokens:
+            args.append(torch.randn(
+                (b, cell.cfg.n_frontend_tokens, cell.cfg.d_model),
+                generator=gen))
+        return tuple(args)
+    cache["length"] = s - 1
+    tokens = torch.randint(0, cell.cfg.vocab_size, (b, 1), generator=gen,
+                           dtype=torch.int32)
+    return params, cache, tokens
+
+
+def input_specs(arch: str, shape: str = "train_4k",
+                overrides: dict | None = None, seed: int = 0):
+    """The cell and every input of its step (``cell_inputs``); under a
+    ``FakeTensorMode`` fake tensors, shapes without memory.  Returns
+    (cell, args)."""
+    cell = build_cell(arch, shape, overrides=overrides)
+    return cell, cell_inputs(cell, seed)
+
+
+# --------------------------------------------------------------------------
+# step functions + placements per cell
+# --------------------------------------------------------------------------
+
+def _logits_placed(cell: Cell, t_spec: tuple, ctx: MeshContext):
+    vocab = "model" if cell.cfg.vocab_size % ctx.shape["model"] == 0 \
+        else None
+    return _placed((t_spec[0], None, vocab), ctx)
+
+
+def cell_step(cell: Cell, mesh=None):
+    """The step of ``train/steps.py`` the cell runs.  Train:
+    ``make_train_step``, data-parallel over the batch axes of ``mesh``
+    when given one; prefill / decode: the serve steps, which take no
+    mesh."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.steps import (make_decode_step, make_prefill_step,
+                                         make_train_step)
+    if cell.kind == "train":
+        return make_train_step(cell.model, AdamWConfig(), mesh=mesh)
+    if cell.kind == "prefill":
+        return make_prefill_step(cell.model)
+    return make_decode_step(cell.model)
+
+
+def step_and_shardings(cell: Cell, ctx: MeshContext, args):
+    """Returns (step_fn, in_shardings, out_shardings), each sharding a
+    ``(mesh, placements)``: ``cell_step`` on ``ctx``'s mesh.  The steps
+    update the train state and the cache in place, which takes the place
+    of the JAX package's ``donate_argnums``; the train metrics are
+    replicated scalars (one placement for all)."""
+    step = cell_step(cell, ctx.mesh)
+    repl = _placed((), ctx)
+    if cell.kind == "train":
+        state, batch = args
+        st_sh = state_shardings(state, ctx)
+        return step, (st_sh, batch_shardings(batch, ctx)), (st_sh, repl)
+    if cell.kind == "prefill":
+        params, tokens, cache = args[:3]
+        t_spec = batch_specs({"inputs": tokens}, ctx)["inputs"]
+        c_sh = cache_shardings(cache, ctx)
+        in_sh = [param_shardings(params, ctx), _placed(t_spec, ctx), c_sh]
+        if len(args) == 4:
+            in_sh.append(batch_shardings({"memory": args[3]}, ctx)["memory"])
+        return step, tuple(in_sh), (_logits_placed(cell, t_spec, ctx), c_sh)
+    params, cache, tokens = args
+    t_spec = batch_specs({"inputs": tokens}, ctx)["inputs"]
+    c_sh = cache_shardings(cache, ctx)
+    t_sh = _placed(t_spec, ctx)
+    return (step, (param_shardings(params, ctx), c_sh, t_sh),
+            (t_sh, _logits_placed(cell, t_spec, ctx), c_sh))

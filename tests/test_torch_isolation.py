@@ -67,6 +67,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.analysis.lint_invariants\n"
         "import repro_torch.parallel, repro_torch.parallel.sharding\n"
         "import repro_torch.launch.mesh, repro_torch.launch.specs\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.hlo_analysis\n"
+        "import repro_torch.launch.step_stats\n"
         "import repro_torch.models.moe, repro_torch.core.partition\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
