@@ -183,7 +183,25 @@ result line):
      apart; L3 L2's checkpoint restored with ``specs.state_shardings``
      onto the host mesh, every leaf a DTensor whose ``full_tensor()`` is
      the saved array, bit for bit;
- 14. dryrun — the dry-run (``repro_torch.launch.dryrun``) on this
+ 14. tp — tensor parallelism over "model" on the one card: two
+     processes (``spawn``, both on card 0) in a gloo world of two (NCCL
+     refuses two ranks on one device; gloo reduces CUDA tensors through
+     the host) on a (1, 2) ("data", "model") ``DeviceMesh("cuda")``.
+     TP1 T1 partitioned (qwen2-1.5b at full width: 6 of 12 q heads, 1 of
+     2 KV heads, half of d_ff 8,960 and of the 151,936-word vocabulary a
+     rank) for ``TP_TRAIN_STEPS`` steps through ``launch.train`` from T1's
+     seed and data, each step's loss and gradient norm against the
+     meshless T1's first steps within ``TP_TRAIN_TOL``, the flash counters
+     zeroed before and read after every step on each rank
+     (``train_flash_passes`` x microbatches), the kernels' q / KV heads
+     checked (6, 1), the collectives a step and the peak GiB a rank
+     printed; TP2 S1 partitioned: prefill 8 x 1024 and 32 greedy tokens
+     on placed parameters and a cache of the rank's KV head, the logits
+     gathered over "model" and held to S1's ``SERVE_TOL`` against a
+     teacher-forced meshless ``forward`` of the gathered parameters.  The
+     seconds are gloo's through the host on one card, not a
+     tensor-parallel speed;
+ 15. dryrun — the dry-run (``repro_torch.launch.dryrun``) on this
      machine's CPU in a process of its own, CUDA hidden: T1's train step
      and S1's prefill as cells on a world of one rank (``estimate``, the
      function ``run_cell`` runs a cell with), while the same step and
@@ -195,15 +213,16 @@ result line):
      memory term the HBM floor) is no more than T1's warm step and S1's
      warm prefill.  Then qwen2-1.5b x
      train_4k on the fake (16, 16) world, its summary printed;
- 15. the flash forward and backward at S1's, T1's microbatch and S2's
+ 16. the flash forward and backward at S1's, T1's microbatch and S2's
      shapes against their plain versions, their bounds and
      ``scaled_dot_product_attention`` (its backward alone on a retained
      graph).  Prints one ``kernels`` JSON line with all twelve kernels
      (a ``kernel_ms`` whose trace is incomplete is null, with
      ``kernel_ms_missing`` saying why); the join kernels' launches are
      the main path's (the stream deltas' are in the ``[stream]`` lines),
-     the flash kernels' those of serving, training and L2;
- 16. the last line: ``{"ok": true, "device": {...}}``.
+     the flash kernels' those of serving, training, L2, TP1 and TP2
+     (both ranks);
+ 17. the last line: ``{"ok": true, "device": {...}}``.
 
 Join sizes are cut from the paper's (Fig 4: N = 2e8
 friends edges, a 1e9-row fact table) to N = 4e6 edges over 14,000 users
@@ -798,7 +817,8 @@ def radix_cases(torch, ops, gen):
 # (B, S, T, H, KVH, D, causal, window, dtype): the six CASES of
 # tests/test_flash_kernel.py, then S not a multiple of the 64-row tile,
 # D = 128 and 256 (qwen2's and gemma3's heads), D = 8, one row, S != T,
-# the VLM's cross-attention shapes and the MoE's and VLM's self-attention
+# the VLM's cross-attention shapes, the MoE's and VLM's self-attention
+# and the heads a rank runs under tensor parallelism (TP1, TP2)
 FLASH_CASES = [
     (1, 128, 128, 4, 4, 32, True, 0, "float32"),
     (2, 128, 128, 4, 2, 32, True, 0, "float32"),
@@ -851,6 +871,10 @@ FLASH_CASES = [
     (2, 512, 512, 16, 16, 64, True, 0, "bfloat16"),
     (8, 2048, 2048, 32, 32, 64, True, 0, "bfloat16"),
     (4, 1024, 1024, 32, 32, 64, True, 0, "bfloat16"),
+    # qwen2-1.5b's per-rank heads at m = 2 (TP1's microbatch of 2 x 1,024
+    # and TP2's prefill of 8 x 1,024: 6 q heads over 1 KV head, D = 128)
+    (2, 1024, 1024, 6, 1, 128, True, 0, "bfloat16"),
+    (8, 1024, 1024, 6, 1, 128, True, 0, "bfloat16"),
 ]
 # Tolerance (atol, rtol) of the flash forward against its plain versions
 # (inputs ~N(0, 1)), |got - want| <= atol + rtol |want| on o, by case name
@@ -891,7 +915,8 @@ def _flash_inputs(torch, gen, b, s, t, nq, nkv, d, dtype, strided=False):
 # D = 8 to 256, S not a multiple of the 64-row tile, S != T, rows with no
 # visible key (S > T + window), one row; strided q/k/v views of a fused
 # projection with do a transposed [B, H, S, D] view; the VLM's
-# cross-attention shapes and the MoE's and VLM's self-attention (g = 8)
+# cross-attention shapes, the MoE's and VLM's self-attention (g = 8) and
+# TP1's per-rank heads (6 q heads over 1 KV head)
 FLASH_BWD_CASES = [
     (1, 128, 128, 4, 4, 32, True, 0, "float32", False),
     (2, 128, 128, 4, 2, 32, True, 0, "float32", False),
@@ -942,6 +967,8 @@ FLASH_BWD_CASES = [
     (2, 512, 512, 16, 16, 64, True, 0, "bfloat16", False),
     (1, 2048, 2048, 32, 32, 64, True, 0, "bfloat16", False),
     (4, 1024, 1024, 32, 32, 64, True, 0, "bfloat16", False),
+    # TP1's per-rank heads (qwen2-1.5b at m = 2: 6 q heads a KV head)
+    (2, 1024, 1024, 6, 1, 128, True, 0, "bfloat16", False),
 ]
 # Tolerance (a, rtol) of the flash backward's dq, dk, dv (inputs and do
 # ~N(0, 1)): |got - want| <= a max(max|want|, 1) + rtol |want| per tensor,
@@ -3674,7 +3701,278 @@ def lm_mesh_phase(torch, seed, t1):
 
 
 # --------------------------------------------------------------------------
-# phase 14: the dry-run's estimates against the card
+# phase 14: tensor parallelism over "model", two processes on the one card
+# --------------------------------------------------------------------------
+
+TP_WORLD = 2
+TP_TRAIN_STEPS = 2
+TP_TIMEOUT_S = 600
+TP_HEADS = (6, 1)                  # qwen2-1.5b's q / KV heads a rank at m = 2
+# TP1 against the meshless T1.  In bf16 each rank rounds its
+# row-parallel product to bf16 before the f32 sum over "model", where one
+# GEMM rounds once.  tools/tp_rehearsal.py --full (T1 as TP1, NVIDIA H100
+# 80GB HBM3, 700.00 W) read the sound run at 2.29e-5 (loss) and 7.04e-5
+# (gradient norm) relative, as two chip_smoke runs did, and two planted
+# faults: the last layer's GLU sum over "model" skipped, 1.16e-4 /
+# 1.88e-4 (steps 1 / 2) and 3.76e-3; that sum's backward skipped, the
+# sound loss and 7.77e-3.  The limits sit between: the loss's 3.5x above
+# the sound reading and 1.5x below the first fault's step 1, the
+# gradient norm's 10x above it and 5x below either fault.
+TP_TRAIN_TOL = {"loss_rel": 8e-5, "grad_norm_rel": 7e-4}
+TP_NOTE = "gloo through the host, one card: not a tensor-parallel speed"
+
+
+def _tp_collectives(dist):
+    """Count the collectives a rank issues (calls and tensor bytes) by
+    wrapping ``torch.distributed``'s, which the port looks up at call
+    time; a collective gloo refuses raises naming itself."""
+    stats = {"count": 0, "bytes": 0}
+
+    def wrap(name, orig, pos):
+        def call(*args, **kwargs):
+            t = args[pos]
+            stats["count"] += 1
+            stats["bytes"] += t.numel() * t.element_size()
+            try:
+                return orig(*args, **kwargs)
+            except RuntimeError as exc:
+                raise RuntimeError(
+                    f"tp: gloo {name} of a {t.device.type} {t.dtype} "
+                    f"tensor {tuple(t.shape)} failed: {exc}") from exc
+        return call
+
+    for name, pos in (("all_reduce", 0), ("all_gather_into_tensor", 1)):
+        setattr(dist, name, wrap(name, getattr(dist, name), pos))
+    return stats
+
+
+def _tp_heads(cuda):
+    """Record the (q heads, KV heads) of every flash kernel launch."""
+    seen = {"flash_fwd": set(), "flash_bwd": set()}
+    for name in seen:
+        orig = getattr(cuda, name)
+
+        def call(q, k, *args, _orig=orig, _name=name, **kwargs):
+            seen[_name].add((q.shape[2], k.shape[2]))
+            return _orig(q, k, *args, **kwargs)
+        setattr(cuda, name, call)
+    return seen
+
+
+def tp_rank(rank, port, seed):
+    """One rank of the (1, 2) mesh: TP1 and TP2 (see the phase)."""
+    import dataclasses
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import configs
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import specs
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import zoo
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel import tensor_parallel as tpl
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=TP_WORLD,
+        timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    out = {"rank": rank}
+    try:
+        mesh = init_device_mesh("cuda", (1, TP_WORLD),
+                                mesh_dim_names=("data", "model"))
+        colls = _tp_collectives(dist)
+        heads = _tp_heads(cuda)
+        # TP1: T1 partitioned
+        label, arch, batch, seq, _steps, over = TRAIN[0]
+        cfg = dataclasses.replace(configs.get(arch), **over)
+        model = zoo.build(cfg)
+        per_step = {k: v * cfg.accum_steps
+                    for k, v in train_flash_passes(cfg).items()}
+        snaps = []
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launch_counts()
+        colls.update(count=0, bytes=0)
+        run = train_lib.train(
+            model, steps=TP_TRAIN_STEPS, batch=batch, seq=seq, seed=seed,
+            device="cuda", mesh=mesh, log_every=1,
+            log=lambda m: log(f"[tp] TP1 rank {rank} {m}"),
+            metrics_cb=lambda *_: snaps.append(
+                {**{k: cuda.LAUNCHES[k] for k in per_step},
+                 "collectives": colls["count"],
+                 "collective_bytes": colls["bytes"]}))
+        zero = dict.fromkeys(list(per_step) + ["collectives",
+                                               "collective_bytes"], 0)
+        steps = [{k: b[k] - a[k] for k in zero}
+                 for a, b in zip([zero] + snaps, snaps)]
+        out["tp1"] = {
+            "loss": [r["loss"] for r in run["records"]],
+            "grad_norm": [r["grad_norm"] for r in run["records"]],
+            "step_s": [r["step_s"] for r in run["records"]],
+            "per_step": steps, "flash_per_step": per_step,
+            "flash_launches": {k: cuda.LAUNCHES[k] for k in per_step},
+            "flash_heads": {k: sorted(v) for k, v in heads.items()},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "local_params": sum(p.numel() for p in
+                                run["state"].params.parameters())}
+        del run
+        torch.cuda.empty_cache()
+        # TP2: S1 partitioned
+        label, arch, batch, prompt, gen, _req, _layers = SERVE[0]
+        cfg = configs.get(arch)
+        model = zoo.build(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+        specs.place_model(params, mesh)
+        prompts = np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+        for v in heads.values():
+            v.clear()
+        cuda.reset_launch_counts()
+        colls.update(count=0, bytes=0)
+        torch.cuda.reset_peak_memory_stats()
+        sharding.set_context(mesh)
+        try:
+            tp = tpl.active()
+            cache = model.init_cache(batch, prompt + gen, device="cuda")
+            prefill, decode = make_prefill_step(model), make_decode_step(model)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, torch.from_numpy(prompts).cuda(),
+                                    cache)
+            nxt = tpl.argmax(logits[:, -1], cfg.vocab_size, tp).to(
+                torch.int32)[:, None]
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            kept, toks = [logits[:CHECK_ROWS]], [nxt[:CHECK_ROWS]]
+            prefill_colls = dict(colls)
+            t0 = time.perf_counter()
+            for _ in range(gen):
+                nxt, logits, cache = decode(params, cache, nxt)
+                kept.append(logits[:CHECK_ROWS])
+                toks.append(nxt[:CHECK_ROWS])
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+            served = torch.cat([tpl.all_gather(x, 2, tp) for x in kept], 1)
+            cache_heads = cache["k"].shape[3]
+            del cache, kept
+        finally:
+            sharding.set_context(None)
+        launches = {"flash_fwd": cuda.LAUNCHES["flash_fwd"]}
+        tp2 = {"prefill_s": prefill_s, "decode_s": decode_s,
+               "prefill_tok_s": batch * prompt / prefill_s,
+               "decode_tok_s": batch * gen / decode_s,
+               "flash_launches": launches,
+               "flash_heads": sorted(heads["flash_fwd"]),
+               "cache_kv_heads": cache_heads,
+               "prefill_collectives": prefill_colls,
+               "decode_collectives_a_step": {
+                   k: (colls[k] - prefill_colls[k]) / gen for k in colls},
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        whole = specs.gather_model_state(params, mesh)
+        del params
+        if rank == 0:
+            wave = {"prompts": prompts,
+                    "tokens": torch.cat(toks, 1).cpu().numpy(),
+                    "logits": served, "memory": None}
+            tp2["check"] = teacher_forced_check(torch, model, whole, wave,
+                                                prompt, gen, "TP2")
+        out["tp2"] = tp2
+        del whole, served
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _tp_worker(rank, port, seed, out_dir):
+    out = tp_rank(rank, port, seed)
+    (pathlib.Path(out_dir) / f"tp_{rank}.json").write_text(json.dumps(out))
+
+
+def tp_phase(torch, seed, t1, s1):
+    """TP1 and TP2 (phase 14) in two spawned processes on card 0; their
+    checks against T1's and S1's rows.  Returns the rows and the flash
+    launches of both ranks."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch import configs
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_tp_worker, nprocs=TP_WORLD,
+                           args=(free_port(), seed, tmp),
+                           start_method="spawn")
+        outs = [json.loads((pathlib.Path(tmp) / f"tp_{r}.json").read_text())
+                for r in range(TP_WORLD)]
+    n = TP_TRAIN_STEPS
+    rows, launches = [], {"flash_fwd": 0, "flash_bwd": 0}
+    for out in outs:
+        a, b = out["tp1"], out["tp2"]
+        diffs = {"loss_rel": max(abs(x - w) / abs(w) for x, w in
+                                 zip(a["loss"], t1["loss"][:n])),
+                 "grad_norm_rel": max(abs(x - w) / abs(w) for x, w in
+                                      zip(a["grad_norm"],
+                                          t1["grad_norm"][:n]))}
+        row = {"tp": "TP1", "rank": out["rank"], "train": "T1",
+               "mesh": {"data": 1, "model": TP_WORLD}, "steps": n,
+               "loss": a["loss"], "grad_norm": a["grad_norm"],
+               "t1_loss": t1["loss"][:n], "t1_grad_norm": t1["grad_norm"][:n],
+               "max_rel_diff": diffs, "tol": TP_TRAIN_TOL,
+               "step_s": a["step_s"], "t1_step_s": t1["step_s"][:n],
+               "collectives_a_step": [
+                   {"count": s["collectives"], "bytes": s["collective_bytes"]}
+                   for s in a["per_step"]],
+               "flash_heads": a["flash_heads"],
+               "flash_launches_per_step": a["flash_per_step"],
+               "flash_launches": a["flash_launches"],
+               "local_params": a["local_params"],
+               "peak_gib": a["peak_gib"], "note": TP_NOTE}
+        log(f"[tp] {json.dumps(row)}")
+        rows.append(row)
+        got = [{k: s[k] for k in a["flash_per_step"]} for s in a["per_step"]]
+        if got != [a["flash_per_step"]] * n:
+            fail(f"TP1 rank {out['rank']}: flash launches per step {got}, "
+                 f"expected {a['flash_per_step']}")
+        for k, seen in a["flash_heads"].items():
+            if [tuple(x) for x in seen] != [TP_HEADS]:
+                fail(f"TP1 rank {out['rank']}: {k} ran at (q, KV) heads "
+                     f"{seen}, expected {TP_HEADS}")
+        if any(diffs[k] > TP_TRAIN_TOL[k] for k in diffs):
+            fail(f"TP1 rank {out['rank']}: the partitioned steps differ "
+                 f"from T1's: {json.dumps(diffs)}")
+        row = {"tp": "TP2", "rank": out["rank"], "serve": "S1",
+               "mesh": {"data": 1, "model": TP_WORLD}, **b,
+               "s1_warm_prefill_s": s1["prefill_s"][-1],
+               "s1_warm_decode_tok_s": s1["decode_tok_s"][-1],
+               "note": TP_NOTE}
+        log(f"[tp] {json.dumps(row)}")
+        rows.append(row)
+        if [tuple(x) for x in b["flash_heads"]] != [TP_HEADS] \
+                or b["cache_kv_heads"] != TP_HEADS[1]:
+            fail(f"TP2 rank {out['rank']}: flash heads {b['flash_heads']}, "
+                 f"cache KV heads {b['cache_kv_heads']}")
+        if b["flash_launches"]["flash_fwd"] != serve_flash_passes(
+                configs.get(SERVE[0][1]))[0]:
+            fail(f"TP2 rank {out['rank']}: flash_fwd launched "
+                 f"{b['flash_launches']['flash_fwd']} times in the prefill")
+        launches["flash_fwd"] += (a["flash_launches"]["flash_fwd"]
+                                  + b["flash_launches"]["flash_fwd"])
+        launches["flash_bwd"] += a["flash_launches"]["flash_bwd"]
+    if "check" not in outs[0]["tp2"]:
+        fail("TP2: no teacher-forced check")
+    log(f"[tp] phase took {time.perf_counter() - t0:.1f}s")
+    return rows, launches
+
+
+# --------------------------------------------------------------------------
+# phase 15: the dry-run's estimates against the card
 # --------------------------------------------------------------------------
 
 # The dry-run (launch/dryrun.py, fake CPU tensors, a world of one rank) at
@@ -4029,18 +4327,21 @@ def main() -> int:
     t_rows, t_launches, grad = train_phase(torch, args.seed)
     restart = restart_phase(torch, args.seed)
     lm_rows, lm_launches = lm_mesh_phase(torch, args.seed, t_rows[0])
+    tp_rows, tp_launches = tp_phase(torch, args.seed, t_rows[0], s_rows[0])
     dr_rows = dryrun_phase(torch, args.seed, s_rows[0], t_rows[0])
     lines += flash_kernel_phase(
         torch, errs, {"flash_fwd": s_launches["flash_fwd"]
-                      + t_launches["flash_fwd"] + lm_launches["flash_fwd"],
+                      + t_launches["flash_fwd"] + lm_launches["flash_fwd"]
+                      + tp_launches["flash_fwd"],
                       "flash_bwd": t_launches["flash_bwd"]
-                      + lm_launches["flash_bwd"]}, args.seed)
+                      + lm_launches["flash_bwd"]
+                      + tp_launches["flash_bwd"]}, args.seed)
     log(json.dumps({"queries": rows, "baselines": b_rows, "radix": r_rows,
                     "stream": st_rows, "mesh": m_rows,
                     "mesh_launches": m_launches, "analytics": a_rows,
                     "serve": s_rows, "train": t_rows, "grad_check": grad,
                     "restart": restart, "lm_mesh": lm_rows,
-                    "dryrun": dr_rows}))
+                    "tp": tp_rows, "dryrun": dr_rows}))
     print(card, flush=True)
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,11 @@ reserved ``shards`` field), plus a ``COMMITTED`` marker.  A port
 ``[L, ...]``), so a checkpoint of either package restores in the other.
 Writes go to a temporary directory that is renamed when complete; a
 checkpoint without its ``COMMITTED`` marker is ignored by restore.  Arrays
-are saved unsharded, on the host; ``restore_pytree`` places them on
+are saved unsharded, on the host: a state placed over a mesh's "model"
+axis (``launch.specs.place_model``) is gathered over that axis first,
+every rank of the "model" group taking part, and the group's first rank
+writes the whole tensors (a checkpoint saved under tensor parallelism
+restores meshless, and the reverse); ``restore_pytree`` places them on
 ``device``, and with ``shardings`` (a matching tree of ``(mesh,
 placements)``, e.g. ``launch.specs.state_shardings``) distributes each
 leaf onto its mesh as a DTensor: a checkpoint restores onto any mesh,
@@ -39,13 +43,13 @@ def _is_train_state(x) -> bool:
     return isinstance(x, TrainState)
 
 
-def _flatten(tree, prefix: str = "") -> dict:
+def _flatten(tree, prefix: str = "", mesh=None) -> dict:
     """``/``-joined path -> numpy array of a tree of mappings whose leaves
     are arrays or tensors; a port TrainState as the JAX package's
-    TrainState tree."""
+    TrainState tree (gathered over ``mesh``'s "model" axis if placed)."""
     if _is_train_state(tree):
         from repro_torch import convert
-        tree = convert.train_state_to_numpy(tree)
+        tree = convert.train_state_to_numpy(tree, mesh)
     if not isinstance(tree, Mapping):
         arr = (tree.detach().cpu().numpy() if isinstance(tree, torch.Tensor)
                else np.asarray(tree))
@@ -56,18 +60,36 @@ def _flatten(tree, prefix: str = "") -> dict:
     return flat
 
 
+def _writes(tree, mesh) -> bool:
+    """Whether this rank writes ``tree``: a state placed over "model" is
+    written by the first rank of the "model" group, anything else by the
+    caller."""
+    if not (_is_train_state(tree)
+            and getattr(tree.params, "model_split", None) is not None):
+        return True
+    if mesh is None:
+        from repro_torch.parallel.sharding import current_context
+        mesh = current_context().mesh
+    return mesh.get_local_rank("model") == 0
+
+
 def save_pytree(tree, directory: str | os.PathLike, step: int,
-                extra_meta: dict | None = None) -> pathlib.Path:
-    """Atomic checkpoint write; returns the committed directory."""
+                extra_meta: dict | None = None, mesh=None) -> pathlib.Path:
+    """Atomic checkpoint write; returns the committed directory.  A train
+    state placed over ``mesh``'s "model" axis (the sharding context's
+    mesh by default) is gathered first: every rank of the "model" group
+    calls this, and the group's first rank writes."""
+    flat = _flatten(tree, mesh=mesh)
     root = pathlib.Path(directory)
-    root.mkdir(parents=True, exist_ok=True)
     final = root / f"step_{step:08d}"
+    if not _writes(tree, mesh):
+        return final
+    root.mkdir(parents=True, exist_ok=True)
     tmp = root / f".tmp_step_{step:08d}_{os.getpid()}"
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
 
-    flat = _flatten(tree)
     arrays_path = tmp / "arrays.npz"
     np.savez(arrays_path, **flat)
     digest = hashlib.sha256(arrays_path.read_bytes()).hexdigest()
@@ -109,11 +131,16 @@ def _template_shapes(template) -> dict:
         return {k: tuple(v.shape) for k, v in _flatten(template).items()}
     from repro_torch import convert
     cfg = template.params.cfg
+    m, dims = getattr(template.params, "model_split", None) or (1, None)
     shapes = {}
-    for (path, layer), p in zip(convert.leaf_paths(template.params),
-                                template.params.parameters()):
-        shape = ((convert.stack_length(cfg, path), *p.shape) if layer >= 0
-                 else tuple(p.shape))
+    for i, ((path, layer), p) in enumerate(zip(
+            convert.leaf_paths(template.params),
+            template.params.parameters())):
+        whole = list(p.shape)             # a placed slice's whole shape
+        if dims is not None and dims[i] is not None:
+            whole[dims[i]] *= m
+        shape = ((convert.stack_length(cfg, path), *whole) if layer >= 0
+                 else tuple(whole))
         for top in ("params", "opt/m", "opt/v"):
             shapes[f"{top}{_SEP}{path}"] = shape
     shapes.update({"opt/step": (), "step": ()})
@@ -231,17 +258,19 @@ class CheckpointManager:
     """Retention + cadence policy around save/restore."""
 
     def __init__(self, directory: str | os.PathLike, *, every: int = 100,
-                 keep: int = 3):
+                 keep: int = 3, mesh=None):
         self.dir = pathlib.Path(directory)
         self.every = every
         self.keep = keep
+        self.mesh = mesh          # gathers a state placed over "model"
 
     def should_save(self, step: int) -> bool:
         return self.every > 0 and step > 0 and step % self.every == 0
 
     def save(self, tree, step: int, extra_meta: dict | None = None):
-        path = save_pytree(tree, self.dir, step, extra_meta)
-        self._gc()
+        path = save_pytree(tree, self.dir, step, extra_meta, mesh=self.mesh)
+        if _writes(tree, self.mesh):
+            self._gc()
         return path
 
     def restore(self, template, step: int | None = None, device=None,

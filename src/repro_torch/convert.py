@@ -152,7 +152,23 @@ def _stack_len(tree: Mapping, key: str, leaf: str, want: int,
     return n
 
 
-def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None):
+def _placed(obj, mesh):
+    """``obj`` placed onto this rank's "model" slices of ``mesh``
+    (``launch.specs.place_model``), or as it is without a mesh."""
+    if mesh is None:
+        return obj
+    from repro_torch.launch import specs
+    return specs.place_model(obj, mesh)
+
+
+def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None,
+                         mesh=None):
+    """The model, placed onto this rank of ``mesh``'s "model" axis when
+    given one (``_lm_params_from_numpy`` says how it is built)."""
+    return _placed(_lm_params_from_numpy(tree, cfg, device), mesh)
+
+
+def _lm_params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None):
     """The port's model from the JAX package's parameter tree with numpy
     leaves (``init_lm`` / ``init_encdec``; per-layer leaves stacked
     ``[L, ...]``), by the config's family: a ``TransformerLM`` (dense or
@@ -209,10 +225,14 @@ def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None):
                                      cross_blocks)
 
 
-def lm_params_to_numpy(params) -> dict:
+def lm_params_to_numpy(params, mesh=None) -> dict:
     """The JAX package's parameter tree (numpy f32 leaves, per-layer
     leaves stacked ``[L, ...]`` under their stack's key, ``leaf_paths``)
-    of any of the port's models."""
+    of any of the port's models; a model placed over "model" is gathered
+    over ``mesh``'s "model" group first."""
+    if getattr(params, "model_split", None) is not None:
+        from repro_torch.launch import specs
+        params = specs.gather_model_state(params, mesh)
     return _tree_of(leaf_paths(params), params.parameters())
 
 
@@ -292,10 +312,15 @@ def _leaf(tree: Mapping, path: str, layer: int):
     return arr[layer] if layer >= 0 else arr
 
 
-def train_state_to_numpy(state) -> dict:
+def train_state_to_numpy(state, mesh=None) -> dict:
     """The JAX package's ``TrainState`` tree of a port ``TrainState``:
     ``{"params": ..., "opt": {"m": ..., "v": ..., "step"}, "step"}`` with
-    numpy leaves (f32; the steps int32 scalars)."""
+    numpy leaves (f32; the steps int32 scalars).  A state placed over
+    "model" is gathered over ``mesh``'s "model" group first (every rank
+    of the group calls this)."""
+    if getattr(state.params, "model_split", None) is not None:
+        from repro_torch.launch import specs
+        state = specs.gather_model_state(state, mesh)
     paths = leaf_paths(state.params)
     step = np.asarray(int(state.step), np.int32)
     return {"params": lm_params_to_numpy(state.params),
@@ -305,11 +330,13 @@ def train_state_to_numpy(state) -> dict:
             "step": step}
 
 
-def train_state_from_numpy(tree: Mapping, cfg: ModelConfig, device=None):
+def train_state_from_numpy(tree: Mapping, cfg: ModelConfig, device=None,
+                           mesh=None):
     """The port's ``TrainState`` from the JAX package's ``TrainState`` tree
     with numpy leaves (as ``train_state_to_numpy`` gives it, or as
     ``jax.tree.map(np.asarray, state._asdict())``); ``device=None`` means
-    the card."""
+    the card.  With ``mesh``, placed onto this rank's "model" slices
+    (parameters and moments)."""
     from repro_torch.train.steps import TrainState
     dev = resolve_device(device)
     params = lm_params_from_numpy(tree["params"], cfg, device=dev)
@@ -325,6 +352,7 @@ def train_state_from_numpy(tree: Mapping, cfg: ModelConfig, device=None):
         return torch.tensor(int(np.asarray(x)), dtype=torch.int32,
                             device=dev)
 
-    return TrainState(params, {"m": moments(opt["m"]), "v": moments(opt["v"]),
-                               "step": step(opt["step"])},
-                      step(tree["step"]))
+    return _placed(TrainState(params, {"m": moments(opt["m"]),
+                                       "v": moments(opt["v"]),
+                                       "step": step(opt["step"])},
+                              step(tree["step"])), mesh)

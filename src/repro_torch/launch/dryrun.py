@@ -22,21 +22,26 @@ needs a CUDA build), and the flash kernels' custom ops give the same
 outputs, flops and operand bytes on either device (their fake
 implementations hold no score matrix), so the cell reads as the card's.
 
-What runs, per kind:
+What runs, per kind, always partitioned over "model"
+(``parallel.tensor_parallel``: the rank's heads, GLU columns and
+vocabulary rows where ``spec_for`` splits them, the MoE's experts
+expert-parallel):
 
   * train   — ``make_train_step(..., mesh=)``: data-parallel over the
-              batch axes, each rank taking its rows of every microbatch,
-              every parameter, gradient and AdamW moment whole on every
-              rank, one ``all_reduce`` a gradient and batch axis; "model"
-              is replicated (tensor parallelism is ROADMAP Queue A item
-              4).  A cell whose state does not fit one card says so in
-              ``fits_80gb``.
-  * prefill / decode — the serve steps take no mesh: the rank runs its
-              rows of the batch as ``batch_specs`` / ``cache_specs`` split
-              the batch axes (all of it where the batch does not split),
-              everything else whole, under the mesh's sharding context (an
-              MoE takes the expert-parallel path and its ``all_reduce``
-              over "model").  ``ran`` states the shapes that ran.
+              batch axes, each rank taking its rows of every microbatch;
+              every parameter and both AdamW moments held as the rank's
+              "model" slice (``specs.place_model``; the "data" entries,
+              FSDP, are not applied: ROADMAP Queue A item 5), one
+              ``all_reduce`` a gradient and batch axis.  A cell whose
+              state does not fit one card says so in ``fits_80gb``.
+  * prefill / decode — the serve steps under the mesh's sharding
+              context: the rank runs its rows of the batch as
+              ``batch_specs`` / ``cache_specs`` split the batch axes (all
+              of it where the batch does not split), on its "model"
+              slices of the parameters and a cache of its KV heads where
+              they split; the SSM state and conv window stay whole.
+              ``ran`` states the shapes that ran and, under
+              ``tensor_parallel``, which tensors split.
 
 Writes one JSON artifact per cell, the JAX package's keys:
   memory            argument / output / temp / alias bytes of the rank
@@ -58,9 +63,9 @@ step's one run; ``hbm_floor`` splits the floor (``step_stats``);
 ``collective_groups`` says which groups span nodes.
 
 The JAX package's ``seq_shard`` / ``seq_shard_rule`` overrides raise: the
-port's steps shard no sequence (tensor parallelism, ROADMAP Queue A item
-4).  So does ``serve_bf16``: the port serves f32 weights, cast to bf16
-a call.
+port's steps shard no sequence (sequence parallelism, ROADMAP Queue A
+item 6).  So does ``serve_bf16``: the port serves f32 weights, cast to
+bf16 a call (ROADMAP Queue A item 7).
 """
 
 from __future__ import annotations
@@ -130,8 +135,9 @@ def _rows_per_rank(cell, ctx) -> int:
 
 
 def _rank_args(cell, args, rows: int) -> tuple:
-    """The serve step's inputs for the rank's ``rows``: the parameters
-    whole, its rows of the tokens and the memory, a cache of its rows."""
+    """The serve step's inputs for the rank's ``rows``: the parameters as
+    they are, its rows of the tokens and the memory, a cache of its rows
+    (of its KV heads under the sharding context's "model" axis)."""
     local = dataclasses.replace(cell, global_batch=rows)
     cache = specs.abstract_cache(local, rows, cell.seq_len)
     if cell.kind == "prefill":
@@ -174,20 +180,28 @@ def _rank_context(mesh, replicated: bool):
 def prepare(cell, mesh=None, *, seed: int = 0):
     """The step one rank of ``mesh`` runs for the cell, and its inputs
     (None: a world of one rank, the meshless step a single card runs);
-    under a ``FakeTensorMode`` the inputs are fake.  Returns (step, args,
-    context, ran): run ``step(*args)`` inside ``context``, the mesh's
-    sharding context; ``ran`` states the shapes."""
+    under a ``FakeTensorMode`` the inputs are fake.  The parameters (and
+    a train state's moments) are the rank's "model" slices.  Returns
+    (step, args, context, ran): run ``step(*args)`` inside ``context``,
+    the mesh's sharding context; ``ran`` states the shapes and the
+    tensors split over "model"."""
     from repro_torch.parallel import sharding
+    from repro_torch.parallel import tensor_parallel as tpl
     args = specs.cell_inputs(cell, seed)
     step = specs.cell_step(cell, mesh)
     rows, replicated = cell.global_batch, False
-    if mesh is not None and cell.kind != "train":
-        rows = _rows_per_rank(cell, sharding.MeshContext(
-            mesh, sharding.DEFAULT_RULES))
-        replicated = rows == cell.global_batch and mesh.size() > 1
-        args = _rank_args(cell, args, rows)
-    ran = {"rows_per_rank": rows, "batch_replicated": replicated,
-           "inputs": _shapes(args)}
+    ran = {}
+    if mesh is not None:
+        ctx = sharding.MeshContext(mesh, sharding.DEFAULT_RULES)
+        specs.place_model(args[0], mesh)
+        ran["tensor_parallel"] = tpl.plan(cell.cfg, ctx)
+        if cell.kind != "train":
+            rows = _rows_per_rank(cell, ctx)
+            replicated = rows == cell.global_batch and mesh.size() > 1
+            with _rank_context(mesh, replicated):
+                args = _rank_args(cell, args, rows)
+    ran.update({"rows_per_rank": rows, "batch_replicated": replicated,
+                "inputs": _shapes(args)})
     return step, args, _rank_context(mesh, replicated), ran
 
 
@@ -266,10 +280,10 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
     overrides.pop("attn_substitute", None)
     if overrides.pop("seq_shard_rule", None) or overrides.get("seq_shard"):
         raise ValueError("seq_shard: the port's steps shard no sequence "
-                         "(tensor parallelism, ROADMAP Queue A item 4)")
+                         "(sequence parallelism, ROADMAP Queue A item 6)")
     if overrides.pop("serve_bf16", False):
         raise ValueError("serve_bf16: the port serves f32 weights, cast to "
-                         "bf16 a call")
+                         "bf16 a call (ROADMAP Queue A item 7)")
     n_chips = math.prod(mesh_lib.PRODUCTION[multi_pod][0])
     with fake_world(n_chips):
         mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod,

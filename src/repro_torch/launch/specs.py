@@ -39,8 +39,8 @@ import torch
 from repro_torch import configs, convert
 from repro_torch.models import zoo
 from repro_torch.models.config import ModelConfig
-from repro_torch.parallel.sharding import (MeshContext, placements_for,
-                                           spec_for)
+from repro_torch.parallel.sharding import (DEFAULT_RULES, MeshContext,
+                                           placements_for, spec_for)
 
 
 # --------------------------------------------------------------------------
@@ -117,6 +117,147 @@ def state_specs(state, ctx: MeshContext):
     from repro_torch.train.steps import TrainState
     ps = param_specs(state.params, ctx)
     return TrainState(ps, {"m": list(ps), "v": list(ps), "step": ()}, ())
+
+
+# --------------------------------------------------------------------------
+# tensor parallelism: each rank's "model" slices of a state
+# --------------------------------------------------------------------------
+
+def _axes(entry) -> tuple[str, ...]:
+    return () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+
+
+def model_dims(params, ctx: MeshContext) -> list:
+    """For each tensor of ``params.parameters()`` (whole, not yet
+    placed): the dim its ``param_specs`` entry puts on "model", or None
+    (whole on every model rank)."""
+    out = []
+    for spec in param_specs(params, ctx):
+        out.append(next((d for d, e in enumerate(spec)
+                         if "model" in _axes(e)), None))
+    return out
+
+
+def local_slice(t: torch.Tensor, spec, mesh, coords=None) -> torch.Tensor:
+    """This rank's slice of the whole ``t`` under ``spec``: mesh dims in
+    order, each that shards a tensor dim taking its coordinate's
+    ``torch.chunk`` (the first mesh dim major, as DTensor and XLA split
+    an entry over several axes).  ``coords``: the rank's coordinate on
+    every mesh dim (a ``DeviceMesh``'s own by default; required for an
+    ``AbstractMesh``)."""
+    coords = mesh.get_coordinate() if coords is None else coords
+    for pl, c, n in zip(placements_for(spec, mesh), coords,
+                        tuple(mesh.shape)):
+        if pl.is_shard():
+            t = t.chunk(n, dim=pl.dim)[c]
+    return t.clone()
+
+
+def _model_only(dim, ndim: int) -> tuple:
+    return tuple("model" if d == dim else None for d in range(ndim))
+
+
+def _model_coords(mesh, model_rank):
+    """Coordinates with every axis but "model" at 0 (a "model"-only spec
+    ignores them) and "model" at ``model_rank`` (the rank's own by
+    default)."""
+    names = list(mesh.mesh_dim_names)
+    if model_rank is None:
+        model_rank = mesh.get_local_rank("model")
+    return [model_rank if a == "model" else 0 for a in names]
+
+
+def _split_of(obj):
+    from repro_torch.train.steps import TrainState
+    st = obj if isinstance(obj, TrainState) else None
+    return st, (st.params if st is not None else obj)
+
+
+def place_model(obj, mesh, model_rank: int | None = None):
+    """A whole model (``nn.Module``) or ``TrainState``, placed in place
+    onto this rank of ``mesh``'s "model" axis: each parameter, and both
+    AdamW moments of a train state, becomes its ``model_dims`` slice
+    (``local_slice`` of its spec's "model" entry; the "data" entries,
+    FSDP, are not applied).  The module records ``model_split = (m,
+    dims)``; a module that has one, a mesh whose "model" has size 1, or
+    a model none of whose tensors splits is left as it is.
+    ``model_rank`` places for another coordinate (an ``AbstractMesh`` has
+    none of its own).  Returns ``obj``."""
+    from torch import nn
+    st, params = _split_of(obj)
+    ctx = MeshContext(mesh, DEFAULT_RULES)
+    m = ctx.shape.get("model", 1)
+    if m == 1 or getattr(params, "model_split", None) is not None:
+        return obj
+    dims = model_dims(params, ctx)
+    if all(d is None for d in dims):
+        return obj
+    coords = _model_coords(mesh, model_rank)
+
+    def cut(t, d):
+        return local_slice(t.detach(), _model_only(d, t.dim()), mesh, coords)
+
+    for (name, p), d in zip(list(params.named_parameters()), dims):
+        if d is not None:
+            owner, _, leaf = name.rpartition(".")
+            setattr(params.get_submodule(owner), leaf,
+                    nn.Parameter(cut(p, d), requires_grad=p.requires_grad))
+    params.model_split = (m, tuple(dims))
+    if st is not None:
+        for k in ("m", "v"):
+            st.opt[k][:] = [t if d is None else cut(t, d)
+                            for t, d in zip(st.opt[k], dims)]
+    return obj
+
+
+def model_split(obj):
+    """``(m, dims)`` of a placed module or train state, else None."""
+    return getattr(_split_of(obj)[1], "model_split", None)
+
+
+def gather_model_state(obj, mesh=None, gather=None):
+    """The inverse of ``place_model``: a new module or ``TrainState`` of
+    whole tensors (tensors that were not split are shared, not copied).
+    ``gather(t, dim)`` gives the whole tensor from this rank's slice;
+    by default an all-gather over ``mesh``'s "model" group (every rank
+    of the group calls this).  A state that is not placed is returned
+    as it is."""
+    import copy
+
+    from torch import nn
+
+    from repro_torch.parallel import tensor_parallel as tpl
+    from repro_torch.train.steps import TrainState
+    st, params = _split_of(obj)
+    split = getattr(params, "model_split", None)
+    if split is None:
+        return obj
+    _, dims = split
+    if gather is None:
+        if mesh is None:
+            from repro_torch.parallel.sharding import current_context
+            mesh = current_context().mesh
+        ctx = MeshContext(mesh, DEFAULT_RULES)
+        tp = tpl.TP(ctx, ctx.shape["model"], mesh.get_local_rank("model"),
+                    mesh.get_group("model"))
+
+        def gather(t, d):
+            return tpl.all_gather(t, d, tp)
+
+    memo = {}
+    with torch.no_grad():
+        for p, d in zip(params.parameters(), dims):
+            memo[id(p)] = p if d is None else nn.Parameter(
+                gather(p, d), requires_grad=p.requires_grad)
+        whole = copy.deepcopy(params, memo)
+        del whole.model_split
+        if st is None:
+            return whole
+        opt = {k: [t if d is None else gather(t, d)
+                   for t, d in zip(st.opt[k], dims)] for k in ("m", "v")}
+    opt["step"] = st.opt["step"]
+    return TrainState(whole, opt, st.step)
 
 
 # --------------------------------------------------------------------------
@@ -343,8 +484,9 @@ def _logits_placed(cell: Cell, t_spec: tuple, ctx: MeshContext):
 def cell_step(cell: Cell, mesh=None):
     """The step of ``train/steps.py`` the cell runs.  Train:
     ``make_train_step``, data-parallel over the batch axes of ``mesh``
-    when given one; prefill / decode: the serve steps, which take no
-    mesh."""
+    and tensor-parallel over its "model" axis when given one; prefill /
+    decode: the serve steps, partitioned under the caller's sharding
+    context (they take no mesh)."""
     from repro_torch.optim import AdamWConfig
     from repro_torch.train.steps import (make_decode_step, make_prefill_step,
                                          make_train_step)

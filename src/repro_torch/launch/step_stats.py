@@ -223,6 +223,10 @@ class StepStats:
     def __init__(self, args, *, trace: bool = False):
         self.trace = trace
         self.args = _storages(args)
+        # the arguments' storages held for the call: one the step drops
+        # (a cache entry it replaces) must not free its address, which a
+        # new storage would then share as its key
+        self._arg_storages = [t.untyped_storage() for t in _tensors(args)]
         self.flops_by_op: dict = defaultdict(float)
         self.traffic_by_op: dict = defaultdict(float)
         self.collectives = hlo_analysis.CollectiveStats(
@@ -274,6 +278,9 @@ class StepStats:
         for t in outs:
             self._track(t)
         if func.namespace == "c10d":
+            # a collective reads its inputs (and writes its outputs) too:
+            # a weight slice only gathered is still read once
+            self._arguments(func, args, kwargs, outs)
             return self._collective(func, args)
         if func.is_view or func in _NO_TRAFFIC:
             return 0.0

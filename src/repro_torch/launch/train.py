@@ -17,8 +17,9 @@ The mesh is the JAX launcher's: ``--production`` builds the (16, 16)
 512 ranks, started with ``torchrun``); otherwise ``make_host_mesh()``, a
 ("data",) mesh over the world's ranks, which is one rank when the
 launcher is not started under ``torchrun``.  The step is data-parallel
-over the batch axes (``train.steps``); the MoE's experts are parallel
-over "model".
+over the batch axes and tensor-parallel over "model" (``train.steps``:
+heads, GLU columns and vocabulary where they divide it; the MoE's
+experts are parallel over "model").
 
 ``--overlap`` is the counterpart of the JAX launcher's XLA
 latency-hiding flags (collectives overlapped with compute): each
@@ -75,10 +76,14 @@ def train(model: zoo.Model, *, steps: int, batch: int, seq: int,
 
     ``mesh`` (a ``DeviceMesh``; every rank calls ``train`` alike): each
     rank of the batch axes takes its rows of every microbatch and the
-    gradients are averaged over them (``train.make_train_step``); the
-    records hold the global loss and gradient norm.  Only rank 0 writes
-    checkpoints and logs.  ``overlap`` reduces the gradients during the
-    backward."""
+    gradients are averaged over them (``train.make_train_step``); where
+    its "model" axis has size > 1 the state is placed onto each rank's
+    "model" slices and the model computes its share of the heads, GLU
+    columns and vocabulary (tensor parallelism).  The records hold the
+    global loss and gradient norm.  Only rank 0 logs and writes
+    checkpoints; the other ranks of its "model" group take part in
+    gathering a placed state for them.  ``overlap`` reduces the
+    gradients during the backward."""
     cfg = model.config
     device = resolve_device(device)
     gen = TokenGenConfig(vocab_size=cfg.vocab_size, batch=batch,
@@ -89,15 +94,22 @@ def train(model: zoo.Model, *, steps: int, batch: int, seq: int,
                           warmup_steps=max(steps // 20, 5))
     train_step = make_train_step(model, opt_cfg, mesh=mesh, overlap=overlap)
     lead = mesh is None or torch.distributed.get_rank() == 0
+    # the ranks that save: rank 0, and the rest of its "model" group (a
+    # placed state is gathered over it; its first rank, rank 0, writes)
+    coords = None if mesh is None else mesh.get_coordinate()
+    saves = lead or (coords is not None and "model" in mesh.mesh_dim_names
+                     and all(c == 0 for a, c in zip(mesh.mesh_dim_names,
+                                                    coords) if a != "model"))
 
     def step_fn(state, b):
         state, metrics = train_step(state, b)
         _sync(device)
         return state, metrics
 
-    manager = (CheckpointManager(ckpt_dir, every=ckpt_every)
-               if ckpt_dir and lead else None)
-    loop = RestartableLoop(manager, monitor=StragglerMonitor(), log=log)
+    manager = (CheckpointManager(ckpt_dir, every=ckpt_every, mesh=mesh)
+               if ckpt_dir and saves else None)
+    loop = RestartableLoop(manager, monitor=StragglerMonitor(),
+                           log=log if lead else _quiet)
     state = init_train_state(
         model, torch.Generator(device=device).manual_seed(seed))
     start = 0

@@ -19,7 +19,22 @@ Its products accumulate in f32 (the JAX dots use
 output to bf16), and the probabilities are rounded to the value dtype
 before the ``PV`` product, as in JAX.
 
-The cache is ``{"k", "v": [L, B, T, KVH, D], "length": int}``; the port
+Tensor parallelism.  The JAX package constrains q by "heads" and k/v by
+"kv_heads", so GSPMD computes each rank's heads where they divide the
+"model" axis.  Under ``parallel.tensor_parallel.active()`` with the q
+heads split, a call is a rank-local region (``_Heads``): its input
+enters through ``to_model`` (the gradient summed over "model"), it
+projects the rank's q heads and the KV heads those heads read (all KV
+heads where the call fills a cache and they do not split), runs the
+flash kernel on them, and leaves through the row-parallel ``wo`` (one
+sum over "model", a row-parallel bias added once after it).  A weight
+stored split whose heads are computed whole is gathered; q/k norms and
+whole weights used on part of the heads have their gradients summed
+over "model".  Where the q heads do not split, attention is replicated
+on every rank, its split-stored weights gathered.
+
+The cache is ``{"k", "v": [L, B, T, KVH, D], "length": int}`` (KVH the
+rank's KV heads where they split over "model"); the port
 updates it in place (the JAX package returns a new one), and its length is
 a host integer, so no decode step waits on the device to build its masks.
 The transformer decodes with ``project_kv_token`` +
@@ -36,6 +51,7 @@ from torch import nn
 
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.models import layers
+from repro_torch.parallel import tensor_parallel as tpl
 
 NEG_INF = flash_kernel.NEG_INF
 
@@ -60,15 +76,96 @@ def init_attention(gen: torch.Generator, cfg) -> Attention:
     return Attention(wq, wk, wv, wo)
 
 
-def _project_qkv(p: Attention, cfg, x, positions, theta):
+class _Heads:
+    """The heads one call computes: q heads [q0, q0 + nq), KV heads
+    [kv0, kv0 + nkv), and ``sel``, which KV heads (of those computed)
+    the q heads read: None for all of them, else a slice of consecutive
+    ones (each KV head read by the same number of q heads).
+    ``tp`` is None without tensor parallelism (every head, the
+    meshless ops); ``local``: the q heads are this rank's share, so the
+    call is a rank-local region."""
+
+    def __init__(self, cfg, all_kv: bool):
+        self.tp = tp = tpl.active()
+        self.cfg = cfg
+        h, kvh = cfg.n_heads, cfg.n_kv_heads
+        self.q0, self.nq, self.kv0, self.nkv, self.sel = 0, h, 0, kvh, None
+        self.local = tp is not None and tp.splits("heads", h)
+        if not self.local:
+            return
+        self.q0, self.nq = tp.chunk(h)
+        if tp.splits("kv_heads", kvh):
+            self.kv0, self.nkv = tp.chunk(kvh)
+            return
+        g = h // kvh
+        need = [(self.q0 + j) // g for j in range(self.nq)]
+        first, n_sel = need[0], need[-1] - need[0] + 1
+        if not all_kv:
+            self.kv0, self.nkv = first, n_sel
+        per = self.nq // n_sel
+        if self.nq % n_sel or any(n != first + j // per
+                                  for j, n in enumerate(need)):
+            raise ValueError(
+                f"{h} q heads over {kvh} KV heads on {tp.size} \"model\" "
+                f"ranks: a rank's q heads [{self.q0}, {self.q0 + self.nq}) "
+                "read unequal shares of their KV heads")
+        if n_sel != self.nkv:
+            self.sel = slice(first - self.kv0, first - self.kv0 + n_sel)
+
+    def enter(self, x):
+        """A replicated input of the region (its gradient summed)."""
+        return tpl.to_model(x, self.tp.group) if self.local else x
+
+    def select(self, kv):
+        """The KV heads [B, T, ·, D] the q heads read."""
+        return kv if self.sel is None else kv[:, :, self.sel]
+
+    def proj(self, x, lin, h0: int, nh: int, n_heads: int):
+        """x @ the columns of heads [h0, h0 + nh) of ``lin`` (+ bias)."""
+        if self.tp is None:
+            return layers.linear(x, lin.w, lin.b)
+        hd = self.cfg.head_dim
+        size, c0, n = n_heads * hd, h0 * hd, nh * hd
+        cols = ((lambda w, d: tpl.part(w, d, size, c0, n, self.tp))
+                if self.local else
+                (lambda w, d: tpl.whole(w, d, size, self.tp)))
+        y = x @ cols(lin.w, 1).to(x.dtype)
+        if lin.b is not None:
+            y = y + cols(lin.b, 0).to(x.dtype)
+        return y
+
+    def norm(self, x, scale):
+        """RMS norm over head_dim; a replicated scale used on part of
+        the heads has its gradient summed over "model"."""
+        return layers.rms_norm(x, self.enter(scale), self.cfg.norm_eps)
+
+    def out(self, p, o):
+        """The output projection of o [B, S, nq·D]: row-parallel in a
+        region (one sum over "model"), else ``wo`` whole."""
+        size = self.cfg.n_heads * self.cfg.head_dim
+        if self.tp is None:
+            return layers.linear(o, p.wo.w)
+        if self.local:
+            return tpl.row_parallel(o, p.wo.w, p.wo.b, size, self.tp)
+        return layers.linear(o, tpl.whole(p.wo.w, 0, size, self.tp),
+                             p.wo.b)
+
+
+def _project_qkv(p: Attention, cfg, x, positions, theta, hs=None):
+    """q, k, v of the heads ``hs`` computes (a fresh ``_Heads`` of the
+    current context by default)."""
     b, s, _ = x.shape
-    hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    q = layers.linear(x, p.wq.w, p.wq.b).reshape(b, s, nq, hd)
-    k = layers.linear(x, p.wk.w, p.wk.b).reshape(b, s, nkv, hd)
-    v = layers.linear(x, p.wv.w, p.wv.b).reshape(b, s, nkv, hd)
+    hs = _Heads(cfg, all_kv=True) if hs is None else hs
+    hd = cfg.head_dim
+    x = hs.enter(x)
+    q = hs.proj(x, p.wq, hs.q0, hs.nq, cfg.n_heads).reshape(b, s, hs.nq, hd)
+    k = hs.proj(x, p.wk, hs.kv0, hs.nkv, cfg.n_kv_heads).reshape(
+        b, s, hs.nkv, hd)
+    v = hs.proj(x, p.wv, hs.kv0, hs.nkv, cfg.n_kv_heads).reshape(
+        b, s, hs.nkv, hd)
     if cfg.qk_norm:
-        q = layers.rms_norm(q, p.q_norm.scale, cfg.norm_eps)
-        k = layers.rms_norm(k, p.k_norm.scale, cfg.norm_eps)
+        q = hs.norm(q, p.q_norm.scale)
+        k = hs.norm(k, p.k_norm.scale)
     if theta is not None:
         q = layers.rope(q, positions, theta)
         k = layers.rope(k, positions, theta)
@@ -124,11 +221,11 @@ def self_attention(p: Attention, cfg, x, positions=None, *, causal=True,
     b, s, _ = x.shape
     theta = cfg.rope_theta if theta is None else theta
     rope_pos = arange_positions(x) if positions is None else positions
-    q, k, v = _project_qkv(p, cfg, x, rope_pos, theta)
-    out = flash_attention(q, k, v, positions, positions, causal=causal,
-                          window=window)
-    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    out = layers.linear(out, p.wo.w)
+    hs = _Heads(cfg, all_kv=return_kv)
+    q, k, v = _project_qkv(p, cfg, x, rope_pos, theta, hs)
+    out = flash_attention(q, hs.select(k), hs.select(v), positions,
+                          positions, causal=causal, window=window)
+    out = hs.out(p, out.reshape(b, s, hs.nq * cfg.head_dim))
     if return_kv:
         return out, k, v
     return out
@@ -147,18 +244,21 @@ def cross_attention(p: Attention, cfg, x, memory):
     the mixed operands and returns q's dtype."""
     b, s, _ = x.shape
     t = memory.shape[1]
-    hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    q = layers.linear(x, p.wq.w, p.wq.b).reshape(b, s, nq, hd)
-    k = layers.linear(memory, p.wk.w, p.wk.b).reshape(b, t, nkv, hd)
-    v = layers.linear(memory, p.wv.w, p.wv.b).reshape(b, t, nkv, hd)
+    hd = cfg.head_dim
+    hs = _Heads(cfg, all_kv=False)
+    x, memory = hs.enter(x), hs.enter(memory)
+    q = hs.proj(x, p.wq, hs.q0, hs.nq, cfg.n_heads).reshape(b, s, hs.nq, hd)
+    k = hs.proj(memory, p.wk, hs.kv0, hs.nkv, cfg.n_kv_heads).reshape(
+        b, t, hs.nkv, hd)
+    v = hs.proj(memory, p.wv, hs.kv0, hs.nkv, cfg.n_kv_heads).reshape(
+        b, t, hs.nkv, hd)
     if cfg.qk_norm:
-        q = layers.rms_norm(q, p.q_norm.scale, cfg.norm_eps)
-        k = layers.rms_norm(k, p.k_norm.scale, cfg.norm_eps)
+        q = hs.norm(q, p.q_norm.scale)
+        k = hs.norm(k, p.k_norm.scale)
     dt = torch.promote_types(q.dtype, k.dtype)
-    out = flash_attention(q.to(dt), k.to(dt), v.to(dt), None, None,
-                          causal=False)
-    out = out.to(x.dtype).reshape(b, s, nq * hd)
-    return layers.linear(out, p.wo.w)
+    out = flash_attention(q.to(dt), hs.select(k).to(dt),
+                          hs.select(v).to(dt), None, None, causal=False)
+    return hs.out(p, out.to(x.dtype).reshape(b, s, hs.nq * hd))
 
 
 # --------------------------------------------------------------------------
@@ -171,7 +271,7 @@ def init_kv_cache(cfg, batch, max_len, dtype=torch.bfloat16, device=None,
     ``n_layers`` when given (the hybrid's shared-block calls), else the
     config's layers."""
     nl = cfg.n_layers if n_layers is None else n_layers
-    shape = (nl, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    shape = (nl, batch, max_len, _Heads(cfg, all_kv=True).nkv, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "length": 0}
@@ -183,30 +283,35 @@ def _token_positions(x, length: int) -> torch.Tensor:
 
 
 def project_kv_token(p: Attention, cfg, x, length: int, *, theta=None):
-    """This step's k/v [B,1,KVH,D], without writing the cache."""
+    """This step's k/v [B,1,KVH,D] (the cache's KV heads), without
+    writing the cache."""
     b = x.shape[0]
-    hd, nkv = cfg.head_dim, cfg.n_kv_heads
+    hd = cfg.head_dim
+    hs = _Heads(cfg, all_kv=True)
     theta = cfg.rope_theta if theta is None else theta
-    k = layers.linear(x, p.wk.w, p.wk.b).reshape(b, 1, nkv, hd)
-    v = layers.linear(x, p.wv.w, p.wv.b).reshape(b, 1, nkv, hd)
+    k = hs.proj(x, p.wk, hs.kv0, hs.nkv, cfg.n_kv_heads).reshape(
+        b, 1, hs.nkv, hd)
+    v = hs.proj(x, p.wv, hs.kv0, hs.nkv, cfg.n_kv_heads).reshape(
+        b, 1, hs.nkv, hd)
     if cfg.qk_norm:
-        k = layers.rms_norm(k, p.k_norm.scale, cfg.norm_eps)
+        k = hs.norm(k, p.k_norm.scale)
     if theta is not None:
         k = layers.rope(k, _token_positions(x, length), theta)
     return k, v
 
 
-def _decode_query(p: Attention, cfg, x, length: int, theta):
-    """This step's query, grouped by kv head: [B,1,KVH,G,D]."""
+def _decode_query(p: Attention, cfg, x, length: int, theta, hs, n_kv):
+    """This step's query of the heads ``hs`` computes, grouped by the
+    ``n_kv`` KV heads they read: [B,1,n_kv,G,D]."""
     b = x.shape[0]
-    hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.head_dim
     theta = cfg.rope_theta if theta is None else theta
-    q = layers.linear(x, p.wq.w, p.wq.b).reshape(b, 1, nq, hd)
+    q = hs.proj(x, p.wq, hs.q0, hs.nq, cfg.n_heads).reshape(b, 1, hs.nq, hd)
     if cfg.qk_norm:
-        q = layers.rms_norm(q, p.q_norm.scale, cfg.norm_eps)
+        q = hs.norm(q, p.q_norm.scale)
     if theta is not None:
         q = layers.rope(q, _token_positions(x, length), theta)
-    return q.reshape(b, 1, nkv, nq // nkv, hd)
+    return q.reshape(b, 1, n_kv, hs.nq // n_kv, hd)
 
 
 def _decode_scores(qg, keys):
@@ -229,7 +334,10 @@ def decode_attention_append(p: Attention, cfg, x, layer_k, layer_v, k_new,
     ``length`` plus the new token's own score, computed separately (the
     cache is read only).  x [B,1,d]; layer_k/v [B,T,KVH,D]."""
     b, t = x.shape[0], layer_k.shape[1]
-    qg = _decode_query(p, cfg, x, length, theta)
+    hs = _Heads(cfg, all_kv=True)
+    layer_k, layer_v = hs.select(layer_k), hs.select(layer_v)
+    k_new, v_new = hs.select(k_new), hs.select(v_new)
+    qg = _decode_query(p, cfg, x, length, theta, hs, layer_k.shape[2])
     s = _decode_scores(qg, layer_k)
     kpos = torch.arange(t, device=x.device)
     mask = kpos < length                       # strictly-past cache slots
@@ -240,8 +348,8 @@ def decode_attention_append(p: Attention, cfg, x, layer_k, layer_v, k_new,
     wts = torch.softmax(sc, dim=-1)
     out = (_decode_values(wts[..., :t], layer_v)
            + _decode_values(wts[..., t:], v_new))
-    out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x.dtype)
-    return layers.linear(out, p.wo.w)
+    out = out.reshape(b, 1, hs.nq * cfg.head_dim).to(x.dtype)
+    return hs.out(p, out)
 
 
 def write_kv_stack(cache_k, cache_v, ks, vs, length: int):
@@ -273,10 +381,12 @@ def decode_attention(p: Attention, cfg, x, layer_k, layer_v, length: int,
     it.  x [B,1,d]; layer_k/v [B,T,KVH,D]; returns [B,1,d].  No window:
     no family that decodes through it has one."""
     b, t = x.shape[0], layer_k.shape[1]
-    qg = _decode_query(p, cfg, x, length, theta)
+    hs = _Heads(cfg, all_kv=True)
+    layer_k, layer_v = hs.select(layer_k), hs.select(layer_v)
+    qg = _decode_query(p, cfg, x, length, theta, hs, layer_k.shape[2])
     s = _decode_scores(qg, layer_k)
     kpos = torch.arange(t, device=x.device)
     s = s.masked_fill(kpos > length, NEG_INF)
     out = _decode_values(torch.softmax(s, dim=-1), layer_v)
-    out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x.dtype)
-    return layers.linear(out, p.wo.w)
+    out = out.reshape(b, 1, hs.nq * cfg.head_dim).to(x.dtype)
+    return hs.out(p, out)

@@ -112,7 +112,7 @@ def forward(params: EncDecLM, cfg: ModelConfig, tokens, memory=None):
     """Teacher-forced decode over ``tokens`` given ``memory`` ([B, S_enc,
     d] stub frame embeddings, pre-encoder) -> (f32 logits [B, S, V], {})."""
     mem = encode(params, cfg, memory)
-    x = layers.embed(tokens, params.embed.table, layers.dtype_of(cfg.dtype))
+    x = layers.embed(tokens, params.embed, layers.dtype_of(cfg.dtype))
     remat = cfg.remat and torch.is_grad_enabled()
     for blk in params.dec_blocks:
         if remat:
@@ -120,7 +120,7 @@ def forward(params: EncDecLM, cfg: ModelConfig, tokens, memory=None):
         else:
             x = _dec_block(blk, cfg, x, mem)
     x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    return layers.unembed(x, params.lm_head.table), {}
+    return layers.unembed(x, params.lm_head), {}
 
 
 # --------------------------------------------------------------------------
@@ -147,13 +147,13 @@ def prefill(params: EncDecLM, cfg: ModelConfig, tokens, cache, memory=None):
     s = tokens.shape[1]
     mem = encode(params, cfg, memory)
     cache["memory"] = mem.to(cache["memory"].dtype)
-    x = layers.embed(tokens, params.embed.table, layers.dtype_of(cfg.dtype))
+    x = layers.embed(tokens, params.embed, layers.dtype_of(cfg.dtype))
     for i, blk in enumerate(params.dec_blocks):
         x, kk, vv = _dec_block(blk, cfg, x, mem, return_kv=True)
         cache["k"][i, :, :s] = kk.to(cache["k"].dtype)
         cache["v"][i, :, :s] = vv.to(cache["v"].dtype)
     x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    logits = layers.unembed(x[:, -1:], params.lm_head.table)
+    logits = layers.unembed(x[:, -1:], params.lm_head)
     cache["length"] = s
     return logits, cache
 
@@ -162,7 +162,7 @@ def decode_step(params: EncDecLM, cfg: ModelConfig, cache, tokens):
     """One decode step.  tokens: [B, 1] -> (logits [B, 1, V], cache); each
     layer writes this token's k/v into the cache in place, and its
     cross-attention projects the cached memory's k/v anew."""
-    x = layers.embed(tokens, params.embed.table, layers.dtype_of(cfg.dtype))
+    x = layers.embed(tokens, params.embed, layers.dtype_of(cfg.dtype))
     length = cache["length"]
     mem = cache["memory"]
     for i, p in enumerate(params.dec_blocks):
@@ -175,6 +175,6 @@ def decode_step(params: EncDecLM, cfg: ModelConfig, cache, tokens):
         h = layers.rms_norm(x, p.ln_mlp.scale, cfg.norm_eps)
         x = x + layers.glu_mlp(h, p.mlp, cfg.act)
     x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    logits = layers.unembed(x, params.lm_head.table)
+    logits = layers.unembed(x, params.lm_head)
     cache["length"] = length + 1
     return logits, cache

@@ -58,9 +58,8 @@ class HybridLM(nn.Module):
         self.shared_block = shared_block
         self.lm_head = lm_head
 
-    def head_table(self) -> torch.Tensor:
-        return (self.embed.table if self.cfg.tie_embeddings
-                else self.lm_head.table)
+    def head(self) -> layers.Embed:
+        return self.embed if self.cfg.tie_embeddings else self.lm_head
 
 
 @torch.no_grad()
@@ -97,7 +96,7 @@ def forward(params: HybridLM, cfg: ModelConfig, tokens, memory=None):
     """Training/prefill forward -> (f32 logits [B, S, V], {})."""
     del memory
     dt = layers.dtype_of(cfg.dtype)
-    x = layers.embed(tokens, params.embed.table, dt)
+    x = layers.embed(tokens, params.embed, dt)
     remat = cfg.remat and torch.is_grad_enabled()
 
     def run(fn, *args):
@@ -113,7 +112,7 @@ def forward(params: HybridLM, cfg: ModelConfig, tokens, memory=None):
     for i in tail:
         x = run(_ssm_block_forward, params.blocks[i], cfg, x)
     x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    return layers.unembed(x, params.head_table()), {}
+    return layers.unembed(x, params.head()), {}
 
 
 # --------------------------------------------------------------------------
@@ -155,7 +154,7 @@ def decode_step(params: HybridLM, cfg: ModelConfig, cache, tokens):
     SSM states, conv windows and the shared block's k/v are written in
     place."""
     dt = layers.dtype_of(cfg.dtype)
-    x = layers.embed(tokens, params.embed.table, dt)
+    x = layers.embed(tokens, params.embed, dt)
     length = cache["length"]
     groups, tail = _groups(cfg)
 
@@ -171,7 +170,7 @@ def decode_step(params: HybridLM, cfg: ModelConfig, cache, tokens):
                            cache["v"][g], length)
     x = run(tail, x)
     x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    logits = layers.unembed(x, params.head_table())
+    logits = layers.unembed(x, params.head())
     cache["length"] = length + 1
     return logits, cache
 
@@ -191,7 +190,7 @@ def prefill(params: HybridLM, cfg: ModelConfig, tokens, cache, memory=None):
         raise ValueError(f"{cfg.name}: a prompt of {s} tokens is shorter "
                          f"than the conv window ({cfg.ssm_conv - 1})")
     dt = layers.dtype_of(cfg.dtype)
-    x = layers.embed(tokens, params.embed.table, dt)
+    x = layers.embed(tokens, params.embed, dt)
     groups, tail = _groups(cfg)
 
     def run(idx, x):
@@ -213,6 +212,6 @@ def prefill(params: HybridLM, cfg: ModelConfig, tokens, cache, memory=None):
         cache["v"][g, :, :s] = vv.to(cache["v"].dtype)
     x = run(tail, x)
     x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    logits = layers.unembed(x[:, -1:], params.head_table())
+    logits = layers.unembed(x[:, -1:], params.head())
     cache["length"] = s
     return logits, cache

@@ -7,10 +7,17 @@ one onto the other by name.  Weights are f32 masters, cast to the config's
 compute dtype per op.  Weights of a linear map are stored ``[d_in, d_out]``
 as in JAX.
 
-The JAX package annotates logical sharding axes here; the port's model
-code runs on plain tensors (a rank's rows of the batch under the LM's
-mesh, ``parallel.sharding``), where such an annotation is the identity,
-so it has none.  Init draws from an explicit
+The JAX package annotates logical sharding axes here (the GLU hidden by
+"mlp", the logits by "vocab"), and GSPMD computes each rank's share of
+what they split over "model".  The port's model code runs on plain
+tensors; under a mesh context whose "model" axis splits them
+(``parallel.tensor_parallel.active()``) ``glu_mlp`` is column-parallel
+in ``gate`` / ``up`` and row-parallel in ``down``, and ``embed`` /
+``unembed`` are vocab-parallel (the logits come out vocab-sharded).
+``GLUMLP.d_ff`` and ``Embed.vocab`` keep the whole sizes, so a module
+placed onto a rank (``launch.specs.place_model``) still knows them.
+Without such a context the ops are the meshless ones.  Init draws from
+an explicit
 ``torch.Generator`` (the parameters land on its device) with the scales of
 the JAX package; the bits differ, so tests carry JAX's parameters across.
 Parameters are trainable (``requires_grad=True``).
@@ -23,6 +30,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.parallel import tensor_parallel as tpl
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -100,10 +109,20 @@ class GLUMLP(nn.Module):
     def __init__(self, gate: Linear, up: Linear, down: Linear):
         super().__init__()
         self.gate, self.up, self.down = gate, up, down
+        self.d_ff = down.w.shape[0]          # whole, also once placed
 
 
 def glu_mlp(x: torch.Tensor, p: GLUMLP, act: str) -> torch.Tensor:
-    """SwiGLU / GeGLU: act(x @ w_gate) * (x @ w_up) @ w_down."""
+    """SwiGLU / GeGLU: act(x @ w_gate) * (x @ w_up) @ w_down.  Under
+    tensor parallelism with the hidden split: this rank's hidden columns,
+    then one sum over "model"."""
+    tp = tpl.active()
+    if tp is not None and tp.splits("mlp", p.d_ff):
+        x = tpl.to_model(x, tp.group)
+        g = tpl.col_parallel(x, p.gate.w, None, p.d_ff, tp)
+        u = tpl.col_parallel(x, p.up.w, None, p.d_ff, tp)
+        g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+        return tpl.row_parallel(g * u, p.down.w, None, p.d_ff, tp)
     g = linear(x, p.gate.w)
     u = linear(x, p.up.w)
     g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
@@ -124,16 +143,26 @@ class Embed(nn.Module):
     def __init__(self, table: torch.Tensor):
         super().__init__()
         self.table = _param(table)
+        self.vocab = table.shape[0]          # whole, also once placed
 
 
-def embed(tokens: torch.Tensor, table: torch.Tensor,
-          dtype: torch.dtype) -> torch.Tensor:
-    return table[tokens.long()].to(dtype)
+def embed(tokens: torch.Tensor, p: Embed, dtype: torch.dtype) -> torch.Tensor:
+    """The rows of ``p``'s table at ``tokens``, in ``dtype``;
+    vocab-parallel under tensor parallelism."""
+    tp = tpl.active()
+    if tp is not None and tp.splits("vocab", p.vocab):
+        return tpl.embed(tokens, p.table, p.vocab, dtype, tp)
+    return p.table[tokens.long()].to(dtype)
 
 
-def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Logits against the [vocab, d_model] table (tied or untied), f32."""
-    return x.float() @ table.float().T
+def unembed(x: torch.Tensor, p: Embed) -> torch.Tensor:
+    """Logits against ``p``'s [vocab, d_model] table (tied or untied),
+    f32; under tensor parallelism with the vocabulary split, this rank's
+    share of them [..., vocab / m]."""
+    tp = tpl.active()
+    if tp is not None and tp.splits("vocab", p.vocab):
+        return tpl.unembed(x, p.table, p.vocab, tp)
+    return x.float() @ p.table.float().T
 
 
 def init_embed(gen: torch.Generator, vocab: int, d_model: int) -> Embed:

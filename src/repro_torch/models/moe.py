@@ -32,6 +32,7 @@ from torch import nn
 
 from repro_torch.models import layers
 from repro_torch.parallel import sharding
+from repro_torch.parallel.tensor_parallel import from_model, to_model
 
 
 class MoE(nn.Module):
@@ -161,39 +162,6 @@ def moe_mlp(x, p: MoE, cfg, capacity_factor: float = 1.25):
     return out.reshape(b, s, d), {"aux_loss": aux_loss, "dropped": dropped}
 
 
-class _ToModelShards(torch.autograd.Function):
-    """Identity forward; the backward sums the gradient over "model": a
-    replicated input of the rank-local expert region (each model rank's
-    gradient holds only its local experts' part)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.clone(memory_format=torch.contiguous_format)
-        torch.distributed.all_reduce(g, group=ctx.group)
-        return g, None
-
-
-class _FromModelShards(torch.autograd.Function):
-    """``all_reduce`` over "model" forward (merging the local experts'
-    combines); the identity backward, since every model rank then holds
-    the same gradient of the merged output."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        x = x.clone()
-        torch.distributed.all_reduce(x, group=group)
-        return x
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
 class _LocalExperts(torch.autograd.Function):
     """Rows [lo, lo + n) of an expert weight held whole on every rank; the
     backward places their gradient in a whole-sized zero tensor and sums
@@ -244,10 +212,15 @@ def moe_mlp_sharded(x, p: MoE, cfg, capacity_factor: float = 1.25):
     ``all_reduce`` over "model" merges the combine.  ``aux_loss`` and
     ``dropped`` are this shard's, averaged over the batch axes.
 
+    The expert weights are either this rank's E/tp experts (placed by
+    ``launch.specs.place_model``, as ``param_specs`` puts them on
+    "model") or all E, held whole on every rank.
+
     Gradients are the true derivative of the meshed computation: the
     rank-local region sums its inputs' gradients over "model" (the
-    tokens and the router weights), the expert weights, held whole on
-    every rank, get every expert's gradient by a sum over "model", and
+    tokens and the router weights), placed expert weights get their own
+    experts' gradients, whole ones every expert's by a sum over "model",
+    and
     the aux loss's gradient is this shard's (the data-parallel average
     over the batch axes makes it the mean's).  Every model rank ends
     with the same gradients; the train step averages them over the
@@ -273,32 +246,39 @@ def moe_mlp_sharded(x, p: MoE, cfg, capacity_factor: float = 1.25):
     flat_e, order, sorted_e, rank, keep = _ranks(top_i, e, cap)
     # local-expert ownership: this rank owns [lo, lo + e_loc)
     mine = keep & (sorted_e >= lo) & (sorted_e < lo + e_loc)
-    ffn = tuple(_LocalExperts.apply(w, lo, e_loc, group).to(x.dtype)
-                for w in (p.gate, p.up, p.down))
-    out = _experts(x, _ToModelShards.apply(xt, group),
-                   _ToModelShards.apply(top_p, group).reshape(-1), ffn, cap,
+    if p.gate.shape[0] == e_loc < e:       # placed: the local experts
+        ffn = tuple(w.to(x.dtype) for w in (p.gate, p.up, p.down))
+    else:
+        ffn = tuple(_LocalExperts.apply(w, lo, e_loc, group).to(x.dtype)
+                    for w in (p.gate, p.up, p.down))
+    out = _experts(x, to_model(xt, group),
+                   to_model(top_p, group).reshape(-1), ffn, cap,
                    order, sorted_e, rank, mine, lo, e_loc, k)
-    out = _FromModelShards.apply(out, group)      # merge the expert shards
+    out = from_model(out, group)      # merge the expert shards
     if p.shared is not None:
         out = out + layers.glu_mlp(xt, p.shared, cfg.act)
     # this shard's aux values, as moe_mlp computes them, then their mean
+    # (a replicated batch: every rank's values are already the batch's)
     aux_loss, dropped = _aux(probs, flat_e, keep, e)
-    aux_loss = _batch_mean(aux_loss, mesh, batch_axes, straight_through=True)
-    dropped = _batch_mean(dropped, mesh, batch_axes)
+    if not sharding.batch_is_replicated():
+        aux_loss = _batch_mean(aux_loss, mesh, batch_axes,
+                               straight_through=True)
+        dropped = _batch_mean(dropped, mesh, batch_axes)
     return out.reshape(b, s, d), {"aux_loss": aux_loss, "dropped": dropped}
 
 
 def moe_mlp_auto(x, p: MoE, cfg):
     """The expert-parallel path under a mesh context with a usable "model"
-    axis (> 1, dividing the experts) while the batch is split over the
-    batch axes (``sharding.replicated_batch`` marks where it is not: the
-    JAX package's ``x.shape[0] % n_batch_shards`` test); else
-    ``moe_mlp``."""
+    axis (> 1, dividing the experts); else ``moe_mlp``.  Where the batch
+    did not split over the batch axes (``sharding.replicated_batch``;
+    the JAX package then runs ``moe_mlp`` under GSPMD, which still
+    partitions the experts over "model") every rank routes the whole
+    microbatch: the same values."""
     ctx = sharding.current_context()
     if (getattr(cfg, "moe_impl", "shard_map") == "shard_map"
-            and ctx is not None and ctx.shape.get("model", 1) > 1
-            and cfg.n_experts % ctx.shape["model"] == 0
-            and not sharding.batch_is_replicated()):
+            and ctx is not None and hasattr(ctx.mesh, "get_group")
+            and ctx.shape.get("model", 1) > 1
+            and cfg.n_experts % ctx.shape["model"] == 0):
         return moe_mlp_sharded(x, p, cfg)
     return moe_mlp(x, p, cfg)
 

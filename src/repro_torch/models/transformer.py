@@ -23,6 +23,13 @@ sums them over the layers (``forward``'s aux).  The VLM interleaves a
 cross-attention block after every ``cross_attn_every`` self blocks; its
 memory (the stubbed modality frontend's output) is an argument of
 ``forward`` and ``prefill`` and lives in the cache for decode.
+
+Under tensor parallelism (``parallel.tensor_parallel``) the blocks'
+attention and GLU compute this rank's heads and hidden columns, the
+embedding and unembedding its vocabulary rows: ``forward``, ``prefill``
+and ``decode_step`` then return this rank's vocab-sharded logits where
+the vocabulary splits, and the cache holds its KV heads where they
+split.
 """
 
 from __future__ import annotations
@@ -146,9 +153,8 @@ class TransformerLM(nn.Module):
         self.final_norm = final_norm
         self.lm_head = lm_head
 
-    def head_table(self) -> torch.Tensor:
-        return (self.embed.table if self.cfg.tie_embeddings
-                else self.lm_head.table)
+    def head(self) -> layers.Embed:
+        return self.embed if self.cfg.tie_embeddings else self.lm_head
 
 
 def n_cross_layers(cfg: ModelConfig) -> int:
@@ -208,6 +214,9 @@ def _self_stack(params: TransformerLM, cfg: ModelConfig, x):
         return _run_blocks(params.blocks, cfg, x, aux, windows, thetas,
                            remat)
     gk = cfg.scan_group
+    # under tensor parallelism a checkpoint's recompute issues the
+    # region's collectives again, in the forward's order; every rank runs
+    # the same groups and blocks, so the ranks' collectives stay matched
     for g0 in range(0, cfg.n_layers, gk):
         grp = slice(g0, g0 + gk)
         x, aux = checkpoint(_run_blocks, params.blocks[grp], cfg, x, aux,
@@ -244,13 +253,13 @@ def forward(params: TransformerLM, cfg: ModelConfig, tokens, memory=None):
     ``{"aux_loss", "dropped"}`` summed over the layers for MoE, else {}.
     ``memory`` [B, T, d]: the VLM's modality embeddings."""
     dt = layers.dtype_of(cfg.dtype)
-    x = layers.embed(tokens, params.embed.table, dt)
+    x = layers.embed(tokens, params.embed, dt)
     if cfg.cross_attn_every:
         x, aux = _cross_stack(params, cfg, x, memory), {}
     else:
         x, aux = _self_stack(params, cfg, x)
     x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    return layers.unembed(x, params.head_table()), aux
+    return layers.unembed(x, params.head()), aux
 
 
 # --------------------------------------------------------------------------
@@ -281,7 +290,7 @@ def decode_step(params: TransformerLM, cfg: ModelConfig, cache, tokens):
     into it in place afterwards, at ``length``.  The cross blocks attend
     over the cache's memory."""
     dt = layers.dtype_of(cfg.dtype)
-    x = layers.embed(tokens, params.embed.table, dt)
+    x = layers.embed(tokens, params.embed, dt)
     length = cache["length"]
     memory = cache.get("memory")
     windows, thetas = layer_schedule(cfg)
@@ -303,7 +312,7 @@ def decode_step(params: TransformerLM, cfg: ModelConfig, cache, tokens):
     attention.write_kv_stack(cache["k"], cache["v"], torch.stack(ks),
                              torch.stack(vs), length)
     x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    logits = layers.unembed(x, params.head_table())
+    logits = layers.unembed(x, params.head())
     cache["length"] = length + 1
     return logits, cache
 
@@ -316,7 +325,7 @@ def prefill(params: TransformerLM, cfg: ModelConfig, tokens, cache,
     VLM's cross blocks read it there, here and in decode)."""
     b, s = tokens.shape
     dt = layers.dtype_of(cfg.dtype)
-    x = layers.embed(tokens, params.embed.table, dt)
+    x = layers.embed(tokens, params.embed, dt)
     if memory is not None and "memory" in cache:
         cache["memory"] = memory.to(cache["memory"].dtype)
     mem = cache.get("memory")
@@ -331,6 +340,6 @@ def prefill(params: TransformerLM, cfg: ModelConfig, tokens, cache,
         if c is not None:
             x = cross_block_forward(params.cross_blocks[c], cfg, x, mem)
     x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    logits = layers.unembed(x[:, -1:], params.head_table())
+    logits = layers.unembed(x[:, -1:], params.head())
     cache["length"] = s
     return logits, cache

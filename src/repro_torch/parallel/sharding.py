@@ -16,10 +16,12 @@ one per mesh dim; ``sharding_for`` gives ``(mesh, placements)``.
 
 The mesh context is process-global and set by the launcher (or a test).
 Model code runs on plain tensors: under a mesh each rank holds its own
-rows of the batch axes and computes the rest replicated (the JAX
-package's GSPMD partitions heads, mlp and vocab over "model" as well;
-the port leaves those replicated, with the same values).  ``shard`` is
-therefore the identity on a plain tensor and redistributes a DTensor.
+rows of the batch axes, and where the "model" axis has more than one
+rank it computes its share of what these rules split over "model" (q
+and k/v heads, the GLU hidden, the vocabulary), as the JAX package's
+GSPMD does, with the collectives ``parallel.tensor_parallel`` inserts;
+the rest is computed replicated.  ``shard`` is therefore the identity
+on a plain tensor and redistributes a DTensor.
 ``replicated_batch`` marks the stretch where every rank holds the whole
 batch instead, because it does not divide the batch axes.
 """

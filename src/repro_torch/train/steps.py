@@ -29,6 +29,20 @@ global gradient; the loss is the mean over the batch axes.  With
 issued asynchronously from a post-accumulate hook during the last
 microbatch's backward and awaited before the optimizer: the same
 reductions, the same values.
+
+Tensor parallelism.  Where the mesh's "model" axis has size m > 1 the
+step places the state on its first call (``launch.specs.place_model``:
+every parameter and moment that ``param_specs`` puts on "model" becomes
+this rank's slice) and the model computes each rank's heads, GLU
+columns and vocabulary rows (``parallel.tensor_parallel``).  The loss
+is then ``tensor_parallel.cross_entropy`` on the vocab-sharded logits.
+Gradients are reduced over the batch axes only: a split weight's
+gradient is this rank's own, a replicated weight's is already equal on
+every model rank.  The gradient norm sums the split tensors' squares
+over "model" (``optim.clip_by_global_norm``).  The serve steps run
+partitioned under a mesh context holding such an axis, on placed
+parameters and a cache of the rank's KV heads, and return
+vocab-sharded logits (the greedy token is the global argmax).
 """
 
 from __future__ import annotations
@@ -38,9 +52,11 @@ from typing import Any, NamedTuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.launch import specs
 from repro_torch.models.zoo import Model
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.parallel import sharding
+from repro_torch.parallel import tensor_parallel as tpl
 
 
 class TrainState(NamedTuple):
@@ -117,10 +133,16 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     groups, n_shards, shard = (_batch_groups(mesh) if mesh is not None
                                else ([], 1, 0))
 
+    vocab = model.config.vocab_size
+
     def loss_fn(params, batch):
         logits, aux = model.forward(params, batch["inputs"],
                                     memory=batch.get("memory"))
-        loss = cross_entropy_loss(logits, batch["targets"])
+        tp = tpl.active()
+        if tp is not None and tp.splits("vocab", vocab):
+            loss = tpl.cross_entropy(logits, batch["targets"], vocab, tp)
+        else:
+            loss = cross_entropy_loss(logits, batch["targets"])
         if aux and "aux_loss" in aux:
             loss = loss + moe_aux_weight * aux["aux_loss"]
         return loss, aux
@@ -165,6 +187,8 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
         return loss_sum, auxes
 
     def train_step(state: TrainState, batch):
+        if mesh is not None:
+            specs.place_model(state, mesh)
         params = list(state.params.parameters())
         b = batch["inputs"].shape[0]
         if b % accum:
@@ -190,7 +214,12 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
         div = accum * (n_shards if split else 1)
         if div > 1:
             torch._foreach_div_(grads, div)
-        _, opt, om = adamw_update(params, grads, state.opt, opt_cfg)
+        placed = specs.model_split(state)
+        tp_norm = {} if placed is None else {
+            "split": [d is not None for d in placed[1]],
+            "group": mesh.get_group("model")}
+        _, opt, om = adamw_update(params, grads, state.opt, opt_cfg,
+                                  **tp_norm)
         del grads
         metrics = {"loss": loss_sum / accum, **om}
         for k in auxes[0]:
@@ -210,10 +239,16 @@ def make_prefill_step(model: Model):
 def make_decode_step(model: Model):
     """serve_step: one greedy token for every sequence in the batch."""
 
+    vocab = model.config.vocab_size
+
     @torch.no_grad()
     def decode_step(params, cache, tokens):
         logits, cache = model.decode_step(params, cache, tokens)
-        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        tp = tpl.active()
+        if tp is not None and tp.splits("vocab", vocab):
+            nxt = tpl.argmax(logits[:, -1], vocab, tp).to(torch.int32)
+        else:
+            nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return nxt[:, None], logits, cache
 
     return decode_step

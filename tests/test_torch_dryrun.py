@@ -389,14 +389,18 @@ class TestFamilies:
         data = tuple(dist.get_process_group_ranks(world.get_group("data")))
         model = tuple(dist.get_process_group_ranks(world.get_group("model")))
         assert set(stats.groups) <= {data, model}
-        # the MoE's expert-parallel all_reduces over "model", and the gathers
-        # of its aux values over the batch axes
-        assert (model in stats.groups) == cell.cfg.is_moe
+        # tensor parallelism's collectives over "model" (and the MoE's
+        # expert-parallel ones) wherever a weight is placed split: the
+        # SSM's vocabulary (50,280) and its layers split nothing
+        placed = specs.place_model(specs.abstract_state(cell.model), world)
+        split = specs.model_split(placed)
+        assert (model in stats.groups) == (split is not None) \
+            == (family != "ssm")
         reduced = (stats.groups[data]["wire_by_kind"].get("all-reduce", 0.0)
                    if data in stats.groups else 0.0)
         if kind == "train":
-            grads = sum(p.numel() * 4 for p in
-                        specs.abstract_state(cell.model).params.parameters())
+            # each rank's "model" slices of the gradients
+            grads = sum(p.numel() * 4 for p in placed.params.parameters())
             n = 16
             assert reduced == 2.0 * (n - 1) / n * (grads + 4)
             # AdamW writes every parameter and both moments once
@@ -488,6 +492,36 @@ class TestFamilies:
             tree(got_out[2], jout[2])
 
 
+def test_tensor_parallel_cuts_the_state_by_its_split_weights():
+    """gemma3-1b x train_4k at (16, 16), cut to 2 layers: its vocabulary
+    (262,144), GLU hidden (6,912) and flattened q / k / v / o dims (1,024
+    and 256) all divide 16, so each rank's argument bytes are those of
+    "model" replicated less 15/16 of those weights' parameter and both
+    AdamW moments' f32 bytes, computed from the config."""
+    over = {"n_layers": 2}
+    cell = specs.build_cell("gemma3-1b", "train_4k", overrides=over)
+    c = cell.cfg
+    q, kv = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
+    split = c.vocab_size * c.d_model + c.n_layers * (
+        3 * c.d_model * c.d_ff + 2 * c.d_model * q + 2 * c.d_model * kv)
+    with dryrun.fake_world(256):
+        mesh = mesh_lib.make_production_mesh(device="cpu")
+        est, _ = dryrun.estimate(cell, mesh)
+        # "model" replicated: nothing placed, the model code in manual
+        # mode (``tensor_parallel.active()`` is None there)
+        with pytest.MonkeyPatch.context() as mp, shd.manual_mode():
+            mp.setattr(specs, "place_model", lambda obj, *a, **k: obj)
+            whole, _ = dryrun.estimate(cell, mesh)
+    assert est["ran"]["tensor_parallel"] == {
+        "heads": "replicated", "kv_heads": "replicated", "mlp": "split",
+        "vocab": "split"}
+    assert whole["memory"]["argument_bytes"] \
+        - est["memory"]["argument_bytes"] == 3 * 4 * split * 15 // 16
+    assert est["per_device_peak_bytes_est"] < \
+        whole["per_device_peak_bytes_est"]
+    assert not dist.is_initialized()
+
+
 @pytest.mark.parametrize("over", [
     {"seq_shard": True}, {"seq_shard_rule": "model"}, {"serve_bf16": True}])
 def test_overrides_without_meaning_raise(over):
@@ -499,17 +533,19 @@ def test_overrides_without_meaning_raise(over):
 
 
 def test_multi_pod_wire_per_batch_axis():
-    """On (2, 16, 16) the train step reduces every gradient and the loss
-    over "pod" and over "data": 2(n-1)/n of their bytes each."""
+    """On (2, 16, 16) the train step reduces every gradient (each rank's
+    "model" slices) and the loss over "pod" and over "data": 2(n-1)/n of
+    their bytes each; tensor parallelism's collectives run over
+    "model"."""
     arch, over = FAMILIES["dense"]
     with dryrun.fake_world(512):
         mesh = mesh_lib.make_production_mesh(multi_pod=True, device="cpu")
         cell = specs.build_cell(arch, "train_4k", overrides=over)
         _, stats = dryrun.estimate(cell, mesh)
         groups = {a: tuple(dist.get_process_group_ranks(mesh.get_group(a)))
-                  for a in ("pod", "data")}
-    grads = sum(p.numel() * 4 for p in
-                specs.abstract_state(cell.model).params.parameters())
+                  for a in ("pod", "data", "model")}
+        placed = specs.place_model(specs.abstract_state(cell.model), mesh)
+    grads = sum(p.numel() * 4 for p in placed.params.parameters())
     for axis, n in (("pod", 2), ("data", 16)):
         assert stats.groups[groups[axis]]["wire_bytes"] == \
             2.0 * (n - 1) / n * (grads + 4)

@@ -17,17 +17,35 @@ ranks of the 4 x 2 launch), one launch a test session shared with
   equal the unsharded ``moe_mlp``'s (the reference's sharded gradients
   equal its unsharded ones there too: no caveat to record).
 * Two train steps (2 microbatches of 8 rows, 2 rows a "data" rank) of
-  qwen2-1.5b's and qwen3-moe's smoke configs in f32, Adam's eps 1e-5 as
-  in ``tests/test_torch_train.py``: loss and grad norm within 1e-5
-  relative; every parameter within 1e-5 relative + 1e-6 absolute (the
-  parameters are O(1) norm scales and O(1e-3) biases, and a first Adam
-  step turns a gradient's rounding near eps into up to lr / eps times
-  that in the update); every rank's parameters the same.
-* ``overlap`` gives the same parameters, bit for bit; so does a step whose
-  microbatch does not divide "data" (replicated) against the meshless
-  step; a checkpoint
-  restored onto ``state_shardings`` placements holds each rank's slice
-  exactly, and its whole tensors are the saved ones.
+  the qwen2-1.5b, qwen3-moe and gemma3-1b smoke configs and of a config
+  none of whose heads, GLU hidden or vocabulary divides "model"
+  (``cases.ODD``), in f32, Adam's eps 1e-5 as in
+  ``tests/test_torch_train.py``, tensor-parallel over "model" on the
+  port's side and under GSPMD on the reference's: loss and grad norm
+  within 1e-5 relative; every parameter, gathered over "model", within
+  1e-5 relative + 1e-6 absolute (the parameters are O(1) norm scales
+  and O(1e-3) biases, and a first Adam step turns a gradient's rounding
+  near eps into up to lr / eps times that in the update); each rank's
+  parameter shapes are the reference's ``spec_for`` "model" slices, and
+  ranks at the same "model" coordinate hold the same slices.
+* ``overlap`` gives the same parameters, bit for bit.  A step whose
+  microbatch does not divide "data" (replicated over the batch axes,
+  still partitioned over "model") gives the reference's metrics and
+  parameters within the train steps' tolerances.  The dense run's
+  checkpoint, gathered over "model" and written by rank 0, restored onto
+  ``state_shardings`` placements holds each rank's slice exactly, its
+  whole tensors are the saved ones, and it restores meshless bit for
+  bit.  ``launch.train.train`` failing at step 1 under the mesh and
+  resumed from its checkpoint ends with the parameters of an
+  uninterrupted run, bit for bit.
+* Serving, tensor-parallel: qwen2-1.5b's (its KV heads split) and
+  gemma3-1b's (one KV head, whole on every rank) smoke configs, prefill
+  of 2 x 16 tokens and 4 greedy decode steps, against the reference
+  jitted with ``step_and_shardings``' in and out shardings on the mesh:
+  every call's logits and the final f32 cache within 1e-5 relative and
+  1e-5 of the array's largest |value|, the greedy tokens equal.  One
+  forward loss of the llama-3.2-vision, zamba2-1.2b and
+  seamless-m4t-medium smoke configs within 1e-5 relative.
 
 In-process on one gloo rank (its process group destroyed in teardown):
 the elastic restore of ``tests/test_system.py`` and the launcher on a
@@ -134,11 +152,37 @@ def test_meshed_train_steps_match_reference(lm, arch):
                 _close(got["aux_loss"], ref["aux_loss"])
                 assert got["dropped"] == pytest.approx(ref["dropped"],
                                                        abs=1e-7)
-    assert len({m[f"{arch}/checksum"] for m in lm["meta"]}) == 1
+        assert meta[f"{arch}/local_shapes"] == \
+            lm["ref_meta"][f"{arch}/local_shapes"]
+    # ranks at the same "model" coordinate hold the same slices
+    for c in range(cases.COLS):
+        same = {m[f"{arch}/checksum"] for m in lm["meta"]
+                if m["model_rank"] == c}
+        assert len(same) == 1
     keys = [k for k in lm["ref"] if k.startswith(f"train/{arch}/")]
     assert len(keys) > 10
     for key in keys:
+        for p in lm["port"]:
+            np.testing.assert_array_equal(p[key], lm["port"][0][key])
         _close(lm["port"][0][key], lm["ref"][key], atol=1e-6, err_msg=key)
+
+
+def test_tensor_parallel_splits_what_the_reference_splits(lm):
+    """Over the four train configs each rank holds split heads, GLU
+    columns, vocabulary rows and experts somewhere, and the non-dividing
+    config holds only its wq / wk / wv / wo split (stored split, their
+    heads computed whole)."""
+    meta = lm["meta"][0]
+    split = {a: sorted(k for k, v in meta[f"{a}/local_shapes"].items()
+                       if v != list(lm["ref"][f"train/{a}/{k}"].shape))
+             for a in ARCHS}
+    assert "embed/table" in split["qwen2-1.5b"]
+    assert "layers/mlp/gate/w" in split["gemma3-1b"]
+    assert "layers/moe/gate" in split["qwen3-moe-30b-a3b"]
+    assert split["odd"] == sorted(f"layers/attn/{w}/{leaf}"
+                                  for w in ("wq", "wk", "wv", "wo")
+                                  for leaf in ("w", "b")
+                                  if (w, leaf) != ("wo", "b"))
 
 
 def test_overlap_gives_the_same_parameters(lm):
@@ -154,11 +198,23 @@ def test_overlap_gives_the_same_parameters(lm):
 
 def test_batch_that_does_not_divide_is_replicated(lm):
     """Microbatches of 3 rows on 4 "data" ranks: every rank takes them
-    whole and the MoE takes ``moe_mlp`` (``repro``'s fallback, whose
-    values ``tests/test_torch_train.py`` holds); the step's parameters
-    are the meshless step's, bit for bit."""
+    whole (``repro``'s replicated fallback); the MoE step, still
+    partitioned over "model", gives the reference's metrics and
+    parameters within the train steps' tolerances, the same on every
+    rank."""
+    want = lm["ref_meta"]["replicated"]
+    assert len(want) == 1
     for meta in lm["meta"]:
-        assert meta["replicated_max_abs_diff"] == 0.0
+        for got, ref in zip(meta["replicated"], want, strict=True):
+            for k in ("loss", "grad_norm", "lr", "aux_loss"):
+                _close(got[k], ref[k], err_msg=k)
+            assert got["dropped"] == pytest.approx(ref["dropped"], abs=1e-7)
+    keys = [k for k in lm["ref"] if k.startswith("train/replicated/")]
+    assert len(keys) > 10
+    for key in keys:
+        for p in lm["port"]:
+            np.testing.assert_array_equal(p[key], lm["port"][0][key])
+        _close(lm["port"][0][key], lm["ref"][key], atol=1e-6, err_msg=key)
 
 
 @pytest.mark.parametrize("rank", range(cases.ROWS * cases.COLS))
@@ -166,8 +222,41 @@ def test_restore_onto_shard_placements(lm, rank):
     got = lm["meta"][rank]["restore"]
     assert got["step"] == cases.TRAIN_STEPS
     assert got["local_equal"] and got["full_equal"]
+    assert got["meshless_equal"]
     assert 0 < got["sharded"] < got["leaves"]
     assert got["steps_replicated"] == [cases.TRAIN_STEPS] * 2
+
+
+@pytest.mark.parametrize("rank", range(cases.ROWS * cases.COLS))
+def test_restart_under_the_mesh(lm, rank):
+    got = lm["meta"][rank]["restart"]
+    assert got["failed"]
+    assert (got["start"], got["end"]) == (cases.RESTART["fail_at"],
+                                          cases.RESTART["steps"])
+    assert got["equal"]
+
+
+@pytest.mark.parametrize("arch", list(cases.SERVE_ARCHS))
+def test_tensor_parallel_serving_matches_reference(lm, arch):
+    ref = lm["ref"]
+    for p in lm["port"]:
+        _close(p[f"serve/{arch}/logits"], ref[f"serve/{arch}/logits"],
+               err_msg="logits")
+        for k in ("k", "v"):
+            key = f"serve/{arch}/cache/{k}"
+            _close(p[key], ref[key], err_msg=key)
+        np.testing.assert_array_equal(p[f"serve/{arch}/last"],
+                                      ref[f"serve/{arch}/last"])
+    heads = {m[f"serve/{arch}/cache_heads"] for m in lm["meta"]}
+    n_kv = ref[f"serve/{arch}/cache/k"].shape[3]
+    assert heads == {n_kv // cases.COLS if n_kv % cases.COLS == 0
+                     else n_kv}
+
+
+@pytest.mark.parametrize("arch", list(cases.FORWARD_ARCHS))
+def test_tensor_parallel_forward_losses_match_reference(lm, arch):
+    for meta in lm["meta"]:
+        _close(meta[f"forward/{arch}"], lm["ref_meta"][f"forward/{arch}"])
 
 
 # --------------------------------------------------------------------------

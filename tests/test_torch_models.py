@@ -80,12 +80,13 @@ def test_embed_and_unembed():
     rng = _rng(4)
     tj, tt = _both(rng.normal(size=(50, 16)))
     tok = rng.integers(0, 50, size=(2, 7)).astype(np.int32)
-    got = layers.embed(torch.from_numpy(tok), tt, torch.bfloat16)
+    got = layers.embed(torch.from_numpy(tok), layers.Embed(tt),
+                       torch.bfloat16)
     want = jlayers.embed(jnp.asarray(tok), tj, jnp.bfloat16)
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(_np(got), _np(want))
     xj, xt = _both(rng.normal(size=(2, 7, 16)))
-    got = layers.unembed(xt.to(torch.bfloat16), tt)
+    got = layers.unembed(xt.to(torch.bfloat16), layers.Embed(tt))
     assert got.dtype == torch.float32
     np.testing.assert_allclose(
         _np(got), _np(jlayers.unembed(xj.astype(jnp.bfloat16), tj)),

@@ -22,12 +22,17 @@ and one rank's partial, passes 2^31; at 1 × 1 it also runs
 collective for longer than the groups' timeout.
 
 The parity launches also run the LM's mesh cases (``lm_reference`` /
-``lm_port``) on a (4, 2) ("data", "model") mesh: the expert-parallel
+``lm_port``) on a (4, 2) ("data", "model") mesh, the reference under
+GSPMD and the port tensor-parallel over "model": the expert-parallel
 MoE FFN at two capacity factors with its gradients, two train steps of
-a dense and an MoE smoke config (2 microbatches), the port's
-``overlap`` path, and a checkpoint restored onto ``Shard`` placements.
-Their inputs are numpy draws and the port's own seeded initialisation
-(the reference carries it across with ``convert``), written to
+four smoke configs (dense, MoE, gemma3's GQA with one KV head, and
+``ODD``, which divides nothing; 2 microbatches), the port's ``overlap``
+path, a checkpoint gathered over "model" and restored onto ``Shard``
+placements and meshless, a failed and resumed ``launch.train`` run,
+prefill and decode steps (jitted with ``step_and_shardings``' shardings
+on the reference's side) and three families' forward losses.  Their
+inputs are numpy draws and the port's own seeded initialisation (the
+reference carries it across with ``convert``), written to
 ``lm_ref.npz`` / ``lm_ref.json`` and ``lm_port_<rank>.npz`` /
 ``lm_port_<rank>.json``.
 """
@@ -35,6 +40,7 @@ Their inputs are numpy draws and the port's own seeded initialisation
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import pathlib
@@ -350,11 +356,21 @@ MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_X = (8, 64)                    # global [B, S]: 2 x 64 tokens a shard
 MOE_CFS = (8.0, 1.25)              # nothing dropped at 8.0 (>= E/k)
 MOE_AUX_W = 0.37                   # the aux loss's weight in the objective
-TRAIN_ARCHS = ("qwen2-1.5b", "qwen3-moe-30b-a3b")
+TRAIN_ARCHS = ("qwen2-1.5b", "qwen3-moe-30b-a3b", "gemma3-1b", "odd")
+# a config none of whose heads, GLU hidden or vocabulary divides m = 2
+# (its wq / wk / wv / wo still divide: stored split, gathered for use)
+ODD = ("qwen2-1.5b", dict(n_heads=3, n_kv_heads=1, d_ff=255,
+                          vocab_size=511))
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 16, 32, 2, 2
 TRAIN_OPT = dict(lr=1e-3, total_steps=20, warmup_steps=2, eps=1e-5)
 REPLICATED_MB = 3                  # rows of a microbatch that 4 cannot split
 INIT_SEED = 3
+SERVE_ARCHS = ("qwen2-1.5b", "gemma3-1b")
+SERVE_B, SERVE_PROMPT, SERVE_STEPS, SERVE_LEN = 2, 16, 4, 24
+FORWARD_ARCHS = ("llama-3.2-vision-11b", "zamba2-1.2b",
+                 "seamless-m4t-medium")
+FORWARD_B, FORWARD_S = 8, 16
+RESTART = dict(steps=2, batch=8, seq=16, fail_at=1)
 
 
 def moe_inputs(cfg):
@@ -374,11 +390,23 @@ def train_batches(cfg):
     return out
 
 
+def replicated_batches(cfg):
+    """The first train batch cut to two microbatches of REPLICATED_MB."""
+    return [{k: v[:2 * REPLICATED_MB]
+             for k, v in train_batches(cfg)[0].items()}]
+
+
+def smoke_cfg(arch, configs):
+    """``arch``'s smoke config in float32 (``"odd"``: ``ODD``'s), from
+    either package's ``configs``."""
+    import dataclasses
+    base, over = ODD if arch == "odd" else (arch, {})
+    return dataclasses.replace(configs.smoke(base), dtype="float32", **over)
+
+
 def port_init(arch):
     """The port's seeded MoE layer or train state (its smoke config, in
     float32)."""
-    import dataclasses
-
     import torch
 
     from repro_torch import configs
@@ -388,8 +416,26 @@ def port_init(arch):
     if arch == "moe":
         cfg = configs.smoke(MOE_ARCH)
         return cfg, moe.init_moe(gen, cfg)
-    cfg = dataclasses.replace(configs.smoke(arch), dtype="float32")
+    cfg = smoke_cfg(arch, configs)
     return cfg, init_train_state(zoo.build(cfg), gen)
+
+
+def serve_tokens(cfg):
+    rng = np.random.default_rng(23)
+    return rng.integers(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT)).astype(
+        np.int32)
+
+
+def forward_batch(cfg):
+    """inputs, targets [B, S] and the frontend's memory [B, F, d]."""
+    rng = np.random.default_rng(29)
+    toks = rng.integers(0, cfg.vocab_size,
+                        (FORWARD_B, FORWARD_S + 1)).astype(np.int32)
+    out = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    if cfg.n_frontend_tokens:
+        out["memory"] = rng.normal(size=(
+            FORWARD_B, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+    return out
 
 
 def _flat(tree, prefix=""):
@@ -406,7 +452,8 @@ def lm_reference(out: pathlib.Path):
     forced devices: ``moe_mlp_sharded`` (output, aux, gradients of
     ``sum(out * ct) / 4 + MOE_AUX_W * aux_loss``; also ``moe_mlp``'s
     gradients of the aux-free objective), and ``make_train_step`` jitted
-    under the mesh context for TRAIN_STEPS steps."""
+    under the mesh context for TRAIN_STEPS steps, and for one step of the
+    MoE config on ``replicated_batches``."""
     import dataclasses
 
     import jax
@@ -455,31 +502,144 @@ def lm_reference(out: pathlib.Path):
             for k, v in _flat(jax.tree.map(np.asarray, gp)).items():
                 arrays[f"{tag}/grad/{k}"] = v
 
-    for arch in TRAIN_ARCHS:
+    def train(arch, tag, batches, accum):
         cfg, state = port_init(arch)
-        jcfg = dataclasses.replace(jconfigs.smoke(arch), dtype="float32")
         tree = convert.train_state_to_numpy(state)
         jstate = jsteps.TrainState(
             jax.tree.map(jnp.asarray, tree["params"]),
             jax.tree.map(jnp.asarray, tree["opt"]), jnp.asarray(tree["step"]))
         step = jsteps.make_train_step(
-            jzoo.build(jcfg), AdamWConfig(**TRAIN_OPT),
-            accum_steps=TRAIN_ACCUM)
+            jzoo.build(smoke_cfg(arch, jconfigs)), AdamWConfig(**TRAIN_OPT),
+            accum_steps=accum)
         mesh_lib.activate(mesh)
         try:
             step = jax.jit(step)
             recs = []
-            for batch in train_batches(cfg):
+            for batch in batches(cfg):
                 jstate, m = step(jstate, {k: jnp.asarray(v)
                                           for k, v in batch.items()})
                 recs.append({k: float(v) for k, v in m.items()})
         finally:
             jshd.set_context(None)
-        meta[arch] = recs
+        meta[tag] = recs
         for k, v in _flat(jax.tree.map(np.asarray, jstate.params)).items():
-            arrays[f"train/{arch}/{k}"] = v
+            arrays[f"train/{tag}/{k}"] = v
+        return tree
+
+    for arch in TRAIN_ARCHS:
+        tree = train(arch, arch, train_batches, TRAIN_ACCUM)
+        meta[f"{arch}/local_shapes"] = ref_local_shapes(
+            jax.tree.map(np.asarray, tree["params"]), mesh)
+    # microbatches of REPLICATED_MB rows, which the 4 "data" ranks cannot
+    # split: GSPMD replicates them
+    train(TRAIN_ARCHS[1], "replicated", replicated_batches, 2)
+    t0 = time.perf_counter()
+    ref_serve(mesh, arrays)
+    ref_forwards(mesh, meta)
+    print(f"lm_reference serving, forwards {time.perf_counter() - t0:.1f}s",
+          flush=True)
     np.savez(out / "lm_ref.npz", **arrays)
     (out / "lm_ref.json").write_text(json.dumps(meta))
+
+
+def ref_local_shapes(params, mesh) -> dict:
+    """Each parameter leaf's shape on one rank, from the reference's
+    ``param_logical`` and ``spec_for`` on the mesh: its "model" entry
+    divides the dim (the "data" entries, FSDP, are left whole, as the
+    port's placement leaves them)."""
+    from repro.launch import specs as jspecs
+    from repro.parallel import sharding as jshd
+    ctx = jshd.MeshContext(mesh, jshd.DEFAULT_RULES)
+    out = {}
+    for k, v in _flat(params).items():
+        spec = jshd.spec_for(v.shape, jspecs.param_logical(
+            tuple(k.split("/")), v.ndim), ctx)
+        out[k] = [n // COLS if e == "model" or (isinstance(e, tuple)
+                                                  and "model" in e) else n
+                  for n, e in zip(v.shape, spec)]
+    return out
+
+
+def ref_serve(mesh, arrays):
+    """Prefill of ``SERVE_B`` x ``SERVE_PROMPT`` tokens, then
+    ``SERVE_STEPS`` greedy decode steps, each jitted with
+    ``step_and_shardings``' in and out shardings on the mesh (f32 cache
+    of ``SERVE_LEN`` positions); the logits of each call and the final
+    cache arrays."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs as jconfigs
+    from repro.launch import mesh as mesh_lib
+    from repro.launch import specs as jspecs
+    from repro.models import zoo as jzoo
+    from repro.parallel import sharding as jshd
+    from repro_torch import convert
+    ctx = jshd.MeshContext(mesh, jshd.DEFAULT_RULES)
+    for arch in SERVE_ARCHS:
+        _, state = port_init(arch)
+        jcfg = smoke_cfg(arch, jconfigs)
+        model = jzoo.build(jcfg)
+        params = jax.tree.map(jnp.asarray,
+                              convert.lm_params_to_numpy(state.params))
+        cache = model.init_cache(SERVE_B, SERVE_LEN, dtype=jnp.float32)
+        toks = jnp.asarray(serve_tokens(jcfg))
+        mesh_lib.activate(mesh)
+        try:
+            cell = jspecs.Cell(arch, "prefill", jcfg, model, "prefill",
+                               SERVE_PROMPT, SERVE_B)
+            step, in_sh, out_sh, _ = jspecs.step_and_shardings(
+                cell, ctx, (params, toks, cache))
+            logits, cache = jax.jit(step, in_shardings=in_sh,
+                                    out_shardings=out_sh)(params, toks, cache)
+            got = [np.asarray(logits)]
+            cell = dataclasses.replace(cell, kind="decode")
+            nxt = jnp.argmax(logits[:, -1], axis=-1).astype(
+                jnp.int32)[:, None]
+            step, in_sh, out_sh, _ = jspecs.step_and_shardings(
+                cell, ctx, (params, cache, nxt))
+            decode = jax.jit(step, in_shardings=in_sh, out_shardings=out_sh)
+            for _ in range(SERVE_STEPS):
+                nxt, logits, cache = decode(params, cache, nxt)
+                got.append(np.asarray(logits))
+        finally:
+            jshd.set_context(None)
+        arrays[f"serve/{arch}/logits"] = np.stack(got)
+        for k in ("k", "v"):
+            arrays[f"serve/{arch}/cache/{k}"] = np.asarray(cache[k])
+        arrays[f"serve/{arch}/last"] = np.asarray(nxt)
+
+
+def ref_forwards(mesh, meta):
+    """``cross_entropy_loss`` of one forward of each ``FORWARD_ARCHS``
+    smoke config (f32), jitted under the mesh's sharding context."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs as jconfigs
+    from repro.launch import mesh as mesh_lib
+    from repro.models import zoo as jzoo
+    from repro.parallel import sharding as jshd
+    from repro.train import steps as jsteps
+    from repro_torch import convert
+    for arch in FORWARD_ARCHS:
+        _, state = port_init(arch)
+        jcfg = smoke_cfg(arch, jconfigs)
+        model = jzoo.build(jcfg)
+        params = jax.tree.map(jnp.asarray,
+                              convert.lm_params_to_numpy(state.params))
+        batch = {k: jnp.asarray(v) for k, v in forward_batch(jcfg).items()}
+
+        def loss(params, batch, model=model):
+            logits, _ = model.forward(params, batch["inputs"],
+                                      memory=batch.get("memory"))
+            return jsteps.cross_entropy_loss(logits, batch["targets"])
+
+        mesh_lib.activate(mesh)
+        try:
+            meta[f"forward/{arch}"] = float(jax.jit(loss)(params, batch))
+        finally:
+            jshd.set_context(None)
 
 
 def _expected_local(full, placements, coords, sizes):
@@ -495,9 +655,13 @@ def lm_port(mesh, rank, out: pathlib.Path):
     """One rank of the port on the (4, 2) ("data", "model") mesh: its rows
     of the MoE input through ``moe_mlp_sharded`` (and its gradients, the
     parameters' averaged over "data"), the train steps on the global
-    batches, the same dense run with ``overlap``, an MoE step whose
-    microbatch does not divide "data" against the meshless step, and rank
-    0's checkpoint restored onto ``state_shardings`` placements."""
+    batches (tensor-parallel over "model": each rank's parameters are its
+    "model" slices, gathered for the comparison), the same dense run with
+    ``overlap``, an MoE step whose microbatch does not divide "data"
+    (``replicated_batches``), the dense run's checkpoint (gathered over
+    "model", written by rank 0) restored onto ``state_shardings``
+    placements and meshless, the serve steps and forwards of
+    ``lm_port_serving``, and ``lm_port_restart``."""
     import copy
 
     import torch
@@ -510,7 +674,8 @@ def lm_port(mesh, rank, out: pathlib.Path):
     from repro_torch.optim import AdamWConfig
     from repro_torch.parallel import sharding
     from repro_torch.train import make_train_step
-    arrays, meta = {}, {"rank": rank}
+    arrays, meta = {}, {"rank": rank, "model_rank":
+                        mesh.get_local_rank("model")}
     data_group = mesh.get_group("data")
     row = mesh.get_local_rank("data")
 
@@ -558,41 +723,48 @@ def lm_port(mesh, rank, out: pathlib.Path):
                                     for k, v in batch.items()})
             recs.append({k: float(v) for k, v in m.items()})
         meta[arch] = recs
-        params = convert.lm_params_to_numpy(state.params)
-        flat = _flat(params)
-        meta[f"{arch}/checksum"] = float(sum(np.float64(v).sum()
-                                             for v in flat.values()))
+        local = list(state.params.parameters())
+        meta[f"{arch}/checksum"] = float(sum(
+            np.float64(p.detach().numpy()).sum() for p in local))
+        shapes = {}
+        for (path, layer_i), p in zip(convert.leaf_paths(state.params),
+                                      local):
+            n = convert.stack_length(cfg, path)
+            shapes[path] = ([n] if layer_i >= 0 else []) + list(p.shape)
+        meta[f"{arch}/local_shapes"] = shapes
+        flat = _flat(convert.lm_params_to_numpy(state.params, mesh))
         for k, v in flat.items():
             arrays[f"train/{arch}/{k}"] = v
         if arch == TRAIN_ARCHS[0]:
             dense = state
 
     # a microbatch of 3 rows does not divide the 4 "data" ranks: every
-    # rank takes it whole (replicated), the MoE runs moe_mlp, and the step
-    # equals the meshless one
+    # rank takes it whole (replicated), still partitioned over "model"
     cfg, state = port_init(TRAIN_ARCHS[1])
-    alone = copy.deepcopy(state)
-    batch = {k: torch.from_numpy(v[:2 * REPLICATED_MB])
-             for k, v in train_batches(cfg)[0].items()}
-    for st, m in ((state, mesh), (alone, None)):
-        make_train_step(zoo.build(cfg), AdamWConfig(**TRAIN_OPT),
-                        accum_steps=2, mesh=m)(st, batch)
-    meta["replicated_max_abs_diff"] = max(
-        float((a.detach() - b.detach()).abs().max()) for a, b in
-        zip(state.params.parameters(), alone.params.parameters()))
+    step = make_train_step(zoo.build(cfg), AdamWConfig(**TRAIN_OPT),
+                           accum_steps=2, mesh=mesh)
+    meta["replicated"] = []
+    for batch in replicated_batches(cfg):
+        state, m = step(state, {k: torch.from_numpy(v)
+                                for k, v in batch.items()})
+        meta["replicated"].append({k: float(v) for k, v in m.items()})
+    for k, v in _flat(convert.lm_params_to_numpy(state.params, mesh)).items():
+        arrays[f"train/replicated/{k}"] = v
 
-    # rank 0 saves the dense run's state; every rank restores it sharded
+    # the dense run's state, gathered over "model" by data row 0 and
+    # written by rank 0; every rank restores it sharded and meshless
     ckpt = out / "ckpt"
-    if rank == 0:
-        CheckpointManager(ckpt).save(dense, TRAIN_STEPS)
+    whole = specs.gather_model_state(dense, mesh)
+    if row == 0:
+        CheckpointManager(ckpt, mesh=mesh).save(dense, TRAIN_STEPS)
     dist.barrier()
-    shardings = specs.state_shardings(dense, ctx)
+    shardings = specs.state_shardings(whole, ctx)
     restored, manifest = CheckpointManager(ckpt).restore(
-        dense, device="cpu", shardings=shardings)
+        whole, device="cpu", shardings=shardings)
     coords = mesh.get_coordinate()
     sizes = tuple(mesh.shape)
-    saved = ([p.detach() for p in dense.params.parameters()]
-             + list(dense.opt["m"]) + list(dense.opt["v"]))
+    saved = ([p.detach() for p in whole.params.parameters()]
+             + list(whole.opt["m"]) + list(whole.opt["v"]))
     got = (list(restored.params.parameters()) + list(restored.opt["m"])
            + list(restored.opt["v"]))
     placed = (list(shardings.params) + list(shardings.opt["m"])
@@ -605,14 +777,119 @@ def lm_port(mesh, rank, out: pathlib.Path):
         local_ok &= torch.equal(dt.to_local(), _expected_local(
             want, placements, coords, sizes))
         whole_ok &= torch.equal(dt.full_tensor(), want)
+    meshless, _ = CheckpointManager(ckpt).restore(whole, device="cpu")
+    back = ([p.detach() for p in meshless.params.parameters()]
+            + list(meshless.opt["m"]) + list(meshless.opt["v"]))
     meta["restore"] = {
         "step": manifest["step"], "leaves": len(got),
         "sharded": int(n_sharded), "local_equal": bool(local_ok),
         "full_equal": bool(whole_ok),
+        "meshless_equal": all(torch.equal(a, b) for a, b in
+                              zip(back, saved)),
         "steps_replicated": [restored.step.full_tensor().item(),
                              restored.opt["step"].full_tensor().item()]}
+    lm_port_serving(mesh, arrays, meta)
+    meta["restart"] = lm_port_restart(mesh, out)
     np.savez(out / f"lm_port_{rank}.npz", **arrays)
     (out / f"lm_port_{rank}.json").write_text(json.dumps(meta))
+
+
+def lm_port_serving(mesh, arrays, meta):
+    """Tensor-parallel serving and forwards: the ``SERVE_ARCHS`` smoke
+    configs' prefill and greedy decode steps on placed parameters and a
+    cache of the rank's KV heads (logits and caches gathered over
+    "model"), and one forward loss of each ``FORWARD_ARCHS`` config on
+    the whole batch (every rank), under the mesh's sharding context."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.models import zoo
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel import tensor_parallel as tpl
+    from repro_torch.train.steps import (cross_entropy_loss,
+                                         make_decode_step, make_prefill_step)
+
+    def placed(arch):
+        """The seeded parameters as the reference's tree, carried onto
+        this rank's "model" slices."""
+        cfg, state = port_init(arch)
+        return cfg, zoo.build(cfg), convert.lm_params_from_numpy(
+            convert.lm_params_to_numpy(state.params), cfg, device="cpu",
+            mesh=mesh)
+
+    sharding.set_context(mesh)
+    try:
+        tp = tpl.active()
+        for arch in SERVE_ARCHS:
+            cfg, model, params = placed(arch)
+            cache = model.init_cache(SERVE_B, SERVE_LEN, dtype=torch.float32,
+                                     device="cpu")
+            meta[f"serve/{arch}/cache_heads"] = cache["k"].shape[3]
+            logits, cache = make_prefill_step(model)(
+                params, torch.from_numpy(serve_tokens(cfg)), cache)
+            got = [logits]
+            decode = make_decode_step(model)
+            nxt = tpl.argmax(logits[:, -1], cfg.vocab_size, tp).to(
+                torch.int32)[:, None]
+            for _ in range(SERVE_STEPS):
+                nxt, logits, cache = decode(params, cache, nxt)
+                got.append(logits)
+            arrays[f"serve/{arch}/logits"] = torch.stack([
+                tpl.all_gather(lg, 2, tp) for lg in got]).numpy()
+            for k in ("k", "v"):
+                c = cache[k]
+                if c.shape[3] != cfg.n_kv_heads:
+                    c = tpl.all_gather(c, 3, tp)
+                arrays[f"serve/{arch}/cache/{k}"] = c.numpy()
+            arrays[f"serve/{arch}/last"] = nxt.numpy()
+        with torch.no_grad():
+            for arch in FORWARD_ARCHS:
+                cfg, model, params = placed(arch)
+                batch = {k: torch.from_numpy(v)
+                         for k, v in forward_batch(cfg).items()}
+                logits, _ = model.forward(params, batch["inputs"],
+                                          memory=batch.get("memory"))
+                if tp.splits("vocab", cfg.vocab_size):
+                    loss = tpl.cross_entropy(logits, batch["targets"],
+                                             cfg.vocab_size, tp)
+                else:
+                    loss = cross_entropy_loss(logits, batch["targets"])
+                meta[f"forward/{arch}"] = float(loss)
+    finally:
+        sharding.set_context(None)
+
+
+def lm_port_restart(mesh, out: pathlib.Path) -> dict:
+    """``launch.train.train`` on the mesh, failing at step
+    ``RESTART["fail_at"]`` after a checkpoint a step, then resumed, beside
+    an uninterrupted run: whether their parameters, gathered over
+    "model", are equal."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch import specs
+    from repro_torch.launch.train import train
+    from repro_torch.models import zoo
+    model = zoo.build(smoke_cfg(TRAIN_ARCHS[0], configs))
+    kw = dict(steps=RESTART["steps"], batch=RESTART["batch"],
+              seq=RESTART["seq"], device="cpu", mesh=mesh, log=lambda _: None)
+    ckpt = out / "restart_ckpt"
+    failed = False
+    try:
+        train(model, ckpt_dir=str(ckpt), ckpt_every=1,
+              fail_at=RESTART["fail_at"], **kw)
+    except RuntimeError:
+        failed = True
+    resumed = train(model, ckpt_dir=str(ckpt), ckpt_every=1, **kw)
+    straight = train(model, **kw)
+    dist.barrier()
+    a, b = (specs.gather_model_state(r["state"], mesh)
+            for r in (resumed, straight))
+    return {"failed": failed, "start": resumed["start"],
+            "end": resumed["end"],
+            "equal": all(torch.equal(x, y) for x, y in zip(
+                a.params.parameters(), b.params.parameters()))}
 
 
 # --------------------------------------------------------------------------
