@@ -201,7 +201,24 @@ result line):
      teacher-forced meshless ``forward`` of the gathered parameters.  The
      seconds are gloo's through the host on one card, not a
      tensor-parallel speed;
- 15. dryrun — the dry-run (``repro_torch.launch.dryrun``) on this
+ 15. fsdp — FSDP over "data" on the one card.  FS1: T1 cut to
+     ``FSDP_LAYERS`` layers (qwen2-1.5b's full width; gloo moves every
+     gather through the host) in two processes on card 0 over gloo on a
+     (2, 1) ("data", "model") mesh, ``FSDP_TRAIN_STEPS`` steps through
+     ``launch.train`` from T1's seed and data: each rank holds half of
+     every data-split parameter and both its moments (the state's bytes
+     checked exactly), gathers a block's weights as the block runs and
+     reduce-scatters their gradients; each step's loss and gradient norm
+     against the meshless run of the same config within
+     ``FSDP_TRAIN_TOL``, the flash counters read after every step, the
+     step's gathers and reduce-scatters (calls and bytes) and the
+     collectives' bytes through the host printed.  FS2: S1 served
+     meshless with ``serve_bf16``'s parameters (bf16 once, no f32
+     masters), its logits and greedy tokens held to S1's ``SERVE_TOL``
+     against a teacher-forced ``forward`` of S1's f32 parameters, its
+     prefill seconds and decode tok/s beside S1's.  The seconds are
+     gloo's through the host on one card, not an FSDP speed;
+ 16. dryrun — the dry-run (``repro_torch.launch.dryrun``) on this
      machine's CPU in a process of its own, CUDA hidden: T1's train step
      and S1's prefill as cells on a world of one rank (``estimate``, the
      function ``run_cell`` runs a cell with), while the same step and
@@ -213,7 +230,7 @@ result line):
      memory term the HBM floor) is no more than T1's warm step and S1's
      warm prefill.  Then qwen2-1.5b x
      train_4k on the fake (16, 16) world, its summary printed;
- 16. the flash forward and backward at S1's, T1's microbatch and S2's
+ 17. the flash forward and backward at S1's, T1's microbatch and S2's
      shapes against their plain versions, their bounds and
      ``scaled_dot_product_attention`` (its backward alone on a retained
      graph).  Prints one ``kernels`` JSON line with all twelve kernels
@@ -221,8 +238,8 @@ result line):
      ``kernel_ms_missing`` saying why); the join kernels' launches are
      the main path's (the stream deltas' are in the ``[stream]`` lines),
      the flash kernels' those of serving, training, L2, TP1 and TP2
-     (both ranks);
- 17. the last line: ``{"ok": true, "device": {...}}``.
+     (both ranks), FS1 (both ranks) and FS2;
+ 18. the last line: ``{"ok": true, "device": {...}}``.
 
 Join sizes are cut from the paper's (Fig 4: N = 2e8
 friends edges, a 1e9-row fact table) to N = 4e6 edges over 14,000 users
@@ -3827,7 +3844,7 @@ def tp_rank(rank, port, seed):
         cfg = configs.get(arch)
         model = zoo.build(cfg)
         params = model.init(torch.Generator(device="cuda").manual_seed(seed))
-        specs.place_model(params, mesh)
+        specs.place(params, mesh)
         prompts = np.random.default_rng(seed).integers(
             0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
         for v in heads.values():
@@ -3873,7 +3890,7 @@ def tp_rank(rank, port, seed):
                "decode_collectives_a_step": {
                    k: (colls[k] - prefill_colls[k]) / gen for k in colls},
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-        whole = specs.gather_model_state(params, mesh)
+        whole = specs.gather_state(params, mesh)
         del params
         if rank == 0:
             wave = {"prompts": prompts,
@@ -3972,7 +3989,268 @@ def tp_phase(torch, seed, t1, s1):
 
 
 # --------------------------------------------------------------------------
-# phase 15: the dry-run's estimates against the card
+# phase 15: FSDP over "data" (two processes on the one card) and serve_bf16
+# --------------------------------------------------------------------------
+
+FSDP_WORLD = 2
+FSDP_LAYERS = 4                    # T1's depth cut: gloo's host gathers
+FSDP_TRAIN_STEPS = 2
+FSDP_TIMEOUT_S = 600
+# FS1 against the meshless run of the same config, seed and data.  Over
+# "data" the weights are gathered exactly (f32) and each rank computes its
+# rows: what differs is the rows' bf16 GEMMs at half the batch and the
+# gradient's sum over the ranks.  tools/tp_rehearsal.py --axis data (CPU,
+# smoke width, bf16, seeds 0-2, 2 steps) read the sound run at 4.12e-5
+# (loss) and 9.14e-5 (gradient norm) relative, and the gather's backward
+# planted as this rank's slice (no sum over "data") at 2.68e-5 and 0.286.
+# On the H100 (tools/tp_rehearsal.py --full --axis data --layers 4, T1's
+# width) the sound run read 5.82e-6 / 8.53e-6 and the planted slice
+# 3.93e-5 / 0.289.  Each limit sits between the card's two readings:
+# ~3.4x and ~12x above the sound ones, ~2x and ~2,900x below the fault.
+FSDP_TRAIN_TOL = {"loss_rel": 2e-5, "grad_norm_rel": 1e-4}
+FSDP_NOTE = "gloo through the host, one card: not an FSDP speed"
+
+
+def _state_bytes(state):
+    """Bytes of a train state's parameters and moments as held."""
+    ts = (list(state.params.parameters()) + list(state.opt["m"])
+          + list(state.opt["v"]))
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _fsdp_expected_bytes(model, mesh):
+    """Half of the data-split tensors' bytes and the whole of the rest
+    (parameter and both moments, f32), from the whole model's shapes on
+    the meta device and the placement's data dims."""
+    from repro_torch.launch import specs
+    from repro_torch.parallel import sharding
+    whole = specs.abstract_state(model)
+    dims = specs.split_dims(whole.params, sharding.MeshContext(
+        mesh, sharding.DEFAULT_RULES), "data")
+    total = 0
+    for p, d in zip(whole.params.parameters(), dims):
+        total += 3 * 4 * (p.numel() // (FSDP_WORLD if d is not None else 1))
+    return total, sum(d is not None for d in dims)
+
+
+def fsdp_rank(rank, port, seed):
+    """One rank of the (2, 1) mesh: FS1 (see the phase); rank 0 also runs
+    the meshless FS1 after it."""
+    import dataclasses
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import configs
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import specs
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import zoo
+    from repro_torch.parallel import fsdp
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=FSDP_WORLD,
+        timeout=datetime.timedelta(seconds=FSDP_TIMEOUT_S))
+    out = {"rank": rank}
+    try:
+        mesh = init_device_mesh("cuda", (FSDP_WORLD, 1),
+                                mesh_dim_names=("data", "model"))
+        colls = _tp_collectives(dist)
+        label, arch, batch, seq, _steps, over = TRAIN[0]
+        cfg = dataclasses.replace(configs.get(arch), n_layers=FSDP_LAYERS,
+                                  **over)
+        model = zoo.build(cfg)
+        per_step = {k: v * cfg.accum_steps
+                    for k, v in train_flash_passes(cfg).items()}
+        snaps = []
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launch_counts()
+        colls.update(count=0, bytes=0)
+        fsdp.reset_counts()
+        kw = dict(steps=FSDP_TRAIN_STEPS, batch=batch, seq=seq, seed=seed,
+                  device="cuda", log_every=1)
+        run = train_lib.train(
+            model, mesh=mesh,
+            log=lambda m: log(f"[fsdp] FS1 rank {rank} {m}"),
+            metrics_cb=lambda *_: snaps.append(
+                {**{k: cuda.LAUNCHES[k] for k in per_step},
+                 "host_collectives": colls["count"],
+                 "host_bytes": colls["bytes"],
+                 **{f"{k}_calls": v[0] for k, v in fsdp.COUNTS.items()},
+                 **{f"{k}_bytes": v[1] for k, v in fsdp.COUNTS.items()}}),
+            **kw)
+        keys = list(snaps[0])
+        zero = dict.fromkeys(keys, 0)
+        steps = [{k: b[k] - a[k] for k in keys}
+                 for a, b in zip([zero] + snaps, snaps)]
+        want_bytes, n_split = _fsdp_expected_bytes(model, mesh)
+        out["fs1"] = {
+            "loss": [r["loss"] for r in run["records"]],
+            "grad_norm": [r["grad_norm"] for r in run["records"]],
+            "step_s": [r["step_s"] for r in run["records"]],
+            "per_step": steps, "flash_per_step": per_step,
+            "flash_launches": {k: cuda.LAUNCHES[k] for k in per_step},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "state_bytes": _state_bytes(run["state"]),
+            "expected_state_bytes": want_bytes,
+            "data_split_tensors": n_split,
+            "data_split": "data" in (specs.placement(run["state"]) or {})}
+        del run
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            one = train_lib.train(model, log=lambda _: None, **kw)
+            out["meshless"] = {
+                "loss": [r["loss"] for r in one["records"]],
+                "grad_norm": [r["grad_norm"] for r in one["records"]],
+                "step_s": [r["step_s"] for r in one["records"]],
+                "state_bytes": _state_bytes(one["state"])}
+            del one
+            torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _fsdp_worker(rank, port, seed, out_dir):
+    out = fsdp_rank(rank, port, seed)
+    (pathlib.Path(out_dir) / f"fsdp_{rank}.json").write_text(json.dumps(out))
+
+
+def fs1_phase(torch, seed):
+    """FS1 in two spawned processes on card 0; each rank's steps against
+    the meshless run's, its state bytes against the placement's."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_fsdp_worker, nprocs=FSDP_WORLD,
+                           args=(free_port(), seed, tmp),
+                           start_method="spawn")
+        outs = [json.loads((pathlib.Path(tmp) / f"fsdp_{r}.json")
+                           .read_text()) for r in range(FSDP_WORLD)]
+    one = outs[0]["meshless"]
+    rows, launches = [], {"flash_fwd": 0, "flash_bwd": 0}
+    for out in outs:
+        a = out["fs1"]
+        diffs = {"loss_rel": max(abs(x - w) / abs(w) for x, w in
+                                 zip(a["loss"], one["loss"])),
+                 "grad_norm_rel": max(abs(x - w) / abs(w) for x, w in
+                                      zip(a["grad_norm"],
+                                          one["grad_norm"]))}
+        row = {"fsdp": "FS1", "rank": out["rank"], "train": "T1",
+               "layers": FSDP_LAYERS, "mesh": {"data": FSDP_WORLD,
+                                               "model": 1},
+               "steps": FSDP_TRAIN_STEPS, "loss": a["loss"],
+               "grad_norm": a["grad_norm"], "meshless_loss": one["loss"],
+               "meshless_grad_norm": one["grad_norm"],
+               "max_rel_diff": diffs, "tol": FSDP_TRAIN_TOL,
+               "step_s": a["step_s"], "meshless_step_s": one["step_s"],
+               "per_step": a["per_step"],
+               "flash_launches_per_step": a["flash_per_step"],
+               "flash_launches": a["flash_launches"],
+               "state_bytes": a["state_bytes"],
+               "expected_state_bytes": a["expected_state_bytes"],
+               "meshless_state_bytes": one["state_bytes"],
+               "data_split_tensors": a["data_split_tensors"],
+               "peak_gib": a["peak_gib"], "note": FSDP_NOTE}
+        log(f"[fsdp] {json.dumps(row)}")
+        rows.append(row)
+        got = [{k: s[k] for k in a["flash_per_step"]} for s in a["per_step"]]
+        if got != [a["flash_per_step"]] * FSDP_TRAIN_STEPS:
+            fail(f"FS1 rank {out['rank']}: flash launches per step {got}, "
+                 f"expected {a['flash_per_step']}")
+        if not a["data_split"] or a["state_bytes"] \
+                != a["expected_state_bytes"]:
+            fail(f"FS1 rank {out['rank']}: state of {a['state_bytes']} B, "
+                 f"expected {a['expected_state_bytes']} (half of the "
+                 "data-split tensors' bytes and the whole of the rest)")
+        if not all(s["all_gather_calls"] and s["reduce_scatter_calls"]
+                   for s in a["per_step"]):
+            fail(f"FS1 rank {out['rank']}: a step without gathers or "
+                 f"reduce-scatters over \"data\": {a['per_step']}")
+        if any(diffs[k] > FSDP_TRAIN_TOL[k] for k in diffs):
+            fail(f"FS1 rank {out['rank']}: the FSDP steps differ from the "
+                 f"meshless run's: {json.dumps(diffs)}")
+        for k in launches:
+            launches[k] += a["flash_launches"][k]
+    return rows, launches
+
+
+def fs2_phase(torch, seed, s1):
+    """FS2: S1 served with ``serve_bf16``'s parameters (bf16 once, no f32
+    masters) meshless on the card; its logits held to S1's limits against
+    a teacher-forced ``forward`` of S1's f32 parameters, the greedy tokens
+    checked there; prefill s and decode tok/s beside S1's."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import serve, specs
+    from repro_torch.models import zoo
+    label, arch, batch, prompt, gen, requests, _layers = SERVE[0]
+    cfg = configs.get(arch)
+    model = zoo.build(cfg)
+    torch.cuda.empty_cache()
+    f32 = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    params = specs.serve_bf16_params(copy.deepcopy(f32))
+    dtypes = sorted({str(p.dtype) for p in params.parameters()})
+    if dtypes != ["torch.bfloat16"]:
+        fail(f"FS2: serve_bf16 parameters of {dtypes}")
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launch_counts()
+    waves = serve.serve(model, params, batch=batch, prompt_len=prompt,
+                        gen=gen, requests=requests, seed=seed,
+                        device="cuda", keep_rows=CHECK_ROWS,
+                        log=lambda m: log(f"[fsdp] FS2 {m}"))
+    served = cuda.LAUNCHES["flash_fwd"]
+    check = teacher_forced_check(torch, model, f32, waves[-1], prompt, gen,
+                                 "FS2")
+    pre = [w["prefill_s"] for w in waves]
+    dec = [w["decode_s"] for w in waves]
+    row = {"fsdp": "FS2", "serve": label, "arch": arch,
+           "weights": "serve_bf16 (bf16, cast once)",
+           "weight_bytes": sum(p.numel() * p.element_size()
+                               for p in params.parameters()),
+           "s1_weight_bytes": sum(p.numel() * p.element_size()
+                                  for p in f32.parameters()),
+           "prefill_s": pre, "decode_tok_s": [batch * gen / t for t in dec],
+           "s1_prefill_s": s1["prefill_s"],
+           "s1_decode_tok_s": s1["decode_tok_s"],
+           "flash_launches": cuda.LAUNCHES["flash_fwd"],
+           "flash_launches_serving": served,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "check_against": "forward of S1's f32 parameters", **check}
+    log(f"[fsdp] {json.dumps(row)}")
+    want = serve_flash_passes(cfg)[0] * (len(waves) + 1)
+    if row["flash_launches"] != want:
+        fail(f"FS2: flash_fwd launched {row['flash_launches']} times, "
+             f"expected {want}")
+    launches = row["flash_launches"]
+    del params, f32, waves
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def fsdp_phase(torch, seed, s1):
+    """FS1 and FS2 (phase 15).  Returns the rows and the flash launches."""
+    t0 = time.perf_counter()
+    rows, launches = fs1_phase(torch, seed)
+    fs2, fs2_launches = fs2_phase(torch, seed, s1)
+    rows.append(fs2)
+    launches["flash_fwd"] += fs2_launches
+    log(f"[fsdp] phase took {time.perf_counter() - t0:.1f}s")
+    return rows, launches
+
+
+# --------------------------------------------------------------------------
+# phase 16: the dry-run's estimates against the card
 # --------------------------------------------------------------------------
 
 # The dry-run (launch/dryrun.py, fake CPU tensors, a world of one rank) at
@@ -4328,20 +4606,18 @@ def main() -> int:
     restart = restart_phase(torch, args.seed)
     lm_rows, lm_launches = lm_mesh_phase(torch, args.seed, t_rows[0])
     tp_rows, tp_launches = tp_phase(torch, args.seed, t_rows[0], s_rows[0])
+    fs_rows, fs_launches = fsdp_phase(torch, args.seed, s_rows[0])
     dr_rows = dryrun_phase(torch, args.seed, s_rows[0], t_rows[0])
     lines += flash_kernel_phase(
-        torch, errs, {"flash_fwd": s_launches["flash_fwd"]
-                      + t_launches["flash_fwd"] + lm_launches["flash_fwd"]
-                      + tp_launches["flash_fwd"],
-                      "flash_bwd": t_launches["flash_bwd"]
-                      + lm_launches["flash_bwd"]
-                      + tp_launches["flash_bwd"]}, args.seed)
+        torch, errs, {k: s_launches.get(k, 0) + t_launches[k]
+                      + lm_launches[k] + tp_launches[k] + fs_launches[k]
+                      for k in ("flash_fwd", "flash_bwd")}, args.seed)
     log(json.dumps({"queries": rows, "baselines": b_rows, "radix": r_rows,
                     "stream": st_rows, "mesh": m_rows,
                     "mesh_launches": m_launches, "analytics": a_rows,
                     "serve": s_rows, "train": t_rows, "grad_check": grad,
                     "restart": restart, "lm_mesh": lm_rows,
-                    "tp": tp_rows, "dryrun": dr_rows}))
+                    "tp": tp_rows, "fsdp": fs_rows, "dryrun": dr_rows}))
     print(card, flush=True)
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,11 +11,13 @@ reserved ``shards`` field), plus a ``COMMITTED`` marker.  A port
 ``[L, ...]``), so a checkpoint of either package restores in the other.
 Writes go to a temporary directory that is renamed when complete; a
 checkpoint without its ``COMMITTED`` marker is ignored by restore.  Arrays
-are saved unsharded, on the host: a state placed over a mesh's "model"
-axis (``launch.specs.place_model``) is gathered over that axis first,
-every rank of the "model" group taking part, and the group's first rank
-writes the whole tensors (a checkpoint saved under tensor parallelism
-restores meshless, and the reverse); ``restore_pytree`` places them on
+are saved unsharded, on the host: a state placed over a mesh's "data"
+and "model" axes (``launch.specs.place``: FSDP and tensor parallelism)
+is gathered over both first, every rank of the groups taking part, and
+on a mesh only the rank at coordinate 0 on every axis writes the whole
+tensors (a
+checkpoint saved under FSDP restores meshless, and the reverse);
+``restore_pytree`` places them on
 ``device``, and with ``shardings`` (a matching tree of ``(mesh,
 placements)``, e.g. ``launch.specs.state_shardings``) distributes each
 leaf onto its mesh as a DTensor: a checkpoint restores onto any mesh,
@@ -46,7 +48,8 @@ def _is_train_state(x) -> bool:
 def _flatten(tree, prefix: str = "", mesh=None) -> dict:
     """``/``-joined path -> numpy array of a tree of mappings whose leaves
     are arrays or tensors; a port TrainState as the JAX package's
-    TrainState tree (gathered over ``mesh``'s "model" axis if placed)."""
+    TrainState tree (gathered over ``mesh``'s "data" and "model" axes if
+    placed)."""
     if _is_train_state(tree):
         from repro_torch import convert
         tree = convert.train_state_to_numpy(tree, mesh)
@@ -61,24 +64,28 @@ def _flatten(tree, prefix: str = "", mesh=None) -> dict:
 
 
 def _writes(tree, mesh) -> bool:
-    """Whether this rank writes ``tree``: a state placed over "model" is
-    written by the first rank of the "model" group, anything else by the
-    caller."""
-    if not (_is_train_state(tree)
-            and getattr(tree.params, "model_split", None) is not None):
+    """Whether this rank writes ``tree``: on a mesh (``mesh``, else the
+    sharding context's) a train state is written by the one rank at
+    coordinate 0 on every axis, whether it is placed or not and whatever
+    axes it is split over; anything else by the caller."""
+    if not _is_train_state(tree):
         return True
     if mesh is None:
         from repro_torch.parallel.sharding import current_context
-        mesh = current_context().mesh
-    return mesh.get_local_rank("model") == 0
+        mesh = getattr(current_context(), "mesh", None)
+    if mesh is None:
+        return True
+    coords = mesh.get_coordinate()
+    return coords is not None and not any(coords)
 
 
 def save_pytree(tree, directory: str | os.PathLike, step: int,
                 extra_meta: dict | None = None, mesh=None) -> pathlib.Path:
     """Atomic checkpoint write; returns the committed directory.  A train
-    state placed over ``mesh``'s "model" axis (the sharding context's
-    mesh by default) is gathered first: every rank of the "model" group
-    calls this, and the group's first rank writes."""
+    state placed over ``mesh``'s "data" and "model" axes (the sharding
+    context's mesh by default) is gathered first: every rank of those
+    groups calls this.  On a mesh only the rank at coordinate 0 on every
+    axis writes."""
     flat = _flatten(tree, mesh=mesh)
     root = pathlib.Path(directory)
     final = root / f"step_{step:08d}"
@@ -130,15 +137,17 @@ def _template_shapes(template) -> dict:
     if not _is_train_state(template):
         return {k: tuple(v.shape) for k, v in _flatten(template).items()}
     from repro_torch import convert
+    from repro_torch.launch import specs
     cfg = template.params.cfg
-    m, dims = getattr(template.params, "model_split", None) or (1, None)
+    split = specs.placement(template) or {}
     shapes = {}
     for i, ((path, layer), p) in enumerate(zip(
             convert.leaf_paths(template.params),
             template.params.parameters())):
         whole = list(p.shape)             # a placed slice's whole shape
-        if dims is not None and dims[i] is not None:
-            whole[dims[i]] *= m
+        for n, dims in split.values():
+            if dims[i] is not None:
+                whole[dims[i]] *= n
         shape = ((convert.stack_length(cfg, path), *whole) if layer >= 0
                  else tuple(whole))
         for top in ("params", "opt/m", "opt/v"):
@@ -262,7 +271,7 @@ class CheckpointManager:
         self.dir = pathlib.Path(directory)
         self.every = every
         self.keep = keep
-        self.mesh = mesh          # gathers a state placed over "model"
+        self.mesh = mesh          # gathers a placed state
 
     def should_save(self, step: int) -> bool:
         return self.every > 0 and step > 0 and step % self.every == 0

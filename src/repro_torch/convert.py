@@ -153,18 +153,18 @@ def _stack_len(tree: Mapping, key: str, leaf: str, want: int,
 
 
 def _placed(obj, mesh):
-    """``obj`` placed onto this rank's "model" slices of ``mesh``
-    (``launch.specs.place_model``), or as it is without a mesh."""
+    """``obj`` placed onto this rank's "data" and "model" slices of
+    ``mesh`` (``launch.specs.place``), or as it is without a mesh."""
     if mesh is None:
         return obj
     from repro_torch.launch import specs
-    return specs.place_model(obj, mesh)
+    return specs.place(obj, mesh)
 
 
 def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None,
                          mesh=None):
-    """The model, placed onto this rank of ``mesh``'s "model" axis when
-    given one (``_lm_params_from_numpy`` says how it is built)."""
+    """The model, placed onto this rank of ``mesh`` ("data" and "model")
+    when given one (``_lm_params_from_numpy`` says how it is built)."""
     return _placed(_lm_params_from_numpy(tree, cfg, device), mesh)
 
 
@@ -228,11 +228,10 @@ def _lm_params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None):
 def lm_params_to_numpy(params, mesh=None) -> dict:
     """The JAX package's parameter tree (numpy f32 leaves, per-layer
     leaves stacked ``[L, ...]`` under their stack's key, ``leaf_paths``)
-    of any of the port's models; a model placed over "model" is gathered
-    over ``mesh``'s "model" group first."""
-    if getattr(params, "model_split", None) is not None:
-        from repro_torch.launch import specs
-        params = specs.gather_model_state(params, mesh)
+    of any of the port's models; a placed model is gathered over
+    ``mesh``'s "data" and "model" groups first."""
+    from repro_torch.launch import specs
+    params = specs.gather_state(params, mesh)
     return _tree_of(leaf_paths(params), params.parameters())
 
 
@@ -315,12 +314,11 @@ def _leaf(tree: Mapping, path: str, layer: int):
 def train_state_to_numpy(state, mesh=None) -> dict:
     """The JAX package's ``TrainState`` tree of a port ``TrainState``:
     ``{"params": ..., "opt": {"m": ..., "v": ..., "step"}, "step"}`` with
-    numpy leaves (f32; the steps int32 scalars).  A state placed over
-    "model" is gathered over ``mesh``'s "model" group first (every rank
-    of the group calls this)."""
-    if getattr(state.params, "model_split", None) is not None:
-        from repro_torch.launch import specs
-        state = specs.gather_model_state(state, mesh)
+    numpy leaves (f32; the steps int32 scalars).  A placed state is
+    gathered over ``mesh``'s "data" and "model" groups first (every
+    rank of the groups calls this)."""
+    from repro_torch.launch import specs
+    state = specs.gather_state(state, mesh)
     paths = leaf_paths(state.params)
     step = np.asarray(int(state.step), np.int32)
     return {"params": lm_params_to_numpy(state.params),
@@ -335,8 +333,8 @@ def train_state_from_numpy(tree: Mapping, cfg: ModelConfig, device=None,
     """The port's ``TrainState`` from the JAX package's ``TrainState`` tree
     with numpy leaves (as ``train_state_to_numpy`` gives it, or as
     ``jax.tree.map(np.asarray, state._asdict())``); ``device=None`` means
-    the card.  With ``mesh``, placed onto this rank's "model" slices
-    (parameters and moments)."""
+    the card.  With ``mesh``, placed onto this rank's "data" and "model"
+    slices (parameters and moments)."""
     from repro_torch.train.steps import TrainState
     dev = resolve_device(device)
     params = lm_params_from_numpy(tree["params"], cfg, device=dev)

@@ -25,23 +25,32 @@ implementations hold no score matrix), so the cell reads as the card's.
 What runs, per kind, always partitioned over "model"
 (``parallel.tensor_parallel``: the rank's heads, GLU columns and
 vocabulary rows where ``spec_for`` splits them, the MoE's experts
-expert-parallel):
+expert-parallel) and FSDP over "data" (``parallel.fsdp``: every weight
+held as the rank's ``spec_for`` slice, its d_model dim split over
+"data" where it divides, gathered a block at a time as the block runs):
 
   * train   — ``make_train_step(..., mesh=)``: data-parallel over the
               batch axes, each rank taking its rows of every microbatch;
               every parameter and both AdamW moments held as the rank's
-              "model" slice (``specs.place_model``; the "data" entries,
-              FSDP, are not applied: ROADMAP Queue A item 5), one
-              ``all_reduce`` a gradient and batch axis.  A cell whose
-              state does not fit one card says so in ``fits_80gb``.
+              "data" and "model" slice (``specs.place``); a gradient
+              split over "data" is reduce-scattered over it in the
+              backward (and all-reduced over "pod"), the rest
+              all-reduced over each batch axis.  A cell whose state does
+              not fit one card says so in ``fits_80gb``.
   * prefill / decode — the serve steps under the mesh's sharding
               context: the rank runs its rows of the batch as
               ``batch_specs`` / ``cache_specs`` split the batch axes (all
-              of it where the batch does not split), on its "model"
-              slices of the parameters and a cache of its KV heads where
-              they split; the SSM state and conv window stay whole.
-              ``ran`` states the shapes that ran and, under
-              ``tensor_parallel``, which tensors split.
+              of it where the batch does not split), on its "data" and
+              "model" slices of the parameters (gathered over "data" a
+              block at a time, every step) and a cache of its KV heads
+              where they split; the SSM state and conv window stay
+              whole.  ``ran`` states the shapes that ran and, under
+              ``tensor_parallel`` and ``fsdp``, which tensors split.
+              ``--set serve_bf16=true`` is the JAX package's serving
+              deployment: rules ``p_embed -> ()`` (weights replicated
+              over "data", no per-step gather) and every f32 parameter
+              held as bf16 (``specs.serve_bf16_params``); a train cell
+              ignores it.
 
 Writes one JSON artifact per cell, the JAX package's keys:
   memory            argument / output / temp / alias bytes of the rank
@@ -64,8 +73,7 @@ step's one run; ``hbm_floor`` splits the floor (``step_stats``);
 
 The JAX package's ``seq_shard`` / ``seq_shard_rule`` overrides raise: the
 port's steps shard no sequence (sequence parallelism, ROADMAP Queue A
-item 6).  So does ``serve_bf16``: the port serves f32 weights, cast to
-bf16 a call (ROADMAP Queue A item 7).
+item 6).
 """
 
 from __future__ import annotations
@@ -161,14 +169,15 @@ def _shapes(args) -> dict:
 
 
 @contextlib.contextmanager
-def _rank_context(mesh, replicated: bool):
-    """The mesh's sharding context for the length of one step (a batch
-    that did not split marked replicated)."""
+def _rank_context(mesh, replicated: bool, rules=None):
+    """The mesh's sharding context (``rules``: the default ones unless
+    given) for the length of one step (a batch that did not split marked
+    replicated)."""
     from repro_torch.parallel import sharding
     if mesh is None:
         yield
         return
-    sharding.set_context(mesh)
+    sharding.set_context(mesh, rules)
     try:
         with (sharding.replicated_batch() if replicated
               else contextlib.nullcontext()):
@@ -177,35 +186,46 @@ def _rank_context(mesh, replicated: bool):
         sharding.set_context(None)
 
 
-def prepare(cell, mesh=None, *, seed: int = 0):
+def prepare(cell, mesh=None, *, seed: int = 0, serve_bf16: bool = False):
     """The step one rank of ``mesh`` runs for the cell, and its inputs
     (None: a world of one rank, the meshless step a single card runs);
     under a ``FakeTensorMode`` the inputs are fake.  The parameters (and
-    a train state's moments) are the rank's "model" slices.  Returns
-    (step, args, context, ran): run ``step(*args)`` inside ``context``,
-    the mesh's sharding context; ``ran`` states the shapes and the
-    tensors split over "model"."""
+    a train state's moments) are the rank's "data" and "model" slices;
+    with ``serve_bf16`` (prefill and decode only) bf16 and whole over
+    "data".  Returns (step, args, context, ran): run ``step(*args)``
+    inside ``context``, the mesh's sharding context; ``ran`` states the
+    shapes and the tensors split over "model" and "data"."""
     from repro_torch.parallel import sharding
     from repro_torch.parallel import tensor_parallel as tpl
+    serve_bf16 = serve_bf16 and cell.kind in ("prefill", "decode")
+    # the serving deployment's rules: weights replicated over "data"
+    rules = ({**sharding.DEFAULT_RULES, "p_embed": ()} if serve_bf16
+             else None)
     args = specs.cell_inputs(cell, seed)
+    if serve_bf16:
+        specs.serve_bf16_params(args[0])
     step = specs.cell_step(cell, mesh)
     rows, replicated = cell.global_batch, False
-    ran = {}
+    ran = {"serve_bf16": serve_bf16}
     if mesh is not None:
-        ctx = sharding.MeshContext(mesh, sharding.DEFAULT_RULES)
-        specs.place_model(args[0], mesh)
+        ctx = sharding.MeshContext(mesh, rules or sharding.DEFAULT_RULES)
+        specs.place(args[0], mesh, rules=rules)
         ran["tensor_parallel"] = tpl.plan(cell.cfg, ctx)
+        _, dims = (specs.placement(args[0]) or {}).get("data", (1, ()))
+        ran["fsdp"] = {"data": ctx.shape.get("data", 1),
+                       "split_tensors": sum(d is not None for d in dims)}
         if cell.kind != "train":
             rows = _rows_per_rank(cell, ctx)
             replicated = rows == cell.global_batch and mesh.size() > 1
-            with _rank_context(mesh, replicated):
+            with _rank_context(mesh, replicated, rules):
                 args = _rank_args(cell, args, rows)
     ran.update({"rows_per_rank": rows, "batch_replicated": replicated,
                 "inputs": _shapes(args)})
-    return step, args, _rank_context(mesh, replicated), ran
+    return step, args, _rank_context(mesh, replicated, rules), ran
 
 
-def estimate(cell, mesh=None, *, trace: bool = False, seed: int = 0):
+def estimate(cell, mesh=None, *, trace: bool = False, seed: int = 0,
+             serve_bf16: bool = False):
     """Runs the cell's step once on fake CPU tensors as one rank of
     ``mesh`` (``prepare``) and returns its estimates, the artifact's keys
     from ``memory`` to ``roofline`` plus ``ran``, ``collective_groups``
@@ -216,7 +236,8 @@ def estimate(cell, mesh=None, *, trace: bool = False, seed: int = 0):
     from repro_torch.kernels import flash_attention as fa
     n_chips = mesh.size() if mesh is not None else 1
     with FakeTensorMode():
-        step, args, context, ran = prepare(cell, mesh, seed=seed)
+        step, args, context, ran = prepare(cell, mesh, seed=seed,
+                                           serve_bf16=serve_bf16)
         stats = step_stats.StepStats(args, trace=trace)
         t0 = time.monotonic()
         with context, stats:
@@ -281,21 +302,20 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
     if overrides.pop("seq_shard_rule", None) or overrides.get("seq_shard"):
         raise ValueError("seq_shard: the port's steps shard no sequence "
                          "(sequence parallelism, ROADMAP Queue A item 6)")
-    if overrides.pop("serve_bf16", False):
-        raise ValueError("serve_bf16: the port serves f32 weights, cast to "
-                         "bf16 a call (ROADMAP Queue A item 7)")
+    serve_bf16 = bool(overrides.pop("serve_bf16", False))
     n_chips = math.prod(mesh_lib.PRODUCTION[multi_pod][0])
     with fake_world(n_chips):
         mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod,
                                              device="cpu")
         cell = specs.build_cell(arch, shape, overrides=overrides or None)
-        est, _ = estimate(cell, mesh)
+        est, _ = estimate(cell, mesh, serve_bf16=serve_bf16)
     run_s = est.pop("run_s")
     art = {
         "arch": arch, "shape": shape, "kind": cell.kind,
         "mesh": ("pod2x16x16" if multi_pod else "16x16"),
         "n_chips": n_chips,
-        "overrides": {k: v for k, v in (overrides or {}).items()},
+        "overrides": {**overrides,
+                      **({"serve_bf16": True} if serve_bf16 else {})},
         "ok": True,
         "lower_s": round(time.monotonic() - t0 - run_s, 2),
         "compile_s": round(run_s, 2),

@@ -31,6 +31,7 @@ and outputs.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any
 
@@ -120,23 +121,25 @@ def state_specs(state, ctx: MeshContext):
 
 
 # --------------------------------------------------------------------------
-# tensor parallelism: each rank's "model" slices of a state
+# placement: each rank's "data" and "model" slices of a state
 # --------------------------------------------------------------------------
+
+AXES = ("data", "model")       # the axes parameter specs put tensors on
+
 
 def _axes(entry) -> tuple[str, ...]:
     return () if entry is None else (
         (entry,) if isinstance(entry, str) else tuple(entry))
 
 
-def model_dims(params, ctx: MeshContext) -> list:
+def split_dims(params, ctx: MeshContext, axis: str) -> list:
     """For each tensor of ``params.parameters()`` (whole, not yet
-    placed): the dim its ``param_specs`` entry puts on "model", or None
-    (whole on every model rank)."""
-    out = []
-    for spec in param_specs(params, ctx):
-        out.append(next((d for d, e in enumerate(spec)
-                         if "model" in _axes(e)), None))
-    return out
+    placed): the dim its ``param_specs`` entry puts on ``axis``, or None
+    (whole over that axis, also where the axis has size 1)."""
+    if ctx.shape.get(axis, 1) == 1:
+        return [None] * len(list(params.parameters()))
+    return [next((d for d, e in enumerate(spec) if axis in _axes(e)), None)
+            for spec in param_specs(params, ctx)]
 
 
 def local_slice(t: torch.Tensor, spec, mesh, coords=None) -> torch.Tensor:
@@ -154,110 +157,141 @@ def local_slice(t: torch.Tensor, spec, mesh, coords=None) -> torch.Tensor:
     return t.clone()
 
 
-def _model_only(dim, ndim: int) -> tuple:
-    return tuple("model" if d == dim else None for d in range(ndim))
-
-
-def _model_coords(mesh, model_rank):
-    """Coordinates with every axis but "model" at 0 (a "model"-only spec
-    ignores them) and "model" at ``model_rank`` (the rank's own by
-    default)."""
-    names = list(mesh.mesh_dim_names)
-    if model_rank is None:
-        model_rank = mesh.get_local_rank("model")
-    return [model_rank if a == "model" else 0 for a in names]
-
-
 def _split_of(obj):
     from repro_torch.train.steps import TrainState
     st = obj if isinstance(obj, TrainState) else None
     return st, (st.params if st is not None else obj)
 
 
-def place_model(obj, mesh, model_rank: int | None = None):
+def _spec(dims: dict, ndim: int) -> tuple:
+    """A spec with ``axis`` on dim ``d`` for each (axis, d) of ``dims``."""
+    return tuple(next((a for a, d in dims.items() if d == i), None)
+                 for i in range(ndim))
+
+
+def place(obj, mesh, coords=None, rules=None):
     """A whole model (``nn.Module``) or ``TrainState``, placed in place
-    onto this rank of ``mesh``'s "model" axis: each parameter, and both
-    AdamW moments of a train state, becomes its ``model_dims`` slice
-    (``local_slice`` of its spec's "model" entry; the "data" entries,
-    FSDP, are not applied).  The module records ``model_split = (m,
-    dims)``; a module that has one, a mesh whose "model" has size 1, or
-    a model none of whose tensors splits is left as it is.
-    ``model_rank`` places for another coordinate (an ``AbstractMesh`` has
-    none of its own).  Returns ``obj``."""
+    onto one rank of ``mesh``: each parameter, and both AdamW moments of
+    a train state, becomes its ``local_slice`` under its ``param_specs``
+    "model" and "data" entries (``rules``: ``DEFAULT_RULES`` by default;
+    an axis of size 1 splits nothing).  The module records
+    ``model_split = (m, dims)`` and ``data_split = (n, dims)`` where
+    something splits over that axis, and each submodule owning a tensor
+    split over "data" ``data_dims = {name: dim}`` (``parallel.fsdp``
+    gathers by it).  A module already placed, or none of whose tensors
+    splits, is left as it is.  ``coords``: the rank's coordinate on
+    every mesh dim (a ``DeviceMesh``'s own by default; 0 on every dim of
+    an ``AbstractMesh``).  Returns ``obj``."""
     from torch import nn
     st, params = _split_of(obj)
-    ctx = MeshContext(mesh, DEFAULT_RULES)
-    m = ctx.shape.get("model", 1)
-    if m == 1 or getattr(params, "model_split", None) is not None:
+    if placement(params) is not None:
         return obj
-    dims = model_dims(params, ctx)
-    if all(d is None for d in dims):
+    ctx = MeshContext(mesh, rules or DEFAULT_RULES)
+    dims = {a: split_dims(params, ctx, a) for a in AXES if a in ctx.shape}
+    if all(d is None for ds in dims.values() for d in ds):
         return obj
-    coords = _model_coords(mesh, model_rank)
+    if coords is None:
+        coords = (mesh.get_coordinate() if hasattr(mesh, "get_coordinate")
+                  else [0] * len(mesh.shape))
+    per = [{a: ds[i] for a, ds in dims.items() if ds[i] is not None}
+           for i in range(len(next(iter(dims.values()))))]
 
     def cut(t, d):
-        return local_slice(t.detach(), _model_only(d, t.dim()), mesh, coords)
+        return local_slice(t.detach(), _spec(d, t.dim()), mesh, coords)
 
-    for (name, p), d in zip(list(params.named_parameters()), dims):
-        if d is not None:
-            owner, _, leaf = name.rpartition(".")
-            setattr(params.get_submodule(owner), leaf,
-                    nn.Parameter(cut(p, d), requires_grad=p.requires_grad))
-    params.model_split = (m, tuple(dims))
+    for (name, p), d in zip(list(params.named_parameters()), per):
+        if not d:
+            continue
+        owner_name, _, leaf = name.rpartition(".")
+        owner = params.get_submodule(owner_name)
+        setattr(owner, leaf, nn.Parameter(cut(p, d),
+                                          requires_grad=p.requires_grad))
+        if "data" in d:
+            owner.data_dims = {**getattr(owner, "data_dims", {}),
+                               leaf: d["data"]}
+    for a, ds in dims.items():
+        if any(d is not None for d in ds):
+            setattr(params, f"{a}_split", (ctx.shape[a], tuple(ds)))
     if st is not None:
         for k in ("m", "v"):
-            st.opt[k][:] = [t if d is None else cut(t, d)
-                            for t, d in zip(st.opt[k], dims)]
+            st.opt[k][:] = [cut(t, d) if d else t
+                            for t, d in zip(st.opt[k], per)]
     return obj
 
 
-def model_split(obj):
-    """``(m, dims)`` of a placed module or train state, else None."""
-    return getattr(_split_of(obj)[1], "model_split", None)
+def placement(obj) -> dict | None:
+    """``{axis: (size, dims)}`` of a placed module or train state, else
+    None."""
+    params = _split_of(obj)[1]
+    out = {a: getattr(params, f"{a}_split") for a in AXES
+           if getattr(params, f"{a}_split", None) is not None}
+    return out or None
 
 
-def gather_model_state(obj, mesh=None, gather=None):
-    """The inverse of ``place_model``: a new module or ``TrainState`` of
-    whole tensors (tensors that were not split are shared, not copied).
-    ``gather(t, dim)`` gives the whole tensor from this rank's slice;
-    by default an all-gather over ``mesh``'s "model" group (every rank
-    of the group calls this).  A state that is not placed is returned
-    as it is."""
-    import copy
-
+def gather_state(obj, mesh=None, gather=None):
+    """The inverse of ``place``: a new module or ``TrainState`` of whole
+    tensors (tensors that were not split are shared, not copied).
+    ``gather(t, dim, axis)`` gives ``t`` whole along ``dim`` over mesh
+    axis ``axis``; by default an all-gather over ``mesh``'s group of that
+    axis (the sharding context's mesh by default; every rank of the
+    groups calls this).  "data" is gathered first, then "model".  A state
+    that is not placed is returned as it is."""
     from torch import nn
 
     from repro_torch.parallel import tensor_parallel as tpl
     from repro_torch.train.steps import TrainState
     st, params = _split_of(obj)
-    split = getattr(params, "model_split", None)
+    split = placement(params)
     if split is None:
         return obj
-    _, dims = split
     if gather is None:
         if mesh is None:
             from repro_torch.parallel.sharding import current_context
             mesh = current_context().mesh
         ctx = MeshContext(mesh, DEFAULT_RULES)
-        tp = tpl.TP(ctx, ctx.shape["model"], mesh.get_local_rank("model"),
-                    mesh.get_group("model"))
 
-        def gather(t, d):
-            return tpl.all_gather(t, d, tp)
+        def gather(t, d, a):
+            return tpl.all_gather(t, d, tpl.TP(
+                ctx, ctx.shape[a], mesh.get_local_rank(a),
+                mesh.get_group(a)))
+
+    def whole(t, i):
+        for a in AXES:
+            if a in split and split[a][1][i] is not None:
+                t = gather(t, split[a][1][i], a)
+        return t
 
     memo = {}
     with torch.no_grad():
-        for p, d in zip(params.parameters(), dims):
-            memo[id(p)] = p if d is None else nn.Parameter(
-                gather(p, d), requires_grad=p.requires_grad)
-        whole = copy.deepcopy(params, memo)
-        del whole.model_split
+        for i, p in enumerate(params.parameters()):
+            w = whole(p, i)
+            memo[id(p)] = p if w is p else nn.Parameter(
+                w, requires_grad=p.requires_grad)
+        full = copy.deepcopy(params, memo)
+        for a in split:
+            delattr(full, f"{a}_split")
+        for m in full.modules():
+            m.__dict__.pop("data_dims", None)
         if st is None:
-            return whole
-        opt = {k: [t if d is None else gather(t, d)
-                   for t, d in zip(st.opt[k], dims)] for k in ("m", "v")}
+            return full
+        opt = {k: [whole(t, i) for i, t in enumerate(st.opt[k])]
+               for k in ("m", "v")}
     opt["step"] = st.opt["step"]
-    return TrainState(whole, opt, st.step)
+    return TrainState(full, opt, st.step)
+
+
+def serve_bf16_params(params):
+    """The ``serve_bf16`` deployment's weights, in place: every f32
+    parameter held as bf16 (the JAX package's dry-run casts its f32
+    leaves so); the ops cast them per use as they cast f32 masters.
+    Returns ``params``."""
+    from torch import nn
+    for name, p in list(params.named_parameters()):
+        if p.dtype == torch.float32:
+            owner, _, leaf = name.rpartition(".")
+            setattr(params.get_submodule(owner), leaf, nn.Parameter(
+                p.detach().to(torch.bfloat16), requires_grad=False))
+    return params
 
 
 # --------------------------------------------------------------------------

@@ -12,7 +12,9 @@ package does (its cross-attention at S = 1 over the memory goes through
 the flash kernel).
 
 With ``cfg.remat`` and grad enabled, each encoder and decoder block runs
-under its own non-reentrant ``torch.utils.checkpoint``.
+under its own non-reentrant ``torch.utils.checkpoint``.  Under FSDP over
+"data" (``parallel.fsdp``) each block gathers its weights as it runs
+(inside its checkpoint), the embedding and head around the stacks.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, layers, transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import fsdp
 
 
 class DecBlock(nn.Module):
@@ -88,9 +91,10 @@ def encode(params: EncDecLM, cfg: ModelConfig, frames):
     remat = cfg.remat and torch.is_grad_enabled()
     for blk in params.enc_blocks:
         if remat:
-            x = checkpoint(_enc_block, blk, cfg, x, use_reentrant=False)
+            x = checkpoint(fsdp.call, _enc_block, blk, cfg, x,
+                           use_reentrant=False)
         else:
-            x = _enc_block(blk, cfg, x)
+            x = fsdp.call(_enc_block, blk, cfg, x)
     return layers.rms_norm(x, params.enc_norm.scale, cfg.norm_eps)
 
 
@@ -112,15 +116,17 @@ def forward(params: EncDecLM, cfg: ModelConfig, tokens, memory=None):
     """Teacher-forced decode over ``tokens`` given ``memory`` ([B, S_enc,
     d] stub frame embeddings, pre-encoder) -> (f32 logits [B, S, V], {})."""
     mem = encode(params, cfg, memory)
-    x = layers.embed(tokens, params.embed, layers.dtype_of(cfg.dtype))
+    emb, head = fsdp.ends(params)
+    x = layers.embed(tokens, emb, layers.dtype_of(cfg.dtype))
     remat = cfg.remat and torch.is_grad_enabled()
     for blk in params.dec_blocks:
         if remat:
-            x = checkpoint(_dec_block, blk, cfg, x, mem, use_reentrant=False)
+            x = checkpoint(fsdp.call, _dec_block, blk, cfg, x, mem,
+                           use_reentrant=False)
         else:
-            x = _dec_block(blk, cfg, x, mem)
+            x = fsdp.call(_dec_block, blk, cfg, x, mem)
     x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    return layers.unembed(x, params.lm_head), {}
+    return layers.unembed(x, head), {}
 
 
 # --------------------------------------------------------------------------
@@ -147,13 +153,14 @@ def prefill(params: EncDecLM, cfg: ModelConfig, tokens, cache, memory=None):
     s = tokens.shape[1]
     mem = encode(params, cfg, memory)
     cache["memory"] = mem.to(cache["memory"].dtype)
-    x = layers.embed(tokens, params.embed, layers.dtype_of(cfg.dtype))
+    emb, head = fsdp.ends(params)
+    x = layers.embed(tokens, emb, layers.dtype_of(cfg.dtype))
     for i, blk in enumerate(params.dec_blocks):
-        x, kk, vv = _dec_block(blk, cfg, x, mem, return_kv=True)
+        x, kk, vv = fsdp.call(_dec_block, blk, cfg, x, mem, return_kv=True)
         cache["k"][i, :, :s] = kk.to(cache["k"].dtype)
         cache["v"][i, :, :s] = vv.to(cache["v"].dtype)
     x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    logits = layers.unembed(x[:, -1:], params.lm_head)
+    logits = layers.unembed(x[:, -1:], head)
     cache["length"] = s
     return logits, cache
 
@@ -162,10 +169,12 @@ def decode_step(params: EncDecLM, cfg: ModelConfig, cache, tokens):
     """One decode step.  tokens: [B, 1] -> (logits [B, 1, V], cache); each
     layer writes this token's k/v into the cache in place, and its
     cross-attention projects the cached memory's k/v anew."""
-    x = layers.embed(tokens, params.embed, layers.dtype_of(cfg.dtype))
+    emb, head = fsdp.ends(params)
+    x = layers.embed(tokens, emb, layers.dtype_of(cfg.dtype))
     length = cache["length"]
     mem = cache["memory"]
     for i, p in enumerate(params.dec_blocks):
+        p = fsdp.gathered(p)
         h = layers.rms_norm(x, p.ln_attn.scale, cfg.norm_eps)
         lk, lv = attention.append_kv(p.attn, cfg, h, cache["k"][i],
                                      cache["v"][i], length)
@@ -175,6 +184,6 @@ def decode_step(params: EncDecLM, cfg: ModelConfig, cache, tokens):
         h = layers.rms_norm(x, p.ln_mlp.scale, cfg.norm_eps)
         x = x + layers.glu_mlp(h, p.mlp, cfg.act)
     x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    logits = layers.unembed(x, params.lm_head)
+    logits = layers.unembed(x, head)
     cache["length"] = length + 1
     return logits, cache

@@ -14,7 +14,9 @@ each SSM block and each shared call runs under its own non-reentrant
 ``torch.utils.checkpoint``, as the JAX package wraps each in
 ``jax.checkpoint``.  Decode runs the shared block through ``append_kv``
 and ``decode_attention``, as the JAX package does, and updates every
-cache in place.
+cache in place.  Under FSDP over "data" (``parallel.fsdp``) each SSM
+block and each shared call gathers its weights as it runs (inside its
+checkpoint), the embedding and head around the stack.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, layers, ssm, transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import fsdp
 
 
 class SSMBlock(nn.Module):
@@ -57,9 +60,6 @@ class HybridLM(nn.Module):
         self.final_norm = final_norm
         self.shared_block = shared_block
         self.lm_head = lm_head
-
-    def head(self) -> layers.Embed:
-        return self.embed if self.cfg.tie_embeddings else self.lm_head
 
 
 @torch.no_grad()
@@ -96,13 +96,15 @@ def forward(params: HybridLM, cfg: ModelConfig, tokens, memory=None):
     """Training/prefill forward -> (f32 logits [B, S, V], {})."""
     del memory
     dt = layers.dtype_of(cfg.dtype)
-    x = layers.embed(tokens, params.embed, dt)
+    emb, head = fsdp.ends(params)
+    x = layers.embed(tokens, emb, dt)
     remat = cfg.remat and torch.is_grad_enabled()
 
     def run(fn, *args):
+        # the block gathered over "data" inside its checkpoint
         if remat:
-            return checkpoint(fn, *args, use_reentrant=False)
-        return fn(*args)
+            return checkpoint(fsdp.call, fn, *args, use_reentrant=False)
+        return fsdp.call(fn, *args)
 
     groups, tail = _groups(cfg)
     for grp in groups:
@@ -112,7 +114,7 @@ def forward(params: HybridLM, cfg: ModelConfig, tokens, memory=None):
     for i in tail:
         x = run(_ssm_block_forward, params.blocks[i], cfg, x)
     x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    return layers.unembed(x, params.head()), {}
+    return layers.unembed(x, head), {}
 
 
 # --------------------------------------------------------------------------
@@ -154,23 +156,24 @@ def decode_step(params: HybridLM, cfg: ModelConfig, cache, tokens):
     SSM states, conv windows and the shared block's k/v are written in
     place."""
     dt = layers.dtype_of(cfg.dtype)
-    x = layers.embed(tokens, params.embed, dt)
+    emb, head = fsdp.ends(params)
+    x = layers.embed(tokens, emb, dt)
     length = cache["length"]
     groups, tail = _groups(cfg)
 
     def run(idx, x):
         for i in idx:
-            x = _ssm_block_decode(params.blocks[i], cfg, x,
-                                  cache["state"][i], cache["conv"][i])
+            x = fsdp.call(_ssm_block_decode, params.blocks[i], cfg, x,
+                          cache["state"][i], cache["conv"][i])
         return x
 
     for g, grp in enumerate(groups):
         x = run(grp, x)
-        x = _shared_decode(params.shared_block, cfg, x, cache["k"][g],
-                           cache["v"][g], length)
+        x = fsdp.call(_shared_decode, params.shared_block, cfg, x,
+                      cache["k"][g], cache["v"][g], length)
     x = run(tail, x)
     x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    logits = layers.unembed(x, params.head())
+    logits = layers.unembed(x, head)
     cache["length"] = length + 1
     return logits, cache
 
@@ -190,12 +193,13 @@ def prefill(params: HybridLM, cfg: ModelConfig, tokens, cache, memory=None):
         raise ValueError(f"{cfg.name}: a prompt of {s} tokens is shorter "
                          f"than the conv window ({cfg.ssm_conv - 1})")
     dt = layers.dtype_of(cfg.dtype)
-    x = layers.embed(tokens, params.embed, dt)
+    emb, head = fsdp.ends(params)
+    x = layers.embed(tokens, emb, dt)
     groups, tail = _groups(cfg)
 
     def run(idx, x):
         for i in idx:
-            blk = params.blocks[i]
+            blk = fsdp.gathered(params.blocks[i])
             h = layers.rms_norm(x, blk.ln.scale, cfg.norm_eps)
             y, st, cv = ssm.ssd_prefill(h, blk.ssm, cfg)
             x = x + y
@@ -205,13 +209,13 @@ def prefill(params: HybridLM, cfg: ModelConfig, tokens, cache, memory=None):
 
     for g, grp in enumerate(groups):
         x = run(grp, x)
-        x, _, (kk, vv) = transformer.block_forward(
-            params.shared_block, cfg, x, None, 0, cfg.rope_theta,
-            return_kv=True)
+        x, _, (kk, vv) = fsdp.call(
+            transformer.block_forward, params.shared_block, cfg, x, None,
+            0, cfg.rope_theta, return_kv=True)
         cache["k"][g, :, :s] = kk.to(cache["k"].dtype)
         cache["v"][g, :, :s] = vv.to(cache["v"].dtype)
     x = run(tail, x)
     x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    logits = layers.unembed(x[:, -1:], params.head())
+    logits = layers.unembed(x[:, -1:], head)
     cache["length"] = s
     return logits, cache

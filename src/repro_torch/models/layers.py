@@ -15,7 +15,7 @@ tensors; under a mesh context whose "model" axis splits them
 in ``gate`` / ``up`` and row-parallel in ``down``, and ``embed`` /
 ``unembed`` are vocab-parallel (the logits come out vocab-sharded).
 ``GLUMLP.d_ff`` and ``Embed.vocab`` keep the whole sizes, so a module
-placed onto a rank (``launch.specs.place_model``) still knows them.
+placed onto a rank (``launch.specs.place``) still knows them.
 Without such a context the ops are the meshless ones.  Init draws from
 an explicit
 ``torch.Generator`` (the parameters land on its device) with the scales of

@@ -72,7 +72,7 @@ def _route(xt, p: MoE, cfg):
     [N, k].  Ties go to the lower expert index, as ``jax.lax.top_k``
     breaks them: a stable descending sort keeps equal values in index
     order."""
-    logits = xt.float() @ p.router.w
+    logits = xt.float() @ p.router.w.float()
     probs = torch.softmax(logits, dim=-1)
     srt, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_i = srt[:, :cfg.top_k], idx[:, :cfg.top_k]
@@ -213,7 +213,7 @@ def moe_mlp_sharded(x, p: MoE, cfg, capacity_factor: float = 1.25):
     ``dropped`` are this shard's, averaged over the batch axes.
 
     The expert weights are either this rank's E/tp experts (placed by
-    ``launch.specs.place_model``, as ``param_specs`` puts them on
+    ``launch.specs.place``, as ``param_specs`` puts them on
     "model") or all E, held whole on every rank.
 
     Gradients are the true derivative of the meshed computation: the

@@ -30,6 +30,11 @@ embedding and unembedding its vocabulary rows: ``forward``, ``prefill``
 and ``decode_step`` then return this rank's vocab-sharded logits where
 the vocabulary splits, and the cache holds its KV heads where they
 split.
+
+Under FSDP over "data" (``parallel.fsdp``) each block's weights are
+gathered just before it runs, inside its checkpoint, and the embedding
+and head around the stack; the serve steps gather a block at a time
+too.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention, layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import fsdp
 
 
 # --------------------------------------------------------------------------
@@ -153,9 +159,6 @@ class TransformerLM(nn.Module):
         self.final_norm = final_norm
         self.lm_head = lm_head
 
-    def head(self) -> layers.Embed:
-        return self.embed if self.cfg.tie_embeddings else self.lm_head
-
 
 def n_cross_layers(cfg: ModelConfig) -> int:
     if not cfg.cross_attn_every:
@@ -191,10 +194,10 @@ def _run_blocks(blocks, cfg: ModelConfig, x, aux, windows, thetas,
     MoE aux summed into ``aux`` in layer order."""
     for blk, w, th in zip(blocks, windows, thetas):
         if remat:
-            x, a = checkpoint(block_forward, blk, cfg, x, None, w, th,
-                              use_reentrant=False)
+            x, a = checkpoint(fsdp.call, block_forward, blk, cfg, x, None,
+                              w, th, use_reentrant=False)
         else:
-            x, a = block_forward(blk, cfg, x, None, w, th)
+            x, a = fsdp.call(block_forward, blk, cfg, x, None, w, th)
         if a is not None:
             aux = {k: aux[k] + a[k] for k in aux}
     return x, aux
@@ -214,9 +217,10 @@ def _self_stack(params: TransformerLM, cfg: ModelConfig, x):
         return _run_blocks(params.blocks, cfg, x, aux, windows, thetas,
                            remat)
     gk = cfg.scan_group
-    # under tensor parallelism a checkpoint's recompute issues the
-    # region's collectives again, in the forward's order; every rank runs
-    # the same groups and blocks, so the ranks' collectives stay matched
+    # under tensor parallelism and FSDP a checkpoint's recompute issues
+    # the region's collectives again (the "model" sums, the blocks'
+    # gathers over "data"), in the forward's order; every rank runs the
+    # same groups and blocks, so the ranks' collectives stay matched
     for g0 in range(0, cfg.n_layers, gk):
         grp = slice(g0, g0 + gk)
         x, aux = checkpoint(_run_blocks, params.blocks[grp], cfg, x, aux,
@@ -241,10 +245,10 @@ def _cross_stack(params: TransformerLM, cfg: ModelConfig, x, memory):
         x, _ = _run_blocks(params.blocks[grp], cfg, x, {}, windows[grp],
                            thetas[grp], remat)
         if remat:
-            x = checkpoint(cross_block_forward, cb, cfg, x, memory,
-                           use_reentrant=False)
+            x = checkpoint(fsdp.call, cross_block_forward, cb, cfg, x,
+                           memory, use_reentrant=False)
         else:
-            x = cross_block_forward(cb, cfg, x, memory)
+            x = fsdp.call(cross_block_forward, cb, cfg, x, memory)
     return x
 
 
@@ -253,13 +257,14 @@ def forward(params: TransformerLM, cfg: ModelConfig, tokens, memory=None):
     ``{"aux_loss", "dropped"}`` summed over the layers for MoE, else {}.
     ``memory`` [B, T, d]: the VLM's modality embeddings."""
     dt = layers.dtype_of(cfg.dtype)
-    x = layers.embed(tokens, params.embed, dt)
+    emb, head = fsdp.ends(params)
+    x = layers.embed(tokens, emb, dt)
     if cfg.cross_attn_every:
         x, aux = _cross_stack(params, cfg, x, memory), {}
     else:
         x, aux = _self_stack(params, cfg, x)
     x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    return layers.unembed(x, params.head()), aux
+    return layers.unembed(x, head), aux
 
 
 # --------------------------------------------------------------------------
@@ -290,12 +295,14 @@ def decode_step(params: TransformerLM, cfg: ModelConfig, cache, tokens):
     into it in place afterwards, at ``length``.  The cross blocks attend
     over the cache's memory."""
     dt = layers.dtype_of(cfg.dtype)
-    x = layers.embed(tokens, params.embed, dt)
+    emb, head = fsdp.ends(params)
+    x = layers.embed(tokens, emb, dt)
     length = cache["length"]
     memory = cache.get("memory")
     windows, thetas = layer_schedule(cfg)
     ks, vs = [], []
     for i, (blk, w, th) in enumerate(zip(params.blocks, windows, thetas)):
+        blk = fsdp.gathered(blk)
         h = layers.rms_norm(x, blk.ln_attn.scale, cfg.norm_eps)
         k_new, v_new = attention.project_kv_token(blk.attn, cfg, h, length,
                                                   theta=th)
@@ -308,11 +315,12 @@ def decode_step(params: TransformerLM, cfg: ModelConfig, cache, tokens):
         vs.append(v_new)
         c = _cross_after(cfg, i)
         if c is not None:
-            x = cross_block_forward(params.cross_blocks[c], cfg, x, memory)
+            x = fsdp.call(cross_block_forward, params.cross_blocks[c], cfg,
+                          x, memory)
     attention.write_kv_stack(cache["k"], cache["v"], torch.stack(ks),
                              torch.stack(vs), length)
     x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    logits = layers.unembed(x, params.head())
+    logits = layers.unembed(x, head)
     cache["length"] = length + 1
     return logits, cache
 
@@ -325,21 +333,23 @@ def prefill(params: TransformerLM, cfg: ModelConfig, tokens, cache,
     VLM's cross blocks read it there, here and in decode)."""
     b, s = tokens.shape
     dt = layers.dtype_of(cfg.dtype)
-    x = layers.embed(tokens, params.embed, dt)
+    emb, head = fsdp.ends(params)
+    x = layers.embed(tokens, emb, dt)
     if memory is not None and "memory" in cache:
         cache["memory"] = memory.to(cache["memory"].dtype)
     mem = cache.get("memory")
     windows, thetas = layer_schedule(cfg)
     for i, (blk, w, th) in enumerate(zip(params.blocks, windows, thetas)):
-        x, _, (kk, vv) = block_forward(blk, cfg, x, positions=None,
-                                       window=w, theta=th,
-                                       return_kv=True)
+        x, _, (kk, vv) = fsdp.call(block_forward, blk, cfg, x,
+                                   positions=None, window=w, theta=th,
+                                   return_kv=True)
         cache["k"][i, :, :s] = kk.to(cache["k"].dtype)
         cache["v"][i, :, :s] = vv.to(cache["v"].dtype)
         c = _cross_after(cfg, i)
         if c is not None:
-            x = cross_block_forward(params.cross_blocks[c], cfg, x, mem)
+            x = fsdp.call(cross_block_forward, params.cross_blocks[c], cfg,
+                          x, mem)
     x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    logits = layers.unembed(x[:, -1:], params.head())
+    logits = layers.unembed(x[:, -1:], head)
     cache["length"] = s
     return logits, cache

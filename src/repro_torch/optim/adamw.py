@@ -49,24 +49,30 @@ def cosine_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: list, max_norm: float, split=None,
-                        group=None):
+def clip_by_global_norm(grads: list, max_norm: float, split=None):
     """Scale ``grads`` in place so that their global L2 norm is at most
     ``max_norm``; returns (grads, the norm before clipping).
 
-    Under tensor parallelism ``split[i]`` says that ``grads[i]`` is this
-    rank's slice of a tensor split over the "model" ``group``: the norm
-    sums those tensors' squares over the group and counts each
-    replicated tensor (equal on every model rank) once."""
+    On a mesh ``split[i]`` names the process groups over which
+    ``grads[i]`` is this rank's slice of a tensor ("data" under FSDP,
+    "model" under tensor parallelism, or both; empty for a replicated
+    tensor): the norm sums each tensor's squares over every group that
+    splits it and counts each replicated tensor (equal on every rank)
+    once."""
     norms = torch._foreach_norm(grads)      # one L2 norm per tensor
     if split is None or not any(split):
         gn = torch.linalg.vector_norm(torch.stack(norms))
     else:
         sq = torch.square(torch.stack(norms))
-        mask = torch.tensor(split, device=sq.device)
-        local = torch.where(mask, sq, 0.0).sum().reshape(1)
-        dist.all_reduce(local, group=group)
-        gn = torch.sqrt(local[0] + torch.where(mask, 0.0, sq).sum())
+        total = torch.where(torch.tensor([not s for s in split],
+                                         device=sq.device), sq, 0.0).sum()
+        for key in dict.fromkeys(s for s in split if s):
+            mask = torch.tensor([s == key for s in split], device=sq.device)
+            part = torch.where(mask, sq, 0.0).sum().reshape(1)
+            for group in key:
+                dist.all_reduce(part, group=group)
+            total = total + part[0]
+        gn = torch.sqrt(total)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     torch._foreach_mul_(grads, scale)
     return grads, gn
@@ -84,18 +90,18 @@ def adamw_init(params) -> dict:
 
 @torch.no_grad()
 def adamw_update(params: list, grads: list, state: dict, cfg: AdamWConfig,
-                 split=None, group=None):
+                 split=None):
     """One AdamW step in place: clip ``grads``, update the moments, then
     ``p -= lr (m_hat / (sqrt(v_hat) + eps) + weight_decay p)``.  Returns
     (params, state with the new step, {"lr", "grad_norm"}); ``grads`` are
-    overwritten with the applied update.  ``split`` / ``group``: the
-    tensors held as slices over "model" (``clip_by_global_norm``); the
+    overwritten with the applied update.  ``split``: the groups over
+    which each tensor is held as slices (``clip_by_global_norm``); the
     update itself is elementwise, the same on a slice."""
     params, grads = list(params), list(grads)
     if any(t.dtype != torch.float32 for t in (*params, *grads)):
         raise TypeError("adamw_update: the parameters (f32 masters) and "
                         "their gradients must be float32")
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, split, group)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, split)
     step = state["step"] + 1
     lr = cosine_schedule(cfg, step)
     stepf = step.to(torch.float32)

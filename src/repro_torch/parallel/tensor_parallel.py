@@ -69,8 +69,9 @@ def plan(cfg, ctx: sharding.MeshContext) -> dict[str, str]:
 
 @dataclasses.dataclass(frozen=True)
 class TP:
-    """The active "model" axis: its size, this rank's coordinate on it,
-    its process group, and the sharding context the rules come from."""
+    """An active mesh axis ("model" here; ``parallel.fsdp`` uses "data"):
+    its size, this rank's coordinate on it, its process group, and the
+    sharding context the rules come from."""
     ctx: sharding.MeshContext
     size: int
     rank: int
@@ -85,18 +86,24 @@ class TP:
         return self.rank * n, n
 
 
-def active() -> TP | None:
-    """The tensor-parallel axis of the current sharding context, or None:
-    no context, a shape-only ``AbstractMesh``, manual mode, or "model" of
-    size 1."""
+def axis(name: str) -> TP | None:
+    """Mesh axis ``name`` of the current sharding context (its size, this
+    rank's coordinate, its group), or None: no context, a shape-only
+    ``AbstractMesh``, manual mode, or an axis of size 1."""
     ctx = sharding.current_context()
     if ctx is None or sharding._MANUAL[0]:
         return None
-    m = ctx.shape.get(MODEL, 1)
-    if m < 2 or not hasattr(ctx.mesh, "get_group"):
+    n = ctx.shape.get(name, 1)
+    if n < 2 or not hasattr(ctx.mesh, "get_group"):
         return None
-    return TP(ctx, m, ctx.mesh.get_local_rank(MODEL),
-              ctx.mesh.get_group(MODEL))
+    return TP(ctx, n, ctx.mesh.get_local_rank(name),
+              ctx.mesh.get_group(name))
+
+
+def active() -> TP | None:
+    """The tensor-parallel axis of the current sharding context, or None
+    (``axis``'s cases)."""
+    return axis(MODEL)
 
 
 # --------------------------------------------------------------------------
@@ -119,7 +126,8 @@ def _gloo_cuda(x: torch.Tensor, group) -> bool:
 
 
 def all_gather(x: torch.Tensor, dim: int, tp: TP) -> torch.Tensor:
-    """The ranks' ``x`` concatenated along ``dim`` in "model" order."""
+    """The ranks' ``x`` concatenated along ``dim`` in the axis's rank
+    order."""
     x = x.contiguous()
     if _gloo_cuda(x, tp.group):
         shape = list(x.shape)
@@ -134,6 +142,21 @@ def all_gather(x: torch.Tensor, dim: int, tp: TP) -> torch.Tensor:
     if dim == 0:
         return parts
     return torch.cat(parts.chunk(tp.size), dim=dim)
+
+
+def reduce_scatter(g: torch.Tensor, dim: int, ax: TP) -> torch.Tensor:
+    """``g`` summed over ``ax``'s group, this rank's ``1 / size`` share
+    of ``dim`` kept (the inverse of ``all_gather``'s layout); summed in
+    f32 for a 16-bit float.  On gloo a CUDA tensor is all-reduced and
+    sliced (the same sum)."""
+    n = g.shape[dim] // ax.size
+    if _gloo_cuda(g, ax.group):
+        return _sum(g, ax.group).narrow(dim, ax.rank * n, n).contiguous()
+    x = g.movedim(dim, 0).to(torch.float32 if g.dtype in _LOW else g.dtype,
+                             memory_format=torch.contiguous_format)
+    out = x.new_empty((n, *x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x, group=ax.group)
+    return out.movedim(0, dim).to(g.dtype).contiguous()
 
 
 class _ToModelShards(torch.autograd.Function):

@@ -30,19 +30,33 @@ issued asynchronously from a post-accumulate hook during the last
 microbatch's backward and awaited before the optimizer: the same
 reductions, the same values.
 
+Placement.  On its first call the step places the state
+(``launch.specs.place``): every parameter and both moments become this
+rank's ``param_specs`` slice over "model" and over "data".
+
 Tensor parallelism.  Where the mesh's "model" axis has size m > 1 the
-step places the state on its first call (``launch.specs.place_model``:
-every parameter and moment that ``param_specs`` puts on "model" becomes
-this rank's slice) and the model computes each rank's heads, GLU
-columns and vocabulary rows (``parallel.tensor_parallel``).  The loss
-is then ``tensor_parallel.cross_entropy`` on the vocab-sharded logits.
-Gradients are reduced over the batch axes only: a split weight's
-gradient is this rank's own, a replicated weight's is already equal on
-every model rank.  The gradient norm sums the split tensors' squares
-over "model" (``optim.clip_by_global_norm``).  The serve steps run
-partitioned under a mesh context holding such an axis, on placed
-parameters and a cache of the rank's KV heads, and return
-vocab-sharded logits (the greedy token is the global argmax).
+model computes each rank's heads, GLU columns and vocabulary rows
+(``parallel.tensor_parallel``).  The loss is then
+``tensor_parallel.cross_entropy`` on the vocab-sharded logits.  A
+weight split over "model" has this rank's own gradient, a replicated
+one is already equal on every model rank: neither is reduced over
+"model".
+
+FSDP.  Where "data" has size n > 1, a weight split over "data" is
+gathered a block at a time and its gradient reduce-scattered over
+"data" in the backward (``parallel.fsdp``): it is summed over "data"
+there, and only over the other batch axis ("pod") here; the rest are
+all-reduced over every batch axis as above.  Under
+``replicated_batch`` every data rank computes the same whole gradient
+and the gather's backward takes this rank's slice of it, no sum; no
+gradient is reduced then.  ``overlap`` issues each gradient's first
+remaining reduction from its hook.  The gradient norm sums each split
+tensor's squares over the groups that split it
+(``optim.clip_by_global_norm``).  The serve steps run partitioned
+under a mesh context holding such axes, on placed parameters (gathered
+over "data" a block at a time each call) and a cache of the rank's KV
+heads, and return vocab-sharded logits (the greedy token is the global
+argmax).
 """
 
 from __future__ import annotations
@@ -82,16 +96,16 @@ def cross_entropy_loss(logits, targets, z_loss: float = 1e-4):
     return loss
 
 
-def _batch_groups(mesh) -> tuple[list, int, int]:
-    """The process groups of the mesh's batch axes in mesh order, their
-    size product n and this rank's index among the n."""
+def _batch_axes(mesh) -> tuple[list, int, int]:
+    """The mesh's batch axes in mesh order, their size product n and this
+    rank's index among the n."""
     sizes = sharding.axis_sizes(mesh)
     axes = [a for a in sharding.BATCH_AXES if a in sizes]
     n, index = 1, 0
     for a in axes:
         n *= sizes[a]
         index = index * sizes[a] + mesh.get_local_rank(a)
-    return [mesh.get_group(a) for a in axes], n, index
+    return axes, n, index
 
 
 class _MeshStep:
@@ -130,8 +144,8 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     reduces the gradients during the backward."""
     accum = (accum_steps if accum_steps is not None
              else getattr(model.config, "accum_steps", 1) or 1)
-    groups, n_shards, shard = (_batch_groups(mesh) if mesh is not None
-                               else ([], 1, 0))
+    axes, n_shards, shard = (_batch_axes(mesh) if mesh is not None
+                             else ([], 1, 0))
 
     vocab = model.config.vocab_size
 
@@ -147,17 +161,22 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
             loss = loss + moe_aux_weight * aux["aux_loss"]
         return loss, aux
 
-    def run(state, batch, params, mb, split):
+    def run(state, batch, params, mb, split, reduce_over):
         """Forward and backward of this rank's rows of each microbatch;
-        the gradient sums are left in ``.grad``."""
+        the gradient sums are left in ``.grad``, each summed over the
+        batch axes in ``reduce_over`` (its groups, one list a parameter)
+        when ``split``."""
         each = mb // n_shards if split else mb
         first = shard * each if split else 0
         last_mb, works, hooks = [False], [], []
         if split and overlap:
+            first_group = {id(p): gs[0] for p, gs in zip(params, reduce_over)
+                           if gs}
+
             def reduce_now(p):
-                if last_mb[0]:
-                    works.append(dist.all_reduce(p.grad, group=groups[0],
-                                                 async_op=True))
+                if last_mb[0] and id(p) in first_group:
+                    works.append(dist.all_reduce(
+                        p.grad, group=first_group[id(p)], async_op=True))
             hooks = [p.register_post_accumulate_grad_hook(reduce_now)
                      for p in params]
         loss_sum = torch.zeros((), dtype=torch.float32,
@@ -178,18 +197,27 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
         if split:
             for w in works:
                 w.wait()
-            for g in groups[1:] if overlap else groups:
-                for p in params:
+            for p, gs in zip(params, reduce_over):
+                for g in gs[1:] if overlap else gs:
                     dist.all_reduce(p.grad, group=g)
-            for g in groups:
-                dist.all_reduce(loss_sum, group=g)
+            for a in axes:
+                dist.all_reduce(loss_sum, group=mesh.get_group(a))
             loss_sum /= n_shards
         return loss_sum, auxes
 
     def train_step(state: TrainState, batch):
         if mesh is not None:
-            specs.place_model(state, mesh)
+            specs.place(state, mesh)
         params = list(state.params.parameters())
+        placed = specs.placement(state) or {}
+        # the mesh axes that split each parameter, and the batch axes its
+        # gradient is still summed over: not "data" where FSDP's
+        # reduce-scatter summed it already
+        split_by = [tuple(a for a in specs.AXES
+                          if a in placed and placed[a][1][i] is not None)
+                    for i in range(len(params))]
+        reduce_over = [[mesh.get_group(a) for a in axes if a not in sp]
+                       for sp in split_by]
         b = batch["inputs"].shape[0]
         if b % accum:
             raise ValueError(f"batch {b} is not a multiple of "
@@ -199,27 +227,26 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
         for p in params:
             p.grad = None
         if mesh is None:
-            loss_sum, auxes = run(state, batch, params, mb, False)
+            loss_sum, auxes = run(state, batch, params, mb, False, [])
         else:
             with _MeshStep(mesh):
                 if split:
-                    loss_sum, auxes = run(state, batch, params, mb, True)
+                    loss_sum, auxes = run(state, batch, params, mb, True,
+                                          reduce_over)
                 else:
                     with sharding.replicated_batch():
                         loss_sum, auxes = run(state, batch, params, mb,
-                                              False)
+                                              False, reduce_over)
         grads = [p.grad for p in params]
         for p in params:
             p.grad = None
         div = accum * (n_shards if split else 1)
         if div > 1:
             torch._foreach_div_(grads, div)
-        placed = specs.model_split(state)
-        tp_norm = {} if placed is None else {
-            "split": [d is not None for d in placed[1]],
-            "group": mesh.get_group("model")}
+        norm_groups = None if not placed else [
+            tuple(mesh.get_group(a) for a in sp) for sp in split_by]
         _, opt, om = adamw_update(params, grads, state.opt, opt_cfg,
-                                  **tp_norm)
+                                  split=norm_groups)
         del grads
         metrics = {"loss": loss_sum / accum, **om}
         for k in auxes[0]:

@@ -21,11 +21,13 @@ cell builders, ``kernels/flash_attention.py``'s custom ops and
   prefill and decode cell as rank 0 of a fake (16, 16) world: at the
   smoke config, ``step_stats``' flops equal ``FlopCounterMode`` on the
   same step run for real on the CPU; at full width and cut depth, fake
-  only, the train step's wire over each batch axis equals 2(n-1)/n x
-  (the f32 gradient bytes + the loss), the HBM floor under the eager
-  traffic (the train step writing its parameters and both AdamW moments
-  once), and no op of a flash cell returns a tensor of S x T scores;
-  ``seq_shard``, ``seq_shard_rule`` and ``serve_bf16`` raise.  A real
+  only, the train step's all-reduce over each batch axis equals
+  2(n-1)/n x (the f32 gradient bytes it reduces: over "data" those not
+  split over "data", which are reduce-scattered there, + the loss and
+  the gradient norm's partials), the HBM floor under the eager traffic
+  (the train step writing its parameters and both AdamW moments once),
+  and no op of a flash cell returns a tensor of S x T scores;
+  ``seq_shard`` and ``seq_shard_rule`` raise.  A real
   CPU step at full width would hold
   gigabytes, so none runs here; full production cells belong to the CLI
   and ``chip_smoke.py``.
@@ -392,17 +394,26 @@ class TestFamilies:
         # tensor parallelism's collectives over "model" (and the MoE's
         # expert-parallel ones) wherever a weight is placed split: the
         # SSM's vocabulary (50,280) and its layers split nothing
-        placed = specs.place_model(specs.abstract_state(cell.model), world)
-        split = specs.model_split(placed)
+        placed = specs.place(specs.abstract_state(cell.model), world)
+        split = (specs.placement(placed) or {}).get("model")
         assert (model in stats.groups) == (split is not None) \
             == (family != "ssm")
         reduced = (stats.groups[data]["wire_by_kind"].get("all-reduce", 0.0)
                    if data in stats.groups else 0.0)
         if kind == "train":
-            # each rank's "model" slices of the gradients
+            # each rank's "data" and "model" slices of the gradients; only
+            # those not split over "data" all-reduced over it (the rest
+            # reduce-scattered), with the loss and the norm's partials
             grads = sum(p.numel() * 4 for p in placed.params.parameters())
+            ddims = specs.placement(placed)["data"][1]
+            mdims = (split or (1, [None] * len(ddims)))[1]
+            unsplit = sum(p.numel() * 4 for p, d in zip(
+                placed.params.parameters(), ddims) if d is None)
+            parts = len({m is not None for d, m in zip(ddims, mdims)
+                         if d is not None})
             n = 16
-            assert reduced == 2.0 * (n - 1) / n * (grads + 4)
+            assert reduced == 2.0 * (n - 1) / n * (unsplit + 4 + 4 * parts)
+            assert stats.groups[data]["wire_by_kind"]["reduce-scatter"] > 0
             # AdamW writes every parameter and both moments once
             assert floor["argument_written_bytes"] == 3 * grads
             assert stats.groups[data]["crosses_nodes"]
@@ -506,11 +517,15 @@ def test_tensor_parallel_cuts_the_state_by_its_split_weights():
         3 * c.d_model * c.d_ff + 2 * c.d_model * q + 2 * c.d_model * kv)
     with dryrun.fake_world(256):
         mesh = mesh_lib.make_production_mesh(device="cpu")
-        est, _ = dryrun.estimate(cell, mesh)
+        # tensor parallelism alone: the placement's p_embed rule off
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(specs, "DEFAULT_RULES",
+                       {**shd.DEFAULT_RULES, "p_embed": ()})
+            est, _ = dryrun.estimate(cell, mesh)
         # "model" replicated: nothing placed, the model code in manual
         # mode (``tensor_parallel.active()`` is None there)
         with pytest.MonkeyPatch.context() as mp, shd.manual_mode():
-            mp.setattr(specs, "place_model", lambda obj, *a, **k: obj)
+            mp.setattr(specs, "place", lambda obj, *a, **k: obj)
             whole, _ = dryrun.estimate(cell, mesh)
     assert est["ran"]["tensor_parallel"] == {
         "heads": "replicated", "kv_heads": "replicated", "mlp": "split",
@@ -523,20 +538,22 @@ def test_tensor_parallel_cuts_the_state_by_its_split_weights():
 
 
 @pytest.mark.parametrize("over", [
-    {"seq_shard": True}, {"seq_shard_rule": "model"}, {"serve_bf16": True}])
+    {"seq_shard": True}, {"seq_shard_rule": "model"}])
 def test_overrides_without_meaning_raise(over):
-    """The JAX package's sequence-sharding and bf16-serving overrides: the
-    port's steps shard no sequence and serve f32 weights."""
+    """The JAX package's sequence-sharding overrides: the port's steps
+    shard no sequence (``serve_bf16`` runs: ``tests/test_torch_fsdp.py``)."""
     with pytest.raises(ValueError, match="the port"):
         dryrun.run_cell("qwen2-1.5b", "prefill_32k", False, overrides=over)
     assert not dist.is_initialized()
 
 
 def test_multi_pod_wire_per_batch_axis():
-    """On (2, 16, 16) the train step reduces every gradient (each rank's
-    "model" slices) and the loss over "pod" and over "data": 2(n-1)/n of
-    their bytes each; tensor parallelism's collectives run over
-    "model"."""
+    """On (2, 16, 16) the train step all-reduces every gradient (each
+    rank's "data" and "model" slices, those split over "data" after
+    their reduce-scatter there) and the loss over "pod", and over "data"
+    the gradients not split over it, the loss and the norm's partials:
+    2(n-1)/n of their bytes each; tensor parallelism's collectives run
+    over "model"."""
     arch, over = FAMILIES["dense"]
     with dryrun.fake_world(512):
         mesh = mesh_lib.make_production_mesh(multi_pod=True, device="cpu")
@@ -544,11 +561,20 @@ def test_multi_pod_wire_per_batch_axis():
         _, stats = dryrun.estimate(cell, mesh)
         groups = {a: tuple(dist.get_process_group_ranks(mesh.get_group(a)))
                   for a in ("pod", "data", "model")}
-        placed = specs.place_model(specs.abstract_state(cell.model), mesh)
-    grads = sum(p.numel() * 4 for p in placed.params.parameters())
-    for axis, n in (("pod", 2), ("data", 16)):
-        assert stats.groups[groups[axis]]["wire_bytes"] == \
-            2.0 * (n - 1) / n * (grads + 4)
+        placed = specs.place(specs.abstract_state(cell.model), mesh)
+    params = list(placed.params.parameters())
+    split = specs.placement(placed)
+    ddims, mdims = split["data"][1], split["model"][1]
+    grads = sum(p.numel() * 4 for p in params)
+    unsplit = sum(p.numel() * 4 for p, d in zip(params, ddims) if d is None)
+    parts = len({m is not None for d, m in zip(ddims, mdims)
+                 if d is not None})
+    for axis, n, nbytes in (("pod", 2, grads + 4),
+                            ("data", 16, unsplit + 4 + 4 * parts)):
+        assert stats.groups[groups[axis]]["wire_by_kind"]["all-reduce"] \
+            == 2.0 * (n - 1) / n * nbytes
+    assert stats.groups[groups["pod"]]["wire_by_kind"].keys() == {
+        "all-reduce"}
     assert set(stats.groups) == set(groups.values())
     assert not dist.is_initialized()
 

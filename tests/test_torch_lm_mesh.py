@@ -1,6 +1,7 @@
 """Port vs JAX package: the LM's mesh (``models/moe.py``'s
-``moe_mlp_sharded``, the meshed train step, ``launch/train.py``,
-``launch/mesh.py``, restoring onto placements).
+``moe_mlp_sharded``, the meshed train step with FSDP over "data" and
+tensor parallelism over "model", ``launch/train.py``,
+``launch/mesh.py``, checkpoints and restoring onto placements).
 
 The multi-rank cases run in the launches of ``tests/torch_dist_cases.py``
 (``lm_reference`` on 8 forced XLA devices, ``lm_port`` on the 8 gloo
@@ -17,35 +18,46 @@ ranks of the 4 x 2 launch), one launch a test session shared with
   equal the unsharded ``moe_mlp``'s (the reference's sharded gradients
   equal its unsharded ones there too: no caveat to record).
 * Two train steps (2 microbatches of 8 rows, 2 rows a "data" rank) of
-  the qwen2-1.5b, qwen3-moe and gemma3-1b smoke configs and of a config
-  none of whose heads, GLU hidden or vocabulary divides "model"
-  (``cases.ODD``), in f32, Adam's eps 1e-5 as in
-  ``tests/test_torch_train.py``, tensor-parallel over "model" on the
-  port's side and under GSPMD on the reference's: loss and grad norm
-  within 1e-5 relative; every parameter, gathered over "model", within
-  1e-5 relative + 1e-6 absolute (the parameters are O(1) norm scales
-  and O(1e-3) biases, and a first Adam step turns a gradient's rounding
-  near eps into up to lr / eps times that in the update); each rank's
-  parameter shapes are the reference's ``spec_for`` "model" slices, and
-  ranks at the same "model" coordinate hold the same slices.
+  the qwen2-1.5b, qwen3-moe and gemma3-1b (remat on) smoke configs and
+  of a config none of whose heads, GLU hidden or vocabulary divides
+  "model" and whose d_model does not divide "data" (``cases.ODD``), in
+  f32, Adam's eps 1e-5 as in ``tests/test_torch_train.py``, FSDP over
+  "data" and tensor-parallel over "model" on the port's side and under
+  GSPMD on the reference's: loss and grad norm within 1e-5 relative;
+  every parameter and both AdamW moments, gathered over "data" and
+  "model", within 1e-5 relative + 1e-6 absolute (the parameters are
+  O(1) norm scales and O(1e-3) biases, and a first Adam step turns a
+  gradient's rounding near eps into up to lr / eps times that in the
+  update); each rank's parameter shapes are the reference's per-device
+  shards (``spec_for``'s "data" and "model" entries), and each rank's
+  parameters and moments are bit for bit ``local_slice`` of the
+  gathered whole tensors.
 * ``overlap`` gives the same parameters, bit for bit.  A step whose
   microbatch does not divide "data" (replicated over the batch axes,
-  still partitioned over "model") gives the reference's metrics and
-  parameters within the train steps' tolerances.  The dense run's
-  checkpoint, gathered over "model" and written by rank 0, restored onto
-  ``state_shardings`` placements holds each rank's slice exactly, its
-  whole tensors are the saved ones, and it restores meshless bit for
-  bit.  ``launch.train.train`` failing at step 1 under the mesh and
+  still partitioned over "model"; every data rank takes its slice of
+  the whole gradient, no sum) gives the reference's metrics, parameters
+  and moments within the train steps' tolerances.  The dense run's
+  checkpoint, gathered over "data" and "model" and written by rank 0,
+  restored onto ``state_shardings`` placements holds each rank's slice
+  exactly (the tensors the FSDP step holds), its whole tensors are the
+  saved ones, and it restores meshless bit for bit; a checkpoint
+  written meshless, restored and placed, gives the FSDP step's tensors
+  bit for bit.  ``launch.train.train`` failing at step 1 under the mesh and
   resumed from its checkpoint ends with the parameters of an
   uninterrupted run, bit for bit.
-* Serving, tensor-parallel: qwen2-1.5b's (its KV heads split) and
-  gemma3-1b's (one KV head, whole on every rank) smoke configs, prefill
-  of 2 x 16 tokens and 4 greedy decode steps, against the reference
-  jitted with ``step_and_shardings``' in and out shardings on the mesh:
-  every call's logits and the final f32 cache within 1e-5 relative and
-  1e-5 of the array's largest |value|, the greedy tokens equal.  One
-  forward loss of the llama-3.2-vision, zamba2-1.2b and
-  seamless-m4t-medium smoke configs within 1e-5 relative.
+* Serving, FSDP and tensor-parallel: qwen2-1.5b's (its KV heads split)
+  and gemma3-1b's (one KV head, whole on every rank) smoke configs on
+  weights split over "data", prefill of 2 x 16 tokens and 4 greedy
+  decode steps, against the reference jitted with
+  ``step_and_shardings``' in and out shardings on the mesh: every
+  call's logits and the final f32 cache within 1e-5 relative and 1e-5
+  of the array's largest |value|, the greedy tokens equal.  The
+  ``serve_bf16`` deployment (qwen2-1.5b; rules ``p_embed -> ()``, every
+  parameter bf16 and whole over "data", activations f32) against the
+  reference jitted the same way: the same tolerances, since both sides
+  compute in f32 from the same bf16 weights.  One forward loss of the
+  llama-3.2-vision, zamba2-1.2b and seamless-m4t-medium smoke configs
+  within 1e-5 relative.
 
 In-process on one gloo rank (its process group destroyed in teardown):
 the elastic restore of ``tests/test_system.py`` and the launcher on a
@@ -154,17 +166,21 @@ def test_meshed_train_steps_match_reference(lm, arch):
                                                        abs=1e-7)
         assert meta[f"{arch}/local_shapes"] == \
             lm["ref_meta"][f"{arch}/local_shapes"]
-    # ranks at the same "model" coordinate hold the same slices
-    for c in range(cases.COLS):
-        same = {m[f"{arch}/checksum"] for m in lm["meta"]
-                if m["model_rank"] == c}
-        assert len(same) == 1
+        # each rank holds exactly its slice of every parameter and moment
+        assert meta[f"{arch}/local_is_slice"]
     keys = [k for k in lm["ref"] if k.startswith(f"train/{arch}/")]
     assert len(keys) > 10
+    assert any("/opt/m/" in k for k in keys)
+    assert any("/opt/v/" in k for k in keys)
     for key in keys:
         for p in lm["port"]:
             np.testing.assert_array_equal(p[key], lm["port"][0][key])
         _close(lm["port"][0][key], lm["ref"][key], atol=1e-6, err_msg=key)
+
+
+def _split_over(meta, arch, axis):
+    return sorted(k for k, v in meta[f"{arch}/split_axes"].items()
+                  if axis in v)
 
 
 def test_tensor_parallel_splits_what_the_reference_splits(lm):
@@ -173,9 +189,7 @@ def test_tensor_parallel_splits_what_the_reference_splits(lm):
     config holds only its wq / wk / wv / wo split (stored split, their
     heads computed whole)."""
     meta = lm["meta"][0]
-    split = {a: sorted(k for k, v in meta[f"{a}/local_shapes"].items()
-                       if v != list(lm["ref"][f"train/{a}/{k}"].shape))
-             for a in ARCHS}
+    split = {a: _split_over(meta, a, "model") for a in ARCHS}
     assert "embed/table" in split["qwen2-1.5b"]
     assert "layers/mlp/gate/w" in split["gemma3-1b"]
     assert "layers/moe/gate" in split["qwen3-moe-30b-a3b"]
@@ -183,6 +197,27 @@ def test_tensor_parallel_splits_what_the_reference_splits(lm):
                                   for w in ("wq", "wk", "wv", "wo")
                                   for leaf in ("w", "b")
                                   if (w, leaf) != ("wo", "b"))
+
+
+def test_fsdp_splits_what_the_reference_splits(lm):
+    """FSDP over "data": the tables, every projection's d_model dim, the
+    MoE's experts and router hold a quarter of that dim on each rank;
+    norm scales and biases stay whole; ``cases.ODD``'s d_model (90)
+    does not divide 4 and nothing of it splits over "data"."""
+    meta = lm["meta"][0]
+    data = {a: _split_over(meta, a, "data") for a in ARCHS}
+    assert data["odd"] == []
+    for key in ("embed/table", "layers/attn/wq/w", "layers/attn/wo/w",
+                "layers/mlp/gate/w", "layers/mlp/down/w"):
+        assert key in data["qwen2-1.5b"], key
+    for key in ("layers/moe/gate", "layers/moe/down", "layers/moe/router/w",
+                "lm_head/table"):
+        assert key in data["qwen3-moe-30b-a3b"], key
+    for a in ARCHS:
+        assert not [k for k in data[a] if k.endswith(("scale", "/b"))]
+        for k in data[a]:
+            assert meta[f"{a}/local_shapes"][k] != \
+                list(lm["ref"][f"train/{a}/{k}"].shape)
 
 
 def test_overlap_gives_the_same_parameters(lm):
@@ -209,6 +244,7 @@ def test_batch_that_does_not_divide_is_replicated(lm):
             for k in ("loss", "grad_norm", "lr", "aux_loss"):
                 _close(got[k], ref[k], err_msg=k)
             assert got["dropped"] == pytest.approx(ref["dropped"], abs=1e-7)
+    assert all(m["replicated/local_is_slice"] for m in lm["meta"])
     keys = [k for k in lm["ref"] if k.startswith("train/replicated/")]
     assert len(keys) > 10
     for key in keys:
@@ -222,6 +258,7 @@ def test_restore_onto_shard_placements(lm, rank):
     got = lm["meta"][rank]["restore"]
     assert got["step"] == cases.TRAIN_STEPS
     assert got["local_equal"] and got["full_equal"]
+    assert got["fsdp_equal"] and got["placed_equal"]
     assert got["meshless_equal"]
     assert 0 < got["sharded"] < got["leaves"]
     assert got["steps_replicated"] == [cases.TRAIN_STEPS] * 2
@@ -234,6 +271,22 @@ def test_restart_under_the_mesh(lm, rank):
     assert (got["start"], got["end"]) == (cases.RESTART["fail_at"],
                                           cases.RESTART["steps"])
     assert got["equal"]
+
+
+@pytest.mark.parametrize("key,split", [("restart", ["data", "model"]),
+                                       ("restart/odd", ["model"])])
+def test_checkpoint_written_by_one_rank(lm, key, split):
+    """Every rank of the (4, 2) mesh calls save; only rank 0 writes, also
+    where the state is not split over "data" (``cases.ODD``), and the
+    resumed run equals the uninterrupted one."""
+    got = [m[key] for m in lm["meta"]]
+    assert all(g["split"] == split for g in got)
+    assert [g["writes"] > 0 for g in got] == [True] + [False] * (len(got)
+                                                                  - 1)
+    g = got[0]
+    assert g["failed"] and g["equal"]
+    assert (g["start"], g["end"]) == (cases.RESTART["fail_at"],
+                                      cases.RESTART["steps"])
 
 
 @pytest.mark.parametrize("arch", list(cases.SERVE_ARCHS))
@@ -251,6 +304,28 @@ def test_tensor_parallel_serving_matches_reference(lm, arch):
     n_kv = ref[f"serve/{arch}/cache/k"].shape[3]
     assert heads == {n_kv // cases.COLS if n_kv % cases.COLS == 0
                      else n_kv}
+    assert all(m[f"serve/{arch}/data_split"] > 0 for m in lm["meta"])
+
+
+def test_serve_bf16_matches_reference(lm):
+    """The serve_bf16 deployment: bf16 weights, none split over "data",
+    the reference's logits, caches and tokens within the serving
+    tolerances."""
+    tag, ref = cases.SERVE_BF16_TAG, lm["ref"]
+    for p, meta in zip(lm["port"], lm["meta"]):
+        assert meta[f"serve/{tag}/data_split"] == 0
+        assert meta[f"serve/{tag}/dtypes"] == ["torch.bfloat16"]
+        _close(p[f"serve/{tag}/logits"], ref[f"serve/{tag}/logits"],
+               err_msg="logits")
+        for k in ("k", "v"):
+            key = f"serve/{tag}/cache/{k}"
+            _close(p[key], ref[key], err_msg=key)
+        np.testing.assert_array_equal(p[f"serve/{tag}/last"],
+                                      ref[f"serve/{tag}/last"])
+    # the bf16 weights give other logits than the f32 ones
+    f32 = ref[f"serve/{cases.SERVE_BF16_ARCH}/logits"]
+    assert not np.allclose(ref[f"serve/{tag}/logits"], f32, rtol=1e-5,
+                           atol=1e-5)
 
 
 @pytest.mark.parametrize("arch", list(cases.FORWARD_ARCHS))

@@ -6,10 +6,11 @@
   (q ``[B,S,H,D]`` by heads, k/v by kv_heads, the GLU hidden by mlp,
   the logits by vocab, the MoE's dispatched ``[E, C, d]`` by experts),
   for every config at m in {2, 16}.
-* ``place_model`` gives each model rank ``local_slice`` of each tensor
-  its ``param_specs`` puts on "model" (params and both moments), and
-  ``gather_model_state`` of the m ranks' slices is the whole state, bit
-  for bit, on a shape-only ``AbstractMesh``.
+* ``place`` gives each rank of a (2, 2) ("data", "model") mesh
+  ``local_slice`` of each tensor under its ``param_specs`` "data" and
+  "model" entries (params and both moments), and ``gather_state`` of the
+  ranks' slices is the whole state, bit for bit, on a shape-only
+  ``AbstractMesh``.
 * With no mesh, and on a one-rank gloo mesh of ("data" 1, "model" 1),
   a forward of qwen2-1.5b's smoke config issues no collective, runs the
   same aten ops, and gives bit-equal logits.
@@ -100,51 +101,71 @@ def test_local_slice_is_the_chunk_of_each_mesh_dim():
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "qwen3-moe-30b-a3b",
                                   "gemma3-1b"])
 def test_place_and_gather_round_trip(arch):
-    """Every model rank's placed state holds ``local_slice`` of the whole
-    tensors' "model" entries; gathering the ranks' slices gives the whole
-    state back, bit for bit (unsplit tensors shared, not copied)."""
-    m = 2
-    mesh = shd.AbstractMesh((2, m), ("data", "model"))
+    """Every rank's placed state holds ``local_slice`` of the whole
+    tensors under their "data" and "model" entries; gathering the ranks'
+    slices ("data" first, then "model") gives the whole state back, bit
+    for bit (unsplit tensors shared, not copied)."""
+    n = m = 2
+    mesh = shd.AbstractMesh((n, m), ("data", "model"))
     cfg = configs.smoke(arch)
     state = init_train_state(zoo.build(cfg),
                              torch.Generator().manual_seed(0))
     state.opt["m"][:] = [torch.rand_like(t) for t in state.opt["m"]]
     state.opt["v"][:] = [torch.rand_like(t) for t in state.opt["v"]]
-    dims = specs.model_dims(state.params, shd.MeshContext(
-        mesh, shd.DEFAULT_RULES))
+    ctx = shd.MeshContext(mesh, shd.DEFAULT_RULES)
+    dims = specs.split_dims(state.params, ctx, "model")
+    ddims = specs.split_dims(state.params, ctx, "data")
     assert any(d is not None for d in dims)
     assert any(d is None for d in dims)
+    assert any(d is not None for d in ddims)
     whole = ([p.detach() for p in state.params.parameters()]
              + state.opt["m"] + state.opt["v"])
-    parts = [specs.place_model(copy.deepcopy(state), mesh, model_rank=r)
-             for r in range(m)]
-    for r, part in enumerate(parts):
-        assert specs.model_split(part) == (m, tuple(dims))
+    coords = [(c, r) for c in range(n) for r in range(m)]
+    parts = {c: specs.place(copy.deepcopy(state), mesh, coords=c)
+             for c in coords}
+    for c, part in parts.items():
+        assert specs.placement(part) == {"data": (n, tuple(ddims)),
+                                         "model": (m, tuple(dims))}
         got = (list(part.params.parameters()) + part.opt["m"]
                + part.opt["v"])
-        for w, g, d in zip(whole, got, dims * 3):
-            spec = tuple("model" if i == d else None for i in range(w.dim()))
+        for w, g, d, dd in zip(whole, got, dims * 3, ddims * 3):
+            spec = tuple("model" if i == d else "data" if i == dd else None
+                         for i in range(w.dim()))
             assert torch.equal(g.detach(), specs.local_slice(
-                w, spec, mesh, (0, r)))
+                w, spec, mesh, c))
     by_id = {}
     for rank_tensors in zip(*[list(p.params.parameters()) + p.opt["m"]
-                              + p.opt["v"] for p in parts]):
-        by_id[id(rank_tensors[0])] = rank_tensors
+                              + p.opt["v"] for p in parts.values()]):
+        by_id[id(rank_tensors[0])] = dict(zip(coords, rank_tensors))
 
-    def gather(t, d):
-        return torch.cat([x.detach() for x in by_id[id(t)]], dim=d)
+    made = {}          # id of a tensor gathered over "data" -> its source
 
-    back = specs.gather_model_state(parts[0], gather=gather)
-    assert specs.model_split(back) is None
-    assert specs.model_split(parts[0]) is not None
+    def gather(t, d, axis):
+        # rank (0, 0)'s tensor whole over "data"; then, from that, whole
+        # over "model" too (each model rank's slice whole over "data")
+        key, dd, _ = made.get(id(t)) or (next(
+            k for k, v in by_id.items() if v[0, 0] is t), None, None)
+        ranks = by_id[key]
+        if axis == "data":
+            out = torch.cat([ranks[c, 0].detach() for c in range(n)], dim=d)
+            made[id(out)] = (key, d, out)
+            return out
+        return torch.cat([ranks[0, r].detach() if dd is None else torch.cat(
+            [ranks[c, r].detach() for c in range(n)], dim=dd)
+            for r in range(m)], dim=d)
+
+    back = specs.gather_state(parts[0, 0], gather=gather)
+    assert specs.placement(back) is None
+    assert specs.placement(parts[0, 0]) is not None
+    assert not any(hasattr(mod, "data_dims") for mod in back.params.modules())
     got = list(back.params.parameters()) + back.opt["m"] + back.opt["v"]
     for w, g in zip(whole, got):
         assert torch.equal(g.detach(), w)
-    # placing again is a no-op; a mesh without a "model" axis places nothing
-    assert specs.place_model(parts[0], mesh) is parts[0]
+    # placing again is a no-op; a mesh of size-1 axes places nothing
+    assert specs.place(parts[0, 0], mesh) is parts[0, 0]
     alone = copy.deepcopy(state)
-    specs.place_model(alone, shd.AbstractMesh((4,), ("data",)))
-    assert specs.model_split(alone) is None
+    specs.place(alone, shd.AbstractMesh((1, 1), ("data", "model")))
+    assert specs.placement(alone) is None
 
 
 class _Ops(TorchDispatchMode):
@@ -187,8 +208,8 @@ def test_model_axis_of_one_is_the_meshless_forward(one_rank, monkeypatch):
         try:
             assert tpl.active() is None
             if m is not None:
-                specs.place_model(params, m)
-                assert specs.model_split(params) is None
+                specs.place(params, m)
+                assert specs.placement(params) is None
             with _Ops() as rec:
                 logits, _ = model.forward(params, toks)
             out[tag] = (logits, rec.ops)

@@ -358,14 +358,21 @@ MOE_CFS = (8.0, 1.25)              # nothing dropped at 8.0 (>= E/k)
 MOE_AUX_W = 0.37                   # the aux loss's weight in the objective
 TRAIN_ARCHS = ("qwen2-1.5b", "qwen3-moe-30b-a3b", "gemma3-1b", "odd")
 # a config none of whose heads, GLU hidden or vocabulary divides m = 2
-# (its wq / wk / wv / wo still divide: stored split, gathered for use)
+# (its wq / wk / wv / wo still divide: stored split, gathered for use),
+# and whose d_model does not divide the 4 "data" ranks (every weight
+# whole over "data", as spec_for drops the p_embed rule)
 ODD = ("qwen2-1.5b", dict(n_heads=3, n_kv_heads=1, d_ff=255,
-                          vocab_size=511))
+                          vocab_size=511, d_model=90))
+REMAT_ARCH = "gemma3-1b"           # trained with remat: gathers recomputed
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 16, 32, 2, 2
 TRAIN_OPT = dict(lr=1e-3, total_steps=20, warmup_steps=2, eps=1e-5)
 REPLICATED_MB = 3                  # rows of a microbatch that 4 cannot split
 INIT_SEED = 3
 SERVE_ARCHS = ("qwen2-1.5b", "gemma3-1b")
+# served again as the serve_bf16 deployment: rules p_embed -> () (weights
+# whole over "data") and bf16 parameters, activations f32 as above
+SERVE_BF16_ARCH = "qwen2-1.5b"
+SERVE_BF16_TAG = f"{SERVE_BF16_ARCH}/serve_bf16"
 SERVE_B, SERVE_PROMPT, SERVE_STEPS, SERVE_LEN = 2, 16, 4, 24
 FORWARD_ARCHS = ("llama-3.2-vision-11b", "zamba2-1.2b",
                  "seamless-m4t-medium")
@@ -397,10 +404,12 @@ def replicated_batches(cfg):
 
 
 def smoke_cfg(arch, configs):
-    """``arch``'s smoke config in float32 (``"odd"``: ``ODD``'s), from
-    either package's ``configs``."""
+    """``arch``'s smoke config in float32 (``"odd"``: ``ODD``'s;
+    ``REMAT_ARCH`` with remat on), from either package's ``configs``."""
     import dataclasses
     base, over = ODD if arch == "odd" else (arch, {})
+    if arch == REMAT_ARCH:
+        over = {**over, "remat": True}
     return dataclasses.replace(configs.smoke(base), dtype="float32", **over)
 
 
@@ -524,6 +533,10 @@ def lm_reference(out: pathlib.Path):
         meta[tag] = recs
         for k, v in _flat(jax.tree.map(np.asarray, jstate.params)).items():
             arrays[f"train/{tag}/{k}"] = v
+        for mom in ("m", "v"):
+            for k, v in _flat(jax.tree.map(np.asarray,
+                                           jstate.opt[mom])).items():
+                arrays[f"train/{tag}/opt/{mom}/{k}"] = v
         return tree
 
     for arch in TRAIN_ARCHS:
@@ -543,21 +556,31 @@ def lm_reference(out: pathlib.Path):
 
 
 def ref_local_shapes(params, mesh) -> dict:
-    """Each parameter leaf's shape on one rank, from the reference's
-    ``param_logical`` and ``spec_for`` on the mesh: its "model" entry
-    divides the dim (the "data" entries, FSDP, are left whole, as the
-    port's placement leaves them)."""
+    """Each parameter leaf's shape on one device, from the reference's
+    ``param_logical`` and ``spec_for`` on the mesh: its "data" entry
+    (FSDP) divides the dim by ROWS, its "model" entry by COLS."""
     from repro.launch import specs as jspecs
     from repro.parallel import sharding as jshd
     ctx = jshd.MeshContext(mesh, jshd.DEFAULT_RULES)
+    sizes = {"data": ROWS, "model": COLS}
     out = {}
     for k, v in _flat(params).items():
         spec = jshd.spec_for(v.shape, jspecs.param_logical(
             tuple(k.split("/")), v.ndim), ctx)
-        out[k] = [n // COLS if e == "model" or (isinstance(e, tuple)
-                                                  and "model" in e) else n
-                  for n, e in zip(v.shape, spec)]
+        shape = []
+        for n, e in zip(v.shape, spec):
+            for a in (() if e is None else (e,) if isinstance(e, str)
+                      else e):
+                n //= sizes[a]
+            shape.append(n)
+        out[k] = shape
     return out
+
+
+def serve_cases():
+    """(arch, tag, serve_bf16) of every serving case."""
+    return [(a, a, False) for a in SERVE_ARCHS] + [
+        (SERVE_BF16_ARCH, SERVE_BF16_TAG, True)]
 
 
 def ref_serve(mesh, arrays):
@@ -565,7 +588,8 @@ def ref_serve(mesh, arrays):
     ``SERVE_STEPS`` greedy decode steps, each jitted with
     ``step_and_shardings``' in and out shardings on the mesh (f32 cache
     of ``SERVE_LEN`` positions); the logits of each call and the final
-    cache arrays."""
+    cache arrays.  The serve_bf16 case: the reference dry-run's
+    deployment, rules ``p_embed -> ()`` and every f32 leaf bf16."""
     import jax
     import jax.numpy as jnp
 
@@ -575,16 +599,20 @@ def ref_serve(mesh, arrays):
     from repro.models import zoo as jzoo
     from repro.parallel import sharding as jshd
     from repro_torch import convert
-    ctx = jshd.MeshContext(mesh, jshd.DEFAULT_RULES)
-    for arch in SERVE_ARCHS:
+    for arch, tag, bf16 in serve_cases():
         _, state = port_init(arch)
         jcfg = smoke_cfg(arch, jconfigs)
         model = jzoo.build(jcfg)
         params = jax.tree.map(jnp.asarray,
                               convert.lm_params_to_numpy(state.params))
+        if bf16:
+            params = jax.tree.map(
+                lambda a: a.astype(jnp.bfloat16)
+                if a.dtype == jnp.float32 else a, params)
         cache = model.init_cache(SERVE_B, SERVE_LEN, dtype=jnp.float32)
         toks = jnp.asarray(serve_tokens(jcfg))
-        mesh_lib.activate(mesh)
+        mesh_lib.activate(mesh, {"p_embed": ()} if bf16 else None)
+        ctx = jshd.current_context()
         try:
             cell = jspecs.Cell(arch, "prefill", jcfg, model, "prefill",
                                SERVE_PROMPT, SERVE_B)
@@ -604,10 +632,10 @@ def ref_serve(mesh, arrays):
                 got.append(np.asarray(logits))
         finally:
             jshd.set_context(None)
-        arrays[f"serve/{arch}/logits"] = np.stack(got)
+        arrays[f"serve/{tag}/logits"] = np.stack(got)
         for k in ("k", "v"):
-            arrays[f"serve/{arch}/cache/{k}"] = np.asarray(cache[k])
-        arrays[f"serve/{arch}/last"] = np.asarray(nxt)
+            arrays[f"serve/{tag}/cache/{k}"] = np.asarray(cache[k])
+        arrays[f"serve/{tag}/last"] = np.asarray(nxt)
 
 
 def ref_forwards(mesh, meta):
@@ -651,17 +679,34 @@ def _expected_local(full, placements, coords, sizes):
     return full
 
 
+def _local_is_slice(state, whole, mesh, specs, ctx) -> bool:
+    """Whether each of this rank's parameters and both moments is, bit
+    for bit, ``local_slice`` of the gathered whole tensor under its
+    ``param_specs`` ("data" and "model" entries)."""
+    import torch
+    specs_ = specs.param_specs(whole.params, ctx)
+    mine = (list(state.params.parameters()) + list(state.opt["m"])
+            + list(state.opt["v"]))
+    full = (list(whole.params.parameters()) + list(whole.opt["m"])
+            + list(whole.opt["v"]))
+    return all(torch.equal(a.detach(), specs.local_slice(b.detach(), sp,
+                                                         mesh))
+               for a, b, sp in zip(mine, full, specs_ * 3))
+
+
 def lm_port(mesh, rank, out: pathlib.Path):
     """One rank of the port on the (4, 2) ("data", "model") mesh: its rows
     of the MoE input through ``moe_mlp_sharded`` (and its gradients, the
     parameters' averaged over "data"), the train steps on the global
-    batches (tensor-parallel over "model": each rank's parameters are its
-    "model" slices, gathered for the comparison), the same dense run with
-    ``overlap``, an MoE step whose microbatch does not divide "data"
+    batches (FSDP over "data" and tensor-parallel over "model": each
+    rank's parameters and moments are its ``param_specs`` slices,
+    gathered for the comparison), the same dense run with ``overlap``,
+    an MoE step whose microbatch does not divide "data"
     (``replicated_batches``), the dense run's checkpoint (gathered over
-    "model", written by rank 0) restored onto ``state_shardings``
-    placements and meshless, the serve steps and forwards of
-    ``lm_port_serving``, and ``lm_port_restart``."""
+    both axes, written by rank 0) restored onto ``state_shardings``
+    placements and meshless, a meshless checkpoint restored and placed,
+    the serve steps and forwards of ``lm_port_serving``, and
+    ``lm_port_restart``."""
     import copy
 
     import torch
@@ -724,17 +769,25 @@ def lm_port(mesh, rank, out: pathlib.Path):
             recs.append({k: float(v) for k, v in m.items()})
         meta[arch] = recs
         local = list(state.params.parameters())
-        meta[f"{arch}/checksum"] = float(sum(
-            np.float64(p.detach().numpy()).sum() for p in local))
-        shapes = {}
-        for (path, layer_i), p in zip(convert.leaf_paths(state.params),
-                                      local):
+        shapes, split = {}, {}
+        placed = specs.placement(state) or {}
+        for i, ((path, layer_i), p) in enumerate(zip(
+                convert.leaf_paths(state.params), local)):
             n = convert.stack_length(cfg, path)
             shapes[path] = ([n] if layer_i >= 0 else []) + list(p.shape)
+            split[path] = sorted(a for a, (_, dims) in placed.items()
+                                 if dims[i] is not None)
         meta[f"{arch}/local_shapes"] = shapes
-        flat = _flat(convert.lm_params_to_numpy(state.params, mesh))
-        for k, v in flat.items():
+        meta[f"{arch}/split_axes"] = split
+        whole = specs.gather_state(state, mesh)
+        meta[f"{arch}/local_is_slice"] = _local_is_slice(
+            state, whole, mesh, specs, ctx)
+        tree = convert.train_state_to_numpy(whole)
+        for k, v in _flat(tree["params"]).items():
             arrays[f"train/{arch}/{k}"] = v
+        for mom in ("m", "v"):
+            for k, v in _flat(tree["opt"][mom]).items():
+                arrays[f"train/{arch}/opt/{mom}/{k}"] = v
         if arch == TRAIN_ARCHS[0]:
             dense = state
 
@@ -748,15 +801,22 @@ def lm_port(mesh, rank, out: pathlib.Path):
         state, m = step(state, {k: torch.from_numpy(v)
                                 for k, v in batch.items()})
         meta["replicated"].append({k: float(v) for k, v in m.items()})
-    for k, v in _flat(convert.lm_params_to_numpy(state.params, mesh)).items():
+    whole = specs.gather_state(state, mesh)
+    meta["replicated/local_is_slice"] = _local_is_slice(
+        state, whole, mesh, specs, ctx)
+    tree = convert.train_state_to_numpy(whole)
+    for k, v in _flat(tree["params"]).items():
         arrays[f"train/replicated/{k}"] = v
+    for mom in ("m", "v"):
+        for k, v in _flat(tree["opt"][mom]).items():
+            arrays[f"train/replicated/opt/{mom}/{k}"] = v
 
-    # the dense run's state, gathered over "model" by data row 0 and
-    # written by rank 0; every rank restores it sharded and meshless
+    # the dense run's state, gathered over "data" and "model" by every
+    # rank and written by rank 0; every rank restores it sharded and
+    # meshless, and a meshless checkpoint of it placed
     ckpt = out / "ckpt"
-    whole = specs.gather_model_state(dense, mesh)
-    if row == 0:
-        CheckpointManager(ckpt, mesh=mesh).save(dense, TRAIN_STEPS)
+    whole = specs.gather_state(dense, mesh)
+    CheckpointManager(ckpt, mesh=mesh).save(dense, TRAIN_STEPS)
     dist.barrier()
     shardings = specs.state_shardings(whole, ctx)
     restored, manifest = CheckpointManager(ckpt).restore(
@@ -777,54 +837,81 @@ def lm_port(mesh, rank, out: pathlib.Path):
         local_ok &= torch.equal(dt.to_local(), _expected_local(
             want, placements, coords, sizes))
         whole_ok &= torch.equal(dt.full_tensor(), want)
+    held = (list(dense.params.parameters()) + list(dense.opt["m"])
+            + list(dense.opt["v"]))
+    fsdp_ok = all(torch.equal(dt.to_local(), h.detach())
+                  for dt, h in zip(got, held))
     meshless, _ = CheckpointManager(ckpt).restore(whole, device="cpu")
     back = ([p.detach() for p in meshless.params.parameters()]
             + list(meshless.opt["m"]) + list(meshless.opt["v"]))
+    # the reverse: a checkpoint written meshless, restored and placed
+    plain = out / f"ckpt_meshless_{rank}"
+    CheckpointManager(plain).save(whole, TRAIN_STEPS)
+    again, _ = CheckpointManager(plain).restore(whole, device="cpu")
+    specs.place(again, mesh)
+    again_t = (list(again.params.parameters()) + list(again.opt["m"])
+               + list(again.opt["v"]))
     meta["restore"] = {
         "step": manifest["step"], "leaves": len(got),
         "sharded": int(n_sharded), "local_equal": bool(local_ok),
-        "full_equal": bool(whole_ok),
+        "full_equal": bool(whole_ok), "fsdp_equal": bool(fsdp_ok),
         "meshless_equal": all(torch.equal(a, b) for a, b in
                               zip(back, saved)),
+        "placed_equal": all(torch.equal(a.detach(), b.detach())
+                            for a, b in zip(again_t, held)),
         "steps_replicated": [restored.step.full_tensor().item(),
                              restored.opt["step"].full_tensor().item()]}
     lm_port_serving(mesh, arrays, meta)
     meta["restart"] = lm_port_restart(mesh, out)
+    meta["restart/odd"] = lm_port_restart(mesh, out, "odd")
     np.savez(out / f"lm_port_{rank}.npz", **arrays)
     (out / f"lm_port_{rank}.json").write_text(json.dumps(meta))
 
 
 def lm_port_serving(mesh, arrays, meta):
-    """Tensor-parallel serving and forwards: the ``SERVE_ARCHS`` smoke
-    configs' prefill and greedy decode steps on placed parameters and a
+    """Serving and forwards under FSDP and tensor parallelism: the
+    ``SERVE_ARCHS`` smoke configs' prefill and greedy decode steps on
+    placed parameters (gathered over "data" a block at a time) and a
     cache of the rank's KV heads (logits and caches gathered over
-    "model"), and one forward loss of each ``FORWARD_ARCHS`` config on
-    the whole batch (every rank), under the mesh's sharding context."""
+    "model"), the serve_bf16 case (rules ``p_embed -> ()``, bf16
+    parameters whole over "data"), and one forward loss of each
+    ``FORWARD_ARCHS`` config on the whole batch (every rank), under the
+    mesh's sharding context."""
     import torch
 
     from repro_torch import convert
+    from repro_torch.launch import specs
     from repro_torch.models import zoo
     from repro_torch.parallel import sharding
     from repro_torch.parallel import tensor_parallel as tpl
     from repro_torch.train.steps import (cross_entropy_loss,
                                          make_decode_step, make_prefill_step)
 
-    def placed(arch):
+    def placed(arch, rules=None):
         """The seeded parameters as the reference's tree, carried onto
-        this rank's "model" slices."""
+        this rank's "data" and "model" slices (bf16 under
+        ``rules``)."""
         cfg, state = port_init(arch)
-        return cfg, zoo.build(cfg), convert.lm_params_from_numpy(
-            convert.lm_params_to_numpy(state.params), cfg, device="cpu",
-            mesh=mesh)
+        params = convert.lm_params_from_numpy(
+            convert.lm_params_to_numpy(state.params), cfg, device="cpu")
+        if rules is not None:
+            specs.serve_bf16_params(params)
+        return cfg, zoo.build(cfg), specs.place(params, mesh, rules=rules)
 
-    sharding.set_context(mesh)
-    try:
-        tp = tpl.active()
-        for arch in SERVE_ARCHS:
-            cfg, model, params = placed(arch)
+    for arch, tag, bf16 in serve_cases():
+        rules = ({**sharding.DEFAULT_RULES, "p_embed": ()} if bf16
+                 else None)
+        cfg, model, params = placed(arch, rules)
+        _, dims = (specs.placement(params) or {}).get("data", (1, ()))
+        meta[f"serve/{tag}/data_split"] = sum(d is not None for d in dims)
+        meta[f"serve/{tag}/dtypes"] = sorted({str(p.dtype) for p in
+                                              params.parameters()})
+        sharding.set_context(mesh, rules)
+        try:
+            tp = tpl.active()
             cache = model.init_cache(SERVE_B, SERVE_LEN, dtype=torch.float32,
                                      device="cpu")
-            meta[f"serve/{arch}/cache_heads"] = cache["k"].shape[3]
+            meta[f"serve/{tag}/cache_heads"] = cache["k"].shape[3]
             logits, cache = make_prefill_step(model)(
                 params, torch.from_numpy(serve_tokens(cfg)), cache)
             got = [logits]
@@ -834,14 +921,19 @@ def lm_port_serving(mesh, arrays, meta):
             for _ in range(SERVE_STEPS):
                 nxt, logits, cache = decode(params, cache, nxt)
                 got.append(logits)
-            arrays[f"serve/{arch}/logits"] = torch.stack([
+            arrays[f"serve/{tag}/logits"] = torch.stack([
                 tpl.all_gather(lg, 2, tp) for lg in got]).numpy()
             for k in ("k", "v"):
                 c = cache[k]
                 if c.shape[3] != cfg.n_kv_heads:
                     c = tpl.all_gather(c, 3, tp)
-                arrays[f"serve/{arch}/cache/{k}"] = c.numpy()
-            arrays[f"serve/{arch}/last"] = nxt.numpy()
+                arrays[f"serve/{tag}/cache/{k}"] = c.numpy()
+            arrays[f"serve/{tag}/last"] = nxt.numpy()
+        finally:
+            sharding.set_context(None)
+    sharding.set_context(mesh)
+    try:
+        tp = tpl.active()
         with torch.no_grad():
             for arch in FORWARD_ARCHS:
                 cfg, model, params = placed(arch)
@@ -859,35 +951,52 @@ def lm_port_serving(mesh, arrays, meta):
         sharding.set_context(None)
 
 
-def lm_port_restart(mesh, out: pathlib.Path) -> dict:
-    """``launch.train.train`` on the mesh, failing at step
-    ``RESTART["fail_at"]`` after a checkpoint a step, then resumed, beside
-    an uninterrupted run: whether their parameters, gathered over
-    "model", are equal."""
+def lm_port_restart(mesh, out: pathlib.Path,
+                    arch: str = TRAIN_ARCHS[0]) -> dict:
+    """``launch.train.train`` of ``arch``'s smoke config on the mesh,
+    failing at step ``RESTART["fail_at"]`` after a checkpoint a step,
+    then resumed, beside an uninterrupted run: whether their parameters,
+    gathered over "data" and "model", are equal, and how many checkpoint
+    writes this rank made (one rank of the mesh writes; ``"odd"`` splits
+    over "model" only)."""
     import torch
     import torch.distributed as dist
 
     from repro_torch import configs
+    from repro_torch.checkpoint import manager
     from repro_torch.launch import specs
     from repro_torch.launch.train import train
     from repro_torch.models import zoo
-    model = zoo.build(smoke_cfg(TRAIN_ARCHS[0], configs))
+    model = zoo.build(smoke_cfg(arch, configs))
     kw = dict(steps=RESTART["steps"], batch=RESTART["batch"],
               seq=RESTART["seq"], device="cpu", mesh=mesh, log=lambda _: None)
-    ckpt = out / "restart_ckpt"
+    ckpt = out / ("restart_ckpt" if arch == TRAIN_ARCHS[0]
+                  else f"restart_ckpt_{arch}")
+    writes, wrote = manager._writes, []
+
+    def counted(tree, m):
+        w = writes(tree, m)
+        wrote.append(w)
+        return w
+
+    manager._writes = counted
     failed = False
     try:
-        train(model, ckpt_dir=str(ckpt), ckpt_every=1,
-              fail_at=RESTART["fail_at"], **kw)
-    except RuntimeError:
-        failed = True
-    resumed = train(model, ckpt_dir=str(ckpt), ckpt_every=1, **kw)
+        try:
+            train(model, ckpt_dir=str(ckpt), ckpt_every=1,
+                  fail_at=RESTART["fail_at"], **kw)
+        except RuntimeError:
+            failed = True
+        resumed = train(model, ckpt_dir=str(ckpt), ckpt_every=1, **kw)
+    finally:
+        manager._writes = writes
     straight = train(model, **kw)
     dist.barrier()
-    a, b = (specs.gather_model_state(r["state"], mesh)
+    a, b = (specs.gather_state(r["state"], mesh)
             for r in (resumed, straight))
     return {"failed": failed, "start": resumed["start"],
-            "end": resumed["end"],
+            "end": resumed["end"], "writes": sum(wrote),
+            "split": sorted(specs.placement(resumed["state"]) or {}),
             "equal": all(torch.equal(x, y) for x, y in zip(
                 a.params.parameters(), b.params.parameters()))}
 

@@ -7,7 +7,9 @@ Each cell is one ``python -m repro_torch.launch.dryrun`` process (a fake
 256- or 512-rank world of its own), ``--jobs`` of them at once: every
 (architecture x shape) of ``configs.SHAPES`` on (16, 16), and train_4k
 on (2, 16, 16) for the architectures the artifacts directory already
-holds a pod2 cell of.  ``--old DIR`` holds an earlier run's artifacts
+holds a pod2 cell of, and prefill_32k / decode_32k again with ``--set
+serve_bf16=true`` (the serving deployment: bf16 weights whole over
+"data"; artifacts tagged ``serve_bf16``).  ``--old DIR`` holds an earlier run's artifacts
 (e.g. the parent commit's ``artifacts/dryrun_torch``, unpacked with
 ``git archive``): each cell's row then gives the old peak beside the
 new one, and the cells whose fit on one 80 GB card flips.
@@ -31,32 +33,40 @@ from repro_torch import configs  # noqa: E402
 
 POD2 = ("qwen2-1.5b", "seamless-m4t-medium", "qwen3-moe-30b-a3b",
         "llama-3.2-vision-11b", "zamba2-1.2b", "mamba2-370m")
+BF16_SHAPES = ("prefill_32k", "decode_32k")
+BF16_TAG = "serve_bf16"
 
 
 def cells():
-    out = [(a, s, False) for a in configs.ARCH_IDS for s in configs.SHAPES]
-    return out + [(a, "train_4k", True) for a in POD2]
+    out = [(a, s, False, False) for a in configs.ARCH_IDS
+           for s in configs.SHAPES]
+    out += [(a, "train_4k", True, False) for a in POD2]
+    return out + [(a, s, False, True) for a in configs.ARCH_IDS
+                  for s in BF16_SHAPES]
 
 
-def name(arch, shape, pod2):
-    return f"{arch}__{shape}__{'pod2' if pod2 else 'pod1'}.json"
+def name(arch, shape, pod2, bf16=False):
+    return (f"{arch}__{shape}__{'pod2' if pod2 else 'pod1'}"
+            f"{'__' + BF16_TAG if bf16 else ''}.json")
 
 
-def run_one(out: pathlib.Path, arch, shape, pod2):
+def run_one(out: pathlib.Path, arch, shape, pod2, bf16):
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
            arch, "--shape", shape, "--out", str(out)]
     if pod2:
         cmd.append("--multi-pod")
+    if bf16:
+        cmd += ["--set", "serve_bf16=true", "--tag", BF16_TAG]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="1")
     p = subprocess.run(cmd, env=env, capture_output=True, text=True)
-    return arch, shape, pod2, p.returncode
+    return arch, shape, pod2, bf16, p.returncode
 
 
-def load(directory: pathlib.Path | None, arch, shape, pod2):
+def load(directory: pathlib.Path | None, arch, shape, pod2, bf16=False):
     if directory is None:
         return None
-    path = directory / name(arch, shape, pod2)
+    path = directory / name(arch, shape, pod2, bf16)
     return json.loads(path.read_text()) if path.exists() else None
 
 
@@ -71,23 +81,26 @@ def entry(art) -> str:
 
 def table(out: pathlib.Path, old: pathlib.Path | None) -> str:
     shapes = list(configs.SHAPES)
-    head = shapes + ["train_4k, (2, 16, 16)"]
+    head = shapes + ["train_4k, (2, 16, 16)"] + [
+        f"{s}, {BF16_TAG}" for s in BF16_SHAPES]
     rows = ["| arch | " + " | ".join(head) + " |",
             "|---|" + "---|" * len(head)]
     flips = []
     for arch in configs.ARCH_IDS:
         cols = []
-        for shape, pod2 in [(s, False) for s in shapes] + [("train_4k",
-                                                            True)]:
-            new = load(out, arch, shape, pod2)
-            was = load(old, arch, shape, pod2)
+        for shape, pod2, bf16 in ([(s, False, False) for s in shapes]
+                                  + [("train_4k", True, False)]
+                                  + [(s, False, True) for s in BF16_SHAPES]):
+            new = load(out, arch, shape, pod2, bf16)
+            was = load(old, arch, shape, pod2, bf16)
             cell = entry(new)
             if old is not None and was is not None and was.get("ok"):
                 cell = f"{entry(was)} → {cell}"
                 if new is not None and new.get("ok") and \
                         new["fits_80gb"] != was["fits_80gb"]:
                     flips.append(f"{arch} × {shape}"
-                                 f"{' (2, 16, 16)' if pod2 else ''}: "
+                                 f"{' (2, 16, 16)' if pod2 else ''}"
+                                 f"{' ' + BF16_TAG if bf16 else ''}: "
                                  f"{'fits' if new['fits_80gb'] else 'no fit'}")
             cols.append(cell)
         rows.append(f"| {arch} | " + " | ".join(cols) + " |")
@@ -110,10 +123,11 @@ def main(argv=None):
         todo = [c for c in cells()
                 if configs.shape_applicable(configs.get(c[0]), c[1])]
         with ThreadPoolExecutor(args.jobs) as pool:
-            for arch, shape, pod2, rc in pool.map(
+            for arch, shape, pod2, bf16, rc in pool.map(
                     lambda c: run_one(out, *c), todo):
-                print(f"{arch} {shape} {'pod2' if pod2 else 'pod1'} "
-                      f"rc={rc}", flush=True)
+                print(f"{arch} {shape} {'pod2' if pod2 else 'pod1'}"
+                      f"{' ' + BF16_TAG if bf16 else ''} rc={rc}",
+                      flush=True)
     print(table(out, pathlib.Path(args.old) if args.old else None))
 
 

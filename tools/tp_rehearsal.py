@@ -1,13 +1,17 @@
-"""bf16 rehearsal of tensor parallelism: m = 2 against m = 1, sound and
-with a planted fault.
+"""bf16 rehearsal of tensor parallelism and FSDP: two ranks against one,
+sound and with a planted fault.
 
     PYTHONPATH=src python tools/tp_rehearsal.py [--arch qwen2-1.5b] \
-        [--seeds 0 1 2] [--steps 2] [--batch 8] [--seq 128] \
-        [--plant none row_sum grad_sum]
+        [--axis model|data] [--seeds 0 1 2] [--steps 2] [--batch 8] \
+        [--seq 128] [--plant none row_sum grad_sum gather_slice]
     python3 tools/tp_rehearsal.py --full [--plant none row_sum grad_sum]
+    python3 tools/tp_rehearsal.py --full --axis data --layers 4 \
+        [--plant none gather_slice]
 
-Two gloo ranks on a (1, 2) ("data", "model") mesh train the arch's smoke
-config in bf16 compute (remat on, 4 microbatches, as T1) through
+Two gloo ranks on a (1, 2) ("data", "model") mesh (``--axis data``: a
+(2, 1) mesh, FSDP over "data", each rank its rows of every microbatch)
+train the arch's smoke config in bf16 compute (remat on, 4 microbatches,
+as T1) through
 ``launch.train.train`` beside the meshless run of the same seed, and
 prefill + greedily decode it beside the meshless serve steps (fed the
 meshless run's tokens).  Printed: each step's relative loss and
@@ -15,12 +19,16 @@ gradient-norm difference, the largest over the seeds, and the serve
 logits' largest |difference|.  In bf16 a
 row-parallel product is rounded to bf16 on each rank before the f32 sum
 over "model", where one GEMM rounds once: this is that difference at a
-small width, the base for ``chip_smoke.TP_TRAIN_TOL``.
+small width, the base for ``chip_smoke.TP_TRAIN_TOL``.  Over "data"
+the weights are gathered exactly (f32) and each rank computes its rows:
+what differs is the rows' GEMMs at half the batch and the gradient's
+sum over the ranks, the base for ``chip_smoke.FSDP_TRAIN_TOL``.
 
 ``--full`` runs chip_smoke's T1 instead (the arch's full config, batch
-8 x 1,024, the seed of ``--seeds``) on the card: both ranks on card 0
-over gloo, as chip_smoke's "tp" phase, the meshless run on rank 0
-after them; training only.
+8 x 1,024, the seed of ``--seeds``; ``--layers`` cuts its depth, as
+chip_smoke's FS1 does) on the card: both ranks on card 0 over gloo, as
+chip_smoke's "tp" and "fsdp" phases, the meshless run on rank 0 after
+them; training only.
 
 ``--plant`` names the runs, each a fault installed in the ranks'
 processes for the partitioned run only (the sources are untouched):
@@ -29,8 +37,11 @@ the last layer's GLU down projection (each rank keeps its partial
 product: a lost partial sum in one layer); ``grad_sum`` lets the last
 layer's GLU input into its rank-local region without the backward sum
 over "model" (the residual stream's and that layer's norm gradient keep
-only this rank's part).  A fault's reading above the limit and the
-sound reading below it is what the limit must separate.
+only this rank's part); ``gather_slice`` (``--axis data``) makes the
+"data" gather's backward this rank's slice of its own gradient instead
+of the reduce-scatter (a sum over the ranks).  A fault's reading above
+the limit and the sound reading below it is what the limit must
+separate.
 """
 
 from __future__ import annotations
@@ -47,7 +58,7 @@ import tempfile
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-PLANTS = ("none", "row_sum", "grad_sum")
+PLANTS = ("none", "row_sum", "grad_sum", "gather_slice")
 T1 = dict(batch=8, seq=1024)                 # chip_smoke.TRAIN[0]'s shape
 
 
@@ -55,13 +66,26 @@ def _plant(name):
     """Install the fault ``name`` in this process; returns its undo."""
     from repro_torch.launch import specs
     from repro_torch.models import layers
+    from repro_torch.parallel import fsdp
     from repro_torch.parallel import tensor_parallel as tpl
     if name == "none":
         return lambda: None
-    last = {}
-    place, row, glu = specs.place_model, tpl.row_parallel, layers.glu_mlp
+    if name == "gather_slice":
+        backward = fsdp._GatherData.backward
 
-    def place_model(obj, mesh, *args, **kwargs):
+        def sliced(ctx, g):
+            n = g.shape[ctx.dim] // ctx.ax.size
+            return (g.narrow(ctx.dim, ctx.ax.rank * n, n).contiguous(),
+                    None, None, None)
+        fsdp._GatherData.backward = staticmethod(sliced)
+
+        def undo_slice():
+            fsdp._GatherData.backward = staticmethod(backward)
+        return undo_slice
+    last = {}
+    place, row, glu = specs.place, tpl.row_parallel, layers.glu_mlp
+
+    def place_marked(obj, mesh, *args, **kwargs):
         out = place(obj, mesh, *args, **kwargs)
         last["mlp"] = getattr(obj, "params", obj).blocks[-1].mlp
         return out
@@ -83,7 +107,7 @@ def _plant(name):
         finally:
             tpl.to_model = to
 
-    specs.place_model = place_model
+    specs.place = place_marked
     if name == "row_sum":
         tpl.row_parallel = row_parallel
     elif name == "grad_sum":
@@ -92,7 +116,7 @@ def _plant(name):
         raise ValueError(f"unknown fault {name!r}; one of {PLANTS}")
 
     def undo():
-        specs.place_model, tpl.row_parallel, layers.glu_mlp = place, row, glu
+        specs.place, tpl.row_parallel, layers.glu_mlp = place, row, glu
     return undo
 
 
@@ -140,7 +164,7 @@ def _serve_diff(model, cfg, mesh, seed, seq):
     for tag, m in (("one", None), ("tp", mesh)):
         p = model.init(torch.Generator().manual_seed(seed))
         if m is not None:
-            specs.place_model(p, m)
+            specs.place(p, m)
         sharding.set_context(m)
         try:
             t = tpl.active()
@@ -179,10 +203,13 @@ def _rank(rank, world, init, args, out):
     dist.init_process_group("gloo", init_method=init, rank=rank,
                             world_size=world,
                             timeout=datetime.timedelta(seconds=600))
-    mesh = init_device_mesh(device, (1, world),
+    mesh = init_device_mesh(device, (1, world) if args.axis == "model"
+                            else (world, 1),
                             mesh_dim_names=("data", "model"))
     if args.full:
         cfg = configs.get(args.arch)
+        if args.layers:
+            cfg = dataclasses.replace(cfg, n_layers=args.layers)
         shape = T1
     else:
         cfg = dataclasses.replace(configs.smoke(args.arch), dtype="bfloat16",
@@ -229,8 +256,17 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--full", action="store_true",
                     help="T1 on the card (training only)")
+    ap.add_argument("--axis", choices=("model", "data"), default="model",
+                    help="the axis of the two ranks")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut --full's depth to this many layers")
     ap.add_argument("--plant", nargs="+", default=["none"], choices=PLANTS)
     args = ap.parse_args(argv)
+    bad = [p for p in args.plant if p != "none"
+           and (p == "gather_slice") != (args.axis == "data")]
+    if bad:
+        ap.error(f"--plant {' '.join(bad)} does not apply to --axis "
+                 f"{args.axis}")
     if args.seeds is None:
         args.seeds = [0] if args.full else [0, 1, 2]
     if args.full:
