@@ -218,7 +218,30 @@ result line):
      against a teacher-forced ``forward`` of S1's f32 parameters, its
      prefill seconds and decode tok/s beside S1's.  The seconds are
      gloo's through the host on one card, not an FSDP speed;
- 16. dryrun — the dry-run (``repro_torch.launch.dryrun``) on this
+ 16. sp — sequence parallelism over "model" on the one card: two
+     processes on card 0 over gloo on a (1, 2) ("data", "model") mesh
+     under the rule ``seq_res -> ("model",)``.  SP1: T1 cut to
+     ``SP_LAYERS`` layers (qwen2-1.5b's full width, batch 8 x 1024, 4
+     microbatches, remat) for ``SP_TRAIN_STEPS`` steps through
+     ``launch.train`` from T1's seed and data: each step's loss and
+     gradient norm against the meshless run of the same config within
+     ``SP_TRAIN_TOL``, the residual stream entering every block checked
+     [2, 512, 1536] on each rank, the flash kernels' heads (6, 1) and
+     launches a step, the sequence's gathers and reduce-scatters
+     (``sequence_parallel.COUNTS``) a step and the peak GiB a rank
+     printed beside one step's without the rule and TP1's.  SP2: S2
+     (gemma3-1b, one KV head, so its cache's T splits over "model")
+     prefilled 4 x 2048 on a split residual stream, then 16 greedy
+     tokens on each rank's half of the cache's positions: each rank's
+     cache exactly half of the meshless cache's bytes, the prefill's
+     flash launches one a layer, and, decoding fed the meshless S2
+     wave's greedy tokens (the same prompts), every step's logits held
+     to S2's ``SERVE_TOL`` against that wave's and its greedy choice
+     the wave's token wherever the wave's top-2 margin exceeds twice
+     the logits' largest difference.
+     The seconds are gloo's through the host on one card, not a
+     sequence-parallel speed;
+ 17. dryrun — the dry-run (``repro_torch.launch.dryrun``) on this
      machine's CPU in a process of its own, CUDA hidden: T1's train step
      and S1's prefill as cells on a world of one rank (``estimate``, the
      function ``run_cell`` runs a cell with), while the same step and
@@ -230,7 +253,7 @@ result line):
      memory term the HBM floor) is no more than T1's warm step and S1's
      warm prefill.  Then qwen2-1.5b x
      train_4k on the fake (16, 16) world, its summary printed;
- 17. the flash forward and backward at S1's, T1's microbatch and S2's
+ 18. the flash forward and backward at S1's, T1's microbatch and S2's
      shapes against their plain versions, their bounds and
      ``scaled_dot_product_attention`` (its backward alone on a retained
      graph).  Prints one ``kernels`` JSON line with all twelve kernels
@@ -238,8 +261,8 @@ result line):
      ``kernel_ms_missing`` saying why); the join kernels' launches are
      the main path's (the stream deltas' are in the ``[stream]`` lines),
      the flash kernels' those of serving, training, L2, TP1 and TP2
-     (both ranks), FS1 (both ranks) and FS2;
- 18. the last line: ``{"ok": true, "device": {...}}``.
+     (both ranks), FS1 (both ranks), FS2, and SP1 and SP2 (both ranks);
+ 19. the last line: ``{"ok": true, "device": {...}}``.
 
 Join sizes are cut from the paper's (Fig 4: N = 2e8
 friends edges, a 1e9-row fact table) to N = 4e6 edges over 14,000 users
@@ -892,6 +915,11 @@ FLASH_CASES = [
     # and TP2's prefill of 8 x 1,024: 6 q heads over 1 KV head, D = 128)
     (2, 1024, 1024, 6, 1, 128, True, 0, "bfloat16"),
     (8, 1024, 1024, 6, 1, 128, True, 0, "bfloat16"),
+    # gemma3-1b's per-rank heads at m = 2 (SP2's prefill of 4 x 2,048 over
+    # the gathered sequence: 2 q heads over 1 KV head, D = 256), its local
+    # layers' window of 512 and its global layers
+    (4, 2048, 2048, 2, 1, 256, True, 512, "bfloat16"),
+    (4, 2048, 2048, 2, 1, 256, True, 0, "bfloat16"),
 ]
 # Tolerance (atol, rtol) of the flash forward against its plain versions
 # (inputs ~N(0, 1)), |got - want| <= atol + rtol |want| on o, by case name
@@ -4250,7 +4278,346 @@ def fsdp_phase(torch, seed, s1):
 
 
 # --------------------------------------------------------------------------
-# phase 16: the dry-run's estimates against the card
+# phase 16: sequence parallelism over "model" (two processes on the card)
+# --------------------------------------------------------------------------
+
+SP_WORLD = 2
+SP_LAYERS = 4                      # T1's depth cut, as FS1's
+SP_TRAIN_STEPS = 2
+SP_TIMEOUT_S = 600
+SP_SERVE = ("S2", 16)              # S2's wave, its 16 greedy tokens
+# SP1 against the meshless run of the same config, seed and data: the
+# row-parallel partial sums rounded to bf16 on each rank before the f32
+# sum, now reduce-scattered, and the norms on each rank's positions.
+# tools/tp_rehearsal.py --full --seq --layers 4 (SP1's run, NVIDIA H100
+# 80GB HBM3, 700.00 W) read the sound run at 1.83e-5 (loss) and 9.70e-5
+# (gradient norm) relative, as the phase's first run did; the sequence
+# gather's backward planted as a slice at 1.75e-5 and 0.569; a norm
+# scale's gradient left unsummed at 9.34e-6 and 9.73e-5, which no limit
+# on these two can separate (Adam's update hardly moves with a halved
+# scale gradient; tests/test_torch_fsdp.py catches it per tensor).  The
+# limits: the loss's 3.3x above the sound reading (no fault moves it),
+# the gradient norm's 5x above it and ~1,100x below the gather's fault.
+SP_TRAIN_TOL = {"loss_rel": 6e-5, "grad_norm_rel": 5e-4}
+SP_NOTE = "gloo through the host, one card: not a sequence-parallel speed"
+
+
+def _sp_residual(transformer):
+    """Record the shape of the residual stream entering every block;
+    returns (the shapes seen, the undo)."""
+    seen, block = set(), transformer.block_forward
+
+    def spy(p, cfg, x, *args, **kwargs):
+        seen.add(tuple(x.shape))
+        return block(p, cfg, x, *args, **kwargs)
+
+    transformer.block_forward = spy
+    return seen, lambda: setattr(transformer, "block_forward", block)
+
+
+def _sp_train(torch, rank, seed, mesh):
+    """SP1 on this rank (see the phase); rank 0 also the meshless run of
+    the same config after it, and every rank one step of it under
+    tensor parallelism alone for the peak without the rule."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import transformer, zoo
+    from repro_torch.parallel import sequence_parallel as seqp
+    label, arch, batch, seq, _steps, over = TRAIN[0]
+    cfg = dataclasses.replace(configs.get(arch), n_layers=SP_LAYERS, **over)
+    model = zoo.build(cfg)
+    per_step = {k: v * cfg.accum_steps
+                for k, v in train_flash_passes(cfg).items()}
+    kw = dict(batch=batch, seq=seq, seed=seed, device="cuda", log_every=1)
+    colls = _tp_collectives(dist)
+    heads = _tp_heads(cuda)
+    snaps = []
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launch_counts()
+    colls.update(count=0, bytes=0)
+    seqp.reset_counts()
+    seen, undo = _sp_residual(transformer)
+    try:
+        run = train_lib.train(
+            model, steps=SP_TRAIN_STEPS, mesh=mesh, rules=seqp.RULES,
+            log=lambda m: log(f"[sp] SP1 rank {rank} {m}"),
+            metrics_cb=lambda *_: snaps.append(
+                {**{k: cuda.LAUNCHES[k] for k in per_step},
+                 "host_collectives": colls["count"],
+                 "host_bytes": colls["bytes"],
+                 **{f"{k}_calls": v[0] for k, v in seqp.COUNTS.items()},
+                 **{f"{k}_bytes": v[1] for k, v in seqp.COUNTS.items()}}),
+            **kw)
+    finally:
+        undo()
+    keys = list(snaps[0])
+    zero = dict.fromkeys(keys, 0)
+    out = {"loss": [r["loss"] for r in run["records"]],
+           "grad_norm": [r["grad_norm"] for r in run["records"]],
+           "step_s": [r["step_s"] for r in run["records"]],
+           "per_step": [{k: b[k] - a[k] for k in keys}
+                        for a, b in zip([zero] + snaps, snaps)],
+           "flash_per_step": per_step,
+           "flash_launches": {k: cuda.LAUNCHES[k] for k in per_step},
+           "flash_heads": {k: sorted(v) for k, v in heads.items()},
+           "residual_shapes": sorted(seen),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del run
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    plain = train_lib.train(model, steps=1, mesh=mesh, log=lambda _: None,
+                            **kw)
+    out["peak_gib_without_rule"] = torch.cuda.max_memory_allocated() / 2**30
+    del plain
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        one = train_lib.train(model, steps=SP_TRAIN_STEPS,
+                              log=lambda _: None, **kw)
+        out["meshless"] = {
+            "loss": [r["loss"] for r in one["records"]],
+            "grad_norm": [r["grad_norm"] for r in one["records"]],
+            "step_s": [r["step_s"] for r in one["records"]]}
+        del one
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _sp_serve(torch, rank, seed, mesh):
+    """SP2 on this rank (see the phase): rank 0 serves the meshless S2
+    wave first (its greedy tokens go to every rank); then each rank
+    prefills the same prompts on the split stream and decodes fed those
+    tokens, so both runs see the same inputs at every step.  Returns the
+    cache's bytes and positions a rank and, on rank 0, the logits of
+    CHECK_ROWS rows against the meshless wave's (largest and mean
+    |difference|) and this run's greedy choices against the meshless
+    tokens wherever the meshless top-2 margin exceeds twice the largest
+    difference."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import specs
+    from repro_torch.models import zoo
+    from repro_torch.parallel import sequence_parallel as seqp
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel import tensor_parallel as tpl
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+    label, gen = SP_SERVE
+    _, arch, batch, prompt, _gen, _req, _layers = next(
+        s for s in SERVE if s[0] == label)
+    cfg = configs.get(arch)
+    model = zoo.build(cfg)
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+
+    def wave(params, rules, feed=None):
+        """(logits of CHECK_ROWS rows [rows, gen, V], each step's greedy
+        choice [B, gen], the cache's bytes and positions, whether the
+        prefill split); decode fed ``feed`` [B, gen] (None: its own
+        choices)."""
+        sharding.set_context(mesh if rules else None, rules)
+        try:
+            tp = tpl.active()
+
+            def greedy(lg):
+                last = lg[:, -1]
+                return (tpl.argmax(last, cfg.vocab_size, tp)
+                        if tp is not None else last.argmax(-1)).to(
+                            torch.int32)[:, None]
+            cache = model.init_cache(batch, prompt + gen, device="cuda")
+            toks = torch.from_numpy(prompts).cuda()
+            split = seqp.split(tuple(toks.shape) + (cfg.d_model,))
+            logits, cache = prefill(params, toks, cache)
+            kept, chose = [logits[:CHECK_ROWS]], [greedy(logits)]
+            for i in range(gen - 1):
+                nxt = chose[-1] if feed is None else feed[:, i:i + 1]
+                _, logits, cache = decode(params, cache, nxt)
+                kept.append(logits[:CHECK_ROWS])
+                chose.append(greedy(logits))
+            if tp is not None:
+                kept = [tpl.all_gather(x, 2, tp) for x in kept]
+            got = (torch.cat(kept, 1), torch.cat(chose, 1),
+                   cache_bytes(torch, cache), cache["k"].shape[2],
+                   split is not None)
+            del cache
+            return got
+        finally:
+            sharding.set_context(None)
+
+    feed = torch.zeros((batch, gen), dtype=torch.int32)
+    if rank == 0:
+        whole = model.init(torch.Generator(device="cuda").manual_seed(seed))
+        m_logits, m_tokens, m_bytes, m_t, _ = wave(whole, None)
+        feed = m_tokens.cpu()
+        del whole
+        torch.cuda.empty_cache()
+    dist.broadcast(feed, src=0)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    specs.place(params, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launch_counts()
+    logits, tokens, nbytes, t_local, split = wave(params, seqp.RULES,
+                                                  feed.cuda())
+    out = {"flash_launches": cuda.LAUNCHES["flash_fwd"],
+           "cache_bytes": nbytes, "cache_positions": t_local,
+           "prefill_split": split,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del params
+    torch.cuda.empty_cache()
+    if rank == 0:
+        diff = (logits - m_logits).abs()
+        top2 = m_logits.topk(2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > 2 * float(diff.max())
+        mine = tokens[:CHECK_ROWS] == m_tokens[:CHECK_ROWS]
+        out.update({
+            "meshless_cache_bytes": m_bytes, "meshless_positions": m_t,
+            "check_rows": CHECK_ROWS, "check_positions": int(diff.shape[1]),
+            "logit_max_abs_diff": float(diff.max()),
+            "logit_mean_abs_diff": float(diff.mean()),
+            "logit_std": float(m_logits.std()),
+            "greedy_agree_share": float(mine.float().mean()),
+            "greedy_sure_positions": int(sure.sum()),
+            "greedy_sure_agree": bool(mine[sure].all())})
+    dist.barrier()
+    return out
+
+
+def sp_rank(rank, port, seed):
+    """One rank of the (1, 2) mesh under ``seq_res -> ("model",)``: SP1
+    and SP2 (see the phase)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=SP_WORLD,
+        timeout=datetime.timedelta(seconds=SP_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh("cuda", (1, SP_WORLD),
+                                mesh_dim_names=("data", "model"))
+        out = {"rank": rank, "sp1": _sp_train(torch, rank, seed, mesh),
+               "sp2": _sp_serve(torch, rank, seed, mesh)}
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _sp_worker(rank, port, seed, out_dir):
+    out = sp_rank(rank, port, seed)
+    (pathlib.Path(out_dir) / f"sp_{rank}.json").write_text(json.dumps(out))
+
+
+def sp_phase(torch, seed, tp_rows):
+    """SP1 and SP2 (phase 16) in two spawned processes on card 0; their
+    checks.  Returns the rows and the flash launches of both ranks."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch import configs
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_sp_worker, nprocs=SP_WORLD,
+                           args=(free_port(), seed, tmp),
+                           start_method="spawn")
+        outs = [json.loads((pathlib.Path(tmp) / f"sp_{r}.json").read_text())
+                for r in range(SP_WORLD)]
+    one = outs[0]["sp1"]["meshless"]
+    _, arch, batch, seq, _steps, _over = TRAIN[0]
+    d_model = configs.get(arch).d_model
+    mb = batch // configs.get(arch).accum_steps
+    want_shape = [mb, seq // SP_WORLD, d_model]
+    tp1 = {r["rank"]: r["peak_gib"] for r in tp_rows if r.get("tp") == "TP1"}
+    rows, launches = [], {"flash_fwd": 0, "flash_bwd": 0}
+    s2 = outs[0]["sp2"]
+    for out in outs:
+        a, b = out["sp1"], out["sp2"]
+        diffs = {"loss_rel": max(abs(x - w) / abs(w) for x, w in
+                                 zip(a["loss"], one["loss"])),
+                 "grad_norm_rel": max(abs(x - w) / abs(w) for x, w in
+                                      zip(a["grad_norm"],
+                                          one["grad_norm"]))}
+        row = {"sp": "SP1", "rank": out["rank"], "train": "T1",
+               "layers": SP_LAYERS, "mesh": {"data": 1, "model": SP_WORLD},
+               "rules": {"seq_res": ["model"]}, "steps": SP_TRAIN_STEPS,
+               "loss": a["loss"], "grad_norm": a["grad_norm"],
+               "meshless_loss": one["loss"],
+               "meshless_grad_norm": one["grad_norm"],
+               "max_rel_diff": diffs, "tol": SP_TRAIN_TOL,
+               "step_s": a["step_s"], "meshless_step_s": one["step_s"],
+               "residual_shapes": a["residual_shapes"],
+               "per_step": a["per_step"], "flash_heads": a["flash_heads"],
+               "flash_launches_per_step": a["flash_per_step"],
+               "flash_launches": a["flash_launches"],
+               "peak_gib": a["peak_gib"],
+               "peak_gib_without_rule": a["peak_gib_without_rule"],
+               "tp1_peak_gib": tp1.get(out["rank"]), "note": SP_NOTE}
+        log(f"[sp] {json.dumps(row)}")
+        rows.append(row)
+        got = [{k: s[k] for k in a["flash_per_step"]} for s in a["per_step"]]
+        if got != [a["flash_per_step"]] * SP_TRAIN_STEPS:
+            fail(f"SP1 rank {out['rank']}: flash launches per step {got}, "
+                 f"expected {a['flash_per_step']}")
+        for k, seen in a["flash_heads"].items():
+            if [tuple(x) for x in seen] != [TP_HEADS]:
+                fail(f"SP1 rank {out['rank']}: {k} ran at (q, KV) heads "
+                     f"{seen}, expected {TP_HEADS}")
+        if a["residual_shapes"] != [want_shape]:
+            fail(f"SP1 rank {out['rank']}: residual stream "
+                 f"{a['residual_shapes']} between blocks, expected "
+                 f"{want_shape}")
+        if not all(s["all_gather_calls"] and s["reduce_scatter_calls"]
+                   for s in a["per_step"]):
+            fail(f"SP1 rank {out['rank']}: a step without the sequence's "
+                 f"gathers or reduce-scatters: {a['per_step']}")
+        if any(diffs[k] > SP_TRAIN_TOL[k] for k in diffs):
+            fail(f"SP1 rank {out['rank']}: the sequence-parallel steps "
+                 f"differ from the meshless run's: {json.dumps(diffs)}")
+        row = {"sp": "SP2", "rank": out["rank"], "serve": SP_SERVE[0],
+               "mesh": {"data": 1, "model": SP_WORLD},
+               "rules": {"seq_res": ["model"]}, "gen": SP_SERVE[1], **b,
+               "check_against": "the meshless wave, fed its tokens",
+               "note": SP_NOTE}
+        log(f"[sp] {json.dumps(row)}")
+        rows.append(row)
+        if not b["prefill_split"]:
+            fail(f"SP2 rank {out['rank']}: the prefill did not split")
+        if 2 * b["cache_bytes"] != s2["meshless_cache_bytes"]:
+            fail(f"SP2 rank {out['rank']}: a cache of {b['cache_bytes']} B, "
+                 f"expected half of {s2['meshless_cache_bytes']}")
+        if b["flash_launches"] != serve_flash_passes(
+                configs.get(SERVE[1][1]))[0]:
+            fail(f"SP2 rank {out['rank']}: flash_fwd launched "
+                 f"{b['flash_launches']} times in the prefill")
+        launches["flash_fwd"] += (a["flash_launches"]["flash_fwd"]
+                                  + b["flash_launches"])
+        launches["flash_bwd"] += a["flash_launches"]["flash_bwd"]
+    if s2["logit_max_abs_diff"] > SERVE_TOL["max"] \
+            or s2["logit_mean_abs_diff"] > SERVE_TOL["mean"]:
+        fail(f"SP2: logits beyond S2's limits of the meshless wave's: "
+             f"{s2['logit_max_abs_diff']}, {s2['logit_mean_abs_diff']}")
+    if not s2["greedy_sure_agree"]:
+        fail("SP2: a greedy token differs from the meshless wave's where "
+             "its top-2 margin exceeds twice the logits' difference")
+    log(f"[sp] phase took {time.perf_counter() - t0:.1f}s")
+    return rows, launches
+
+
+# --------------------------------------------------------------------------
+# phase 17: the dry-run's estimates against the card
 # --------------------------------------------------------------------------
 
 # The dry-run (launch/dryrun.py, fake CPU tensors, a world of one rank) at
@@ -4607,17 +4974,20 @@ def main() -> int:
     lm_rows, lm_launches = lm_mesh_phase(torch, args.seed, t_rows[0])
     tp_rows, tp_launches = tp_phase(torch, args.seed, t_rows[0], s_rows[0])
     fs_rows, fs_launches = fsdp_phase(torch, args.seed, s_rows[0])
+    sp_rows, sp_launches = sp_phase(torch, args.seed, tp_rows)
     dr_rows = dryrun_phase(torch, args.seed, s_rows[0], t_rows[0])
     lines += flash_kernel_phase(
         torch, errs, {k: s_launches.get(k, 0) + t_launches[k]
                       + lm_launches[k] + tp_launches[k] + fs_launches[k]
+                      + sp_launches[k]
                       for k in ("flash_fwd", "flash_bwd")}, args.seed)
     log(json.dumps({"queries": rows, "baselines": b_rows, "radix": r_rows,
                     "stream": st_rows, "mesh": m_rows,
                     "mesh_launches": m_launches, "analytics": a_rows,
                     "serve": s_rows, "train": t_rows, "grad_check": grad,
                     "restart": restart, "lm_mesh": lm_rows,
-                    "tp": tp_rows, "fsdp": fs_rows, "dryrun": dr_rows}))
+                    "tp": tp_rows, "fsdp": fs_rows, "sp": sp_rows,
+                    "dryrun": dr_rows}))
     print(card, flush=True)
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {

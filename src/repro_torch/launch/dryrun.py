@@ -40,17 +40,26 @@ held as the rank's ``spec_for`` slice, its d_model dim split over
   * prefill / decode — the serve steps under the mesh's sharding
               context: the rank runs its rows of the batch as
               ``batch_specs`` / ``cache_specs`` split the batch axes (all
-              of it where the batch does not split), on its "data" and
-              "model" slices of the parameters (gathered over "data" a
-              block at a time, every step) and a cache of its KV heads
-              where they split; the SSM state and conv window stay
-              whole.  ``ran`` states the shapes that ran and, under
-              ``tensor_parallel`` and ``fsdp``, which tensors split.
+              of it where the batch does not split) on its slices of the
+              parameters and of the cache (below).  ``ran`` states the
+              shapes that ran and, under ``tensor_parallel`` and
+              ``fsdp``, which tensors split.
               ``--set serve_bf16=true`` is the JAX package's serving
               deployment: rules ``p_embed -> ()`` (weights replicated
               over "data", no per-step gather) and every f32 parameter
               held as bf16 (``specs.serve_bf16_params``); a train cell
               ignores it.
+
+``--set seq_shard=1`` (or ``seq_shard_rule=model``) adds the JAX
+package's rule ``seq_res -> ("model",)``: the residual stream of a
+train or prefill step whose S divides "model" is each rank's positions
+of the sequence between the regions (``parallel.sequence_parallel``).
+Whatever the rule, a serve cell's rank holds its rows of the batch, its
+"data" and "model" slices of the parameters (gathered over "data" a
+block at a time, every step) and its ``cache_specs`` slice of the KV
+cache: its rows, its KV heads where they split over "model" and its
+positions of T where T splits over the axes those leave unused (the
+SSM state and conv window whole over "model").
 
 Writes one JSON artifact per cell, the JAX package's keys:
   memory            argument / output / temp / alias bytes of the rank
@@ -70,17 +79,12 @@ Writes one JSON artifact per cell, the JAX package's keys:
 ``lower_s`` times the world, mesh, cell and inputs, ``compile_s`` the
 step's one run; ``hbm_floor`` splits the floor (``step_stats``);
 ``collective_groups`` says which groups span nodes.
-
-The JAX package's ``seq_shard`` / ``seq_shard_rule`` overrides raise: the
-port's steps shard no sequence (sequence parallelism, ROADMAP Queue A
-item 6).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import json
 import math
 import pathlib
@@ -144,10 +148,9 @@ def _rows_per_rank(cell, ctx) -> int:
 
 def _rank_args(cell, args, rows: int) -> tuple:
     """The serve step's inputs for the rank's ``rows``: the parameters as
-    they are, its rows of the tokens and the memory, a cache of its rows
-    (of its KV heads under the sharding context's "model" axis)."""
-    local = dataclasses.replace(cell, global_batch=rows)
-    cache = specs.abstract_cache(local, rows, cell.seq_len)
+    they are, its rows of the tokens and the memory, and its slice of
+    the cache, built under the sharding context (``cache_specs``)."""
+    cache = specs.abstract_cache(cell, cell.global_batch, cell.seq_len)
     if cell.kind == "prefill":
         rest = tuple(x[:rows].clone() for x in args[3:])
         return (args[0], args[1][:rows].clone(), cache) + rest
@@ -186,31 +189,42 @@ def _rank_context(mesh, replicated: bool, rules=None):
         sharding.set_context(None)
 
 
-def prepare(cell, mesh=None, *, seed: int = 0, serve_bf16: bool = False):
+def prepare(cell, mesh=None, *, seed: int = 0, serve_bf16: bool = False,
+            seq_shard: bool = False):
     """The step one rank of ``mesh`` runs for the cell, and its inputs
     (None: a world of one rank, the meshless step a single card runs);
     under a ``FakeTensorMode`` the inputs are fake.  The parameters (and
     a train state's moments) are the rank's "data" and "model" slices;
     with ``serve_bf16`` (prefill and decode only) bf16 and whole over
-    "data".  Returns (step, args, context, ran): run ``step(*args)``
-    inside ``context``, the mesh's sharding context; ``ran`` states the
-    shapes and the tensors split over "model" and "data"."""
+    "data"; with ``seq_shard`` the rules add ``seq_res -> ("model",)``.
+    Returns (step, args, context, ran): run ``step(*args)`` inside
+    ``context``, the mesh's sharding context; ``ran`` states the shapes
+    and the tensors split over "model" and "data"."""
+    from repro_torch.parallel import sequence_parallel as seqp
     from repro_torch.parallel import sharding
     from repro_torch.parallel import tensor_parallel as tpl
     serve_bf16 = serve_bf16 and cell.kind in ("prefill", "decode")
-    # the serving deployment's rules: weights replicated over "data"
-    rules = ({**sharding.DEFAULT_RULES, "p_embed": ()} if serve_bf16
-             else None)
+    rules = None
+    if seq_shard:
+        rules = dict(seqp.RULES)
+    if serve_bf16:
+        # the serving deployment's rules: weights replicated over "data"
+        rules = {**(rules or sharding.DEFAULT_RULES), "p_embed": ()}
     args = specs.cell_inputs(cell, seed)
     if serve_bf16:
         specs.serve_bf16_params(args[0])
     step = specs.cell_step(cell, mesh)
     rows, replicated = cell.global_batch, False
-    ran = {"serve_bf16": serve_bf16}
+    ran = {"serve_bf16": serve_bf16, "seq_shard": seq_shard}
     if mesh is not None:
         ctx = sharding.MeshContext(mesh, rules or sharding.DEFAULT_RULES)
         specs.place(args[0], mesh, rules=rules)
         ran["tensor_parallel"] = tpl.plan(cell.cfg, ctx)
+        # the residual stream [B, S, d] of the step (decode's S is 1)
+        stream = (cell.global_batch, 1 if cell.kind == "decode"
+                  else cell.seq_len, cell.cfg.d_model)
+        with _rank_context(mesh, False, rules):
+            ran["sequence_parallel"] = seqp.split(stream) is not None
         _, dims = (specs.placement(args[0]) or {}).get("data", (1, ()))
         ran["fsdp"] = {"data": ctx.shape.get("data", 1),
                        "split_tensors": sum(d is not None for d in dims)}
@@ -225,7 +239,7 @@ def prepare(cell, mesh=None, *, seed: int = 0, serve_bf16: bool = False):
 
 
 def estimate(cell, mesh=None, *, trace: bool = False, seed: int = 0,
-             serve_bf16: bool = False):
+             serve_bf16: bool = False, seq_shard: bool = False):
     """Runs the cell's step once on fake CPU tensors as one rank of
     ``mesh`` (``prepare``) and returns its estimates, the artifact's keys
     from ``memory`` to ``roofline`` plus ``ran``, ``collective_groups``
@@ -237,7 +251,8 @@ def estimate(cell, mesh=None, *, trace: bool = False, seed: int = 0,
     n_chips = mesh.size() if mesh is not None else 1
     with FakeTensorMode():
         step, args, context, ran = prepare(cell, mesh, seed=seed,
-                                           serve_bf16=serve_bf16)
+                                           serve_bf16=serve_bf16,
+                                           seq_shard=seq_shard)
         stats = step_stats.StepStats(args, trace=trace)
         t0 = time.monotonic()
         with context, stats:
@@ -299,16 +314,17 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
     overrides = dict(overrides or {})
     # the flash ops are the kernels: there is nothing to substitute
     overrides.pop("attn_substitute", None)
-    if overrides.pop("seq_shard_rule", None) or overrides.get("seq_shard"):
-        raise ValueError("seq_shard: the port's steps shard no sequence "
-                         "(sequence parallelism, ROADMAP Queue A item 6)")
+    # the JAX package's rule: seq_res -> ("model",)
+    seq_shard = bool(overrides.pop("seq_shard_rule", None)
+                     or overrides.get("seq_shard"))
     serve_bf16 = bool(overrides.pop("serve_bf16", False))
     n_chips = math.prod(mesh_lib.PRODUCTION[multi_pod][0])
     with fake_world(n_chips):
         mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod,
                                              device="cpu")
         cell = specs.build_cell(arch, shape, overrides=overrides or None)
-        est, _ = estimate(cell, mesh, serve_bf16=serve_bf16)
+        est, _ = estimate(cell, mesh, serve_bf16=serve_bf16,
+                          seq_shard=seq_shard)
     run_s = est.pop("run_s")
     art = {
         "arch": arch, "shape": shape, "kind": cell.kind,

@@ -26,7 +26,10 @@ the JAX package's ``ShapeDtypeStruct`` stand-ins leaf by leaf (a stacked
 CPU tensors, shapes without memory; outside one, real CPU tensors from
 the seed.  ``cell_step`` gives the step of ``train/steps.py`` the cell
 runs; ``step_and_shardings`` gives it with the placements of its inputs
-and outputs.
+and outputs.  A cache built under a mesh context is a rank's slice
+(``parallel.sharding.kv_spec``: its rows, its KV heads, its positions of
+T) and carries its specs; ``place_cache`` / ``gather_cache`` carry a
+whole cache onto a rank and back, exactly.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ from repro_torch import configs, convert
 from repro_torch.models import zoo
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel.sharding import (DEFAULT_RULES, MeshContext,
+                                           axes_of, batch_axes, div_axes,
+                                           kv_spec, one,
                                            placements_for, spec_for)
 
 
@@ -127,18 +132,13 @@ def state_specs(state, ctx: MeshContext):
 AXES = ("data", "model")       # the axes parameter specs put tensors on
 
 
-def _axes(entry) -> tuple[str, ...]:
-    return () if entry is None else (
-        (entry,) if isinstance(entry, str) else tuple(entry))
-
-
 def split_dims(params, ctx: MeshContext, axis: str) -> list:
     """For each tensor of ``params.parameters()`` (whole, not yet
     placed): the dim its ``param_specs`` entry puts on ``axis``, or None
     (whole over that axis, also where the axis has size 1)."""
     if ctx.shape.get(axis, 1) == 1:
         return [None] * len(list(params.parameters()))
-    return [next((d for d, e in enumerate(spec) if axis in _axes(e)), None)
+    return [next((d for d, e in enumerate(spec) if axis in axes_of(e)), None)
             for spec in param_specs(params, ctx)]
 
 
@@ -228,6 +228,22 @@ def placement(obj) -> dict | None:
     return out or None
 
 
+def _all_gather_over(mesh):
+    """``gather(t, dim, axis)``: ``t`` all-gathered along ``dim`` over
+    ``mesh``'s group of ``axis`` (the sharding context's mesh by
+    default)."""
+    from repro_torch.parallel import tensor_parallel as tpl
+    if mesh is None:
+        from repro_torch.parallel.sharding import current_context
+        mesh = current_context().mesh
+    ctx = MeshContext(mesh, DEFAULT_RULES)
+
+    def gather(t, d, a):
+        return tpl.all_gather(t, d, tpl.TP(
+            ctx, ctx.shape[a], mesh.get_local_rank(a), mesh.get_group(a)))
+    return gather
+
+
 def gather_state(obj, mesh=None, gather=None):
     """The inverse of ``place``: a new module or ``TrainState`` of whole
     tensors (tensors that were not split are shared, not copied).
@@ -238,22 +254,12 @@ def gather_state(obj, mesh=None, gather=None):
     that is not placed is returned as it is."""
     from torch import nn
 
-    from repro_torch.parallel import tensor_parallel as tpl
     from repro_torch.train.steps import TrainState
     st, params = _split_of(obj)
     split = placement(params)
     if split is None:
         return obj
-    if gather is None:
-        if mesh is None:
-            from repro_torch.parallel.sharding import current_context
-            mesh = current_context().mesh
-        ctx = MeshContext(mesh, DEFAULT_RULES)
-
-        def gather(t, d, a):
-            return tpl.all_gather(t, d, tpl.TP(
-                ctx, ctx.shape[a], mesh.get_local_rank(a),
-                mesh.get_group(a)))
+    gather = gather or _all_gather_over(mesh)
 
     def whole(t, i):
         for a in AXES:
@@ -298,32 +304,13 @@ def serve_bf16_params(params):
 # batch / cache placements
 # --------------------------------------------------------------------------
 
-def _div_axes(dim: int, candidates: tuple[str, ...], ctx: MeshContext,
-              used: set) -> tuple[str, ...]:
-    """Longest prefix of unused mesh axes whose product divides `dim`."""
-    sizes = ctx.shape
-    got: tuple[str, ...] = ()
-    acc = 1
-    for a in candidates:
-        if a not in sizes or a in used:
-            continue
-        if dim % (acc * sizes[a]) == 0:
-            acc *= sizes[a]
-            got = got + (a,)
-    return got
-
-
-def _one(axes: tuple[str, ...]):
-    return None if not axes else (axes if len(axes) > 1 else axes[0])
-
-
 def batch_specs(batch: dict, ctx: MeshContext) -> dict:
     """inputs/targets [B, S] over ("pod", "data"); memory [B, F, d] the
     same."""
     out = {}
     for k, v in batch.items():
-        baxes = _div_axes(v.shape[0], ("pod", "data"), ctx, set())
-        out[k] = (_one(baxes),) + (None,) * (len(v.shape) - 1)
+        baxes = batch_axes(v.shape[0], ctx.shape)
+        out[k] = (one(baxes),) + (None,) * (len(v.shape) - 1)
     return out
 
 
@@ -331,9 +318,16 @@ def cache_specs(cache: dict, ctx: MeshContext) -> dict:
     """KV cache [L, B, T, KVH, D]; SSM state [L, B, nh, st, hd]; conv
     [L, B, W-1, C]; memory [B, F, d]; length (an int) replicated.
 
-    Batch gets ("pod", "data") when divisible; heads get "model"; when the
-    batch cannot shard (long_500k B=1) the cache *sequence* dim takes the
-    leftover axes (flash-decoding style sequence sharding)."""
+    Batch gets ("pod", "data") when divisible; heads get "model"; the
+    cache's *sequence* dim takes the axes those leave unused
+    (flash-decoding style sequence sharding; ``parallel.sharding.
+    kv_spec``).  A rank's cache built under a mesh context (its
+    ``"shard"``) gives the specs of what the rank holds: the KV cache's
+    as above, the SSM state and conv window over the batch axes only
+    (whole over "model" in the port)."""
+    if "shard" in cache:
+        return {**{k: () for k in cache if k != "shard"},
+                **cache["shard"]}
     out = {}
     for key, v in cache.items():
         shape = tuple(getattr(v, "shape", ()))
@@ -341,29 +335,71 @@ def cache_specs(cache: dict, ctx: MeshContext) -> dict:
             out[key] = ()
             continue
         if key == "memory":                     # [B, F, d]
-            b = _div_axes(shape[0], ("pod", "data"), ctx, set())
-            out[key] = (_one(b), None, None)
+            b = batch_axes(shape[0], ctx.shape)
+            out[key] = (one(b), None, None)
             continue
         used: set = set()
         parts: list = [None] * len(shape)
         if key in ("k", "v"):                   # [L, B, T, KVH, D]
-            b = _div_axes(shape[1], ("pod", "data"), ctx, used)
-            used.update(b)
-            h = _div_axes(shape[3], ("model",), ctx, used)
-            used.update(h)
-            t = _div_axes(shape[2], ("pod", "data", "model"), ctx, used)
-            parts[1], parts[2], parts[3] = _one(b), _one(t), _one(h)
+            parts = list(kv_spec(shape, ctx.shape))
         elif key == "state":                    # [L, B, nh, st, hd]
-            b = _div_axes(shape[1], ("pod", "data"), ctx, used)
+            b = batch_axes(shape[1], ctx.shape)
             used.update(b)
-            h = _div_axes(shape[2], ("model",), ctx, used)
-            parts[1], parts[2] = _one(b), _one(h)
+            h = div_axes(shape[2], ("model",), ctx.shape, used)
+            parts[1], parts[2] = one(b), one(h)
         elif key == "conv":                     # [L, B, W-1, C]
-            b = _div_axes(shape[1], ("pod", "data"), ctx, used)
+            b = batch_axes(shape[1], ctx.shape)
             used.update(b)
-            c = _div_axes(shape[3], ("model",), ctx, used)
-            parts[1], parts[3] = _one(b), _one(c)
+            c = div_axes(shape[3], ("model",), ctx.shape, used)
+            parts[1], parts[3] = one(b), one(c)
         out[key] = tuple(parts)
+    return out
+
+
+def place_cache(cache: dict, mesh) -> dict:
+    """A whole cache (a meshless one's shapes, the whole batch) as this
+    rank of ``mesh`` holds it: each tensor its ``local_slice`` under the
+    spec the port places it by (the KV cache's ``kv_spec``, the rest
+    over the batch axes only), and ``"shard"``."""
+    ctx = MeshContext(mesh, DEFAULT_RULES)
+    shard = {}
+    for key, v in cache.items():
+        if not isinstance(v, torch.Tensor):
+            continue
+        if key in ("k", "v"):
+            shard[key] = kv_spec(tuple(v.shape), ctx.shape)
+            continue
+        dim = 0 if key == "memory" else 1          # the batch dim
+        spec = [None] * v.dim()
+        spec[dim] = one(batch_axes(v.shape[dim], ctx.shape))
+        shard[key] = tuple(spec)
+    out = {k: (local_slice(v, shard[k], mesh) if k in shard
+               else v) for k, v in cache.items()}
+    out["shard"] = shard
+    return out
+
+
+def gather_cache(cache: dict, mesh) -> dict:
+    """The inverse of ``place_cache``: the whole cache of a rank's cache
+    (every rank of ``mesh`` calls this).  A cache without ``"shard"`` is
+    returned as it is."""
+    if "shard" not in cache:
+        return cache
+    gather = _all_gather_over(mesh)
+    out = {}
+    with torch.no_grad():
+        for key, v in cache.items():
+            if key == "shard":
+                continue
+            spec = cache["shard"].get(key)
+            if spec is None:
+                out[key] = v
+                continue
+            # the last axis of an entry is its minor one: gathered first
+            for d, entry in enumerate(spec):
+                for a in reversed(axes_of(entry)):
+                    v = gather(v, d, a)
+            out[key] = v
     return out
 
 
@@ -463,7 +499,9 @@ def train_batch_abs(cell: Cell, gen: torch.Generator) -> dict:
 
 
 def abstract_cache(cell: Cell, batch: int, max_len: int) -> dict:
-    """The model's cache of ``max_len`` positions, on the CPU."""
+    """The model's cache of ``batch`` rows and ``max_len`` positions, on
+    the CPU; under a mesh context the rank's ``cache_specs`` slice of it
+    (``place_cache``'s layout)."""
     return cell.model.init_cache(batch, max_len, device="cpu")
 
 

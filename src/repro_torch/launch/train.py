@@ -67,7 +67,7 @@ def train(model: zoo.Model, *, steps: int, batch: int, seq: int,
           lr: float = 3e-4, seed: int = 0, device=None, ckpt_dir: str = "",
           ckpt_every: int = 50, fail_at: int | None = None,
           log_every: int = 10, log=print, metrics_cb=None, mesh=None,
-          overlap: bool = False) -> dict:
+          overlap: bool = False, rules=None) -> dict:
     """Train ``model`` from ``init_train_state(seed)`` (or the newest
     committed checkpoint in ``ckpt_dir``) for ``steps`` steps of
     ``batch`` x ``seq`` tokens.
@@ -88,7 +88,8 @@ def train(model: zoo.Model, *, steps: int, batch: int, seq: int,
     records hold the global loss and gradient norm.  Only rank 0 logs
     and writes checkpoints; the other ranks of its "data" x "model"
     plane take part in gathering a placed state for them.  ``overlap`` reduces the
-    gradients during the backward."""
+    gradients during the backward; ``rules``: the step's sharding rules
+    (``make_train_step``'s, e.g. ``seq_res -> ("model",)``)."""
     cfg = model.config
     device = resolve_device(device)
     gen = TokenGenConfig(vocab_size=cfg.vocab_size, batch=batch,
@@ -97,7 +98,8 @@ def train(model: zoo.Model, *, steps: int, batch: int, seq: int,
                          d_model=cfg.d_model)
     opt_cfg = AdamWConfig(lr=lr, total_steps=steps,
                           warmup_steps=max(steps // 20, 5))
-    train_step = make_train_step(model, opt_cfg, mesh=mesh, overlap=overlap)
+    train_step = make_train_step(model, opt_cfg, mesh=mesh, overlap=overlap,
+                                 rules=rules)
     lead = mesh is None or torch.distributed.get_rank() == 0
     # the ranks that save: rank 0, and the rest of its "data" x "model"
     # plane (a placed state is gathered over both; rank 0 writes)

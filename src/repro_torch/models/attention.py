@@ -33,8 +33,19 @@ whole weights used on part of the heads have their gradients summed
 over "model".  Where the q heads do not split, attention is replicated
 on every rank, its split-stored weights gathered.
 
-The cache is ``{"k", "v": [L, B, T, KVH, D], "length": int}`` (KVH the
-rank's KV heads where they split over "model"); the port
+Sequence parallelism (``parallel.sequence_parallel``).  On a split
+residual stream a call gathers the sequence at entry (so rope and the
+masks see global positions) and leaves on this rank's positions: the
+row-parallel ``wo`` reduce-scatters, a replicated call takes its slice.
+
+The cache is ``{"k", "v": [L, B, T, KVH, D], "length": int}``; under a
+mesh context it is the rank's ``cache_specs`` slice (its rows of the
+batch, its KV heads where they split over "model", its positions of T
+where T splits) and carries ``"shard"``.  Prefill writes the positions
+of its slice; decode writes the new token on the rank that owns slot
+``length`` and scores the rank's positions, combining the softmax over
+T's axes (``parallel.sharding.cache_slice``): an f32 all-reduce of the
+row max, then of the exp-sum, then of the weighted values.  The port
 updates it in place (the JAX package returns a new one), and its length is
 a host integer, so no decode step waits on the device to build its masks.
 The transformer decodes with ``project_kv_token`` +
@@ -51,6 +62,8 @@ from torch import nn
 
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.models import layers
+from repro_torch.parallel import sequence_parallel as seqp
+from repro_torch.parallel import sharding
 from repro_torch.parallel import tensor_parallel as tpl
 
 NEG_INF = flash_kernel.NEG_INF
@@ -83,14 +96,16 @@ class _Heads:
     ones (each KV head read by the same number of q heads).
     ``tp`` is None without tensor parallelism (every head, the
     meshless ops); ``local``: the q heads are this rank's share, so the
-    call is a rank-local region."""
+    call is a rank-local region.  ``whole``: every head on every rank
+    (a decode whose cache's T splits over "model")."""
 
-    def __init__(self, cfg, all_kv: bool):
+    def __init__(self, cfg, all_kv: bool, whole: bool = False):
         self.tp = tp = tpl.active()
         self.cfg = cfg
         h, kvh = cfg.n_heads, cfg.n_kv_heads
         self.q0, self.nq, self.kv0, self.nkv, self.sel = 0, h, 0, kvh, None
-        self.local = tp is not None and tp.splits("heads", h)
+        self.local = (tp is not None and not whole
+                      and tp.splits("heads", h))
         if not self.local:
             return
         self.q0, self.nq = tp.chunk(h)
@@ -113,8 +128,18 @@ class _Heads:
             self.sel = slice(first - self.kv0, first - self.kv0 + n_sel)
 
     def enter(self, x):
-        """A replicated input of the region (its gradient summed)."""
-        return tpl.to_model(x, self.tp.group) if self.local else x
+        """The call's input from the residual stream: the region's
+        (``sequence_parallel.enter``: its gradient summed; the sequence
+        gathered on a split stream), or a replicated call's whole
+        sequence."""
+        if self.local:
+            return seqp.enter(x, self.tp)
+        return seqp.enter_replicated(x)
+
+    def enter_memory(self, m):
+        """A modality memory entering the region (its gradient
+        summed)."""
+        return tpl.to_model(m, self.tp.group) if self.local else m
 
     def select(self, kv):
         """The KV heads [B, T, ·, D] the q heads read."""
@@ -137,27 +162,33 @@ class _Heads:
     def norm(self, x, scale):
         """RMS norm over head_dim; a replicated scale used on part of
         the heads has its gradient summed over "model"."""
-        return layers.rms_norm(x, self.enter(scale), self.cfg.norm_eps)
+        if self.local:
+            scale = tpl.to_model(scale, self.tp.group)
+        return layers.rms_norm(x, scale, self.cfg.norm_eps)
 
     def out(self, p, o):
         """The output projection of o [B, S, nq·D]: row-parallel in a
-        region (one sum over "model"), else ``wo`` whole."""
+        region (one sum over "model"), else ``wo`` whole (this rank's
+        positions of it on a split stream)."""
         size = self.cfg.n_heads * self.cfg.head_dim
         if self.tp is None:
             return layers.linear(o, p.wo.w)
         if self.local:
-            return tpl.row_parallel(o, p.wo.w, p.wo.b, size, self.tp)
-        return layers.linear(o, tpl.whole(p.wo.w, 0, size, self.tp),
-                             p.wo.b)
+            return seqp.leave(tpl.row_parallel(o, p.wo.w, size, self.tp),
+                              self.tp)
+        return seqp.leave_replicated(layers.linear(
+            o, tpl.whole(p.wo.w, 0, size, self.tp), p.wo.b))
 
 
 def _project_qkv(p: Attention, cfg, x, positions, theta, hs=None):
-    """q, k, v of the heads ``hs`` computes (a fresh ``_Heads`` of the
-    current context by default)."""
+    """q, k, v of the heads ``hs`` computes from x, already inside the
+    call (``_Heads.enter``); by default a fresh ``_Heads`` of the current
+    context, x entered through it."""
+    if hs is None:
+        hs = _Heads(cfg, all_kv=True)
+        x = hs.enter(x)
     b, s, _ = x.shape
-    hs = _Heads(cfg, all_kv=True) if hs is None else hs
     hd = cfg.head_dim
-    x = hs.enter(x)
     q = hs.proj(x, p.wq, hs.q0, hs.nq, cfg.n_heads).reshape(b, s, hs.nq, hd)
     k = hs.proj(x, p.wk, hs.kv0, hs.nkv, cfg.n_kv_heads).reshape(
         b, s, hs.nkv, hd)
@@ -218,10 +249,11 @@ def self_attention(p: Attention, cfg, x, positions=None, *, causal=True,
     ``positions`` [B, S] of ``None`` means ``0..S-1`` in every row (what
     the model passes): rope takes ``arange_positions`` and the flash
     kernel its own positions, with no device check."""
+    hs = _Heads(cfg, all_kv=return_kv)
+    x = hs.enter(x)
     b, s, _ = x.shape
     theta = cfg.rope_theta if theta is None else theta
     rope_pos = arange_positions(x) if positions is None else positions
-    hs = _Heads(cfg, all_kv=return_kv)
     q, k, v = _project_qkv(p, cfg, x, rope_pos, theta, hs)
     out = flash_attention(q, hs.select(k), hs.select(v), positions,
                           positions, causal=causal, window=window)
@@ -242,11 +274,11 @@ def cross_attention(p: Attention, cfg, x, memory):
     gives f32 k/v, and the attention runs in f32 with q cast up, its
     output cast back to x's dtype, as the JAX package's flash promotes
     the mixed operands and returns q's dtype."""
+    hs = _Heads(cfg, all_kv=False)
+    x, memory = hs.enter(x), hs.enter_memory(memory)
     b, s, _ = x.shape
     t = memory.shape[1]
     hd = cfg.head_dim
-    hs = _Heads(cfg, all_kv=False)
-    x, memory = hs.enter(x), hs.enter(memory)
     q = hs.proj(x, p.wq, hs.q0, hs.nq, cfg.n_heads).reshape(b, s, hs.nq, hd)
     k = hs.proj(memory, p.wk, hs.kv0, hs.nkv, cfg.n_kv_heads).reshape(
         b, t, hs.nkv, hd)
@@ -269,12 +301,36 @@ def init_kv_cache(cfg, batch, max_len, dtype=torch.bfloat16, device=None,
                   n_layers=None):
     """[L, B, T, KVH, D] stacked cache (+ current length); L is
     ``n_layers`` when given (the hybrid's shared-block calls), else the
-    config's layers."""
+    config's layers.  Under a mesh context ``batch`` and ``max_len`` are
+    the whole cache's and the cache is this rank's ``cache_specs`` slice
+    (``parallel.sharding.kv_spec``), its spec under ``"shard"``."""
     nl = cfg.n_layers if n_layers is None else n_layers
-    shape = (nl, batch, max_len, _Heads(cfg, all_kv=True).nkv, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "length": 0}
+    shape = (nl, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    shape, spec = sharding.cache_layout(shape)
+    nkv = _Heads(cfg, all_kv=True).nkv
+    if shape[3] != nkv:
+        raise ValueError(f"{cfg.name}: the cache holds {shape[3]} KV heads "
+                         f"a rank, its attention computes {nkv}")
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device),
+             "length": 0}
+    if spec is not None:
+        cache["shard"] = {"k": spec, "v": spec}
+    return cache
+
+
+def write_prefix(layer, kv, sl):
+    """Write kv [B, S, KVH, D], positions [0, S), into one layer's cache
+    [B, T, KVH, D] in place, cast to its dtype: the positions of the
+    rank's slice of T (``sl``, a ``parallel.sharding.CacheSlice``; None:
+    all of T)."""
+    s = kv.shape[1]
+    if sl is None:
+        layer[:, :s] = kv.to(layer.dtype)
+        return
+    hi = min(sl.start + sl.size, s)
+    if hi > sl.start:
+        layer[:, :hi - sl.start] = kv[:, sl.start:hi].to(layer.dtype)
 
 
 def _token_positions(x, length: int) -> torch.Tensor:
@@ -328,65 +384,103 @@ def _decode_values(wts, values):
                         values.float())
 
 
+def _combine(sc, sl):
+    """Softmax weights over the last dim of f32 scores ``sc`` whose row
+    is split over the ranks of T's axes (``sl``): the row max and the
+    exp-sum all-reduced in f32."""
+    m = sl.max(sc.amax(dim=-1, keepdim=True))
+    e = torch.exp(sc - m)
+    return e / sl.sum(e.sum(dim=-1, keepdim=True))
+
+
 def decode_attention_append(p: Attention, cfg, x, layer_k, layer_v, k_new,
-                            v_new, length: int, *, window=0, theta=None):
+                            v_new, length: int, *, window=0, theta=None,
+                            sl=None):
     """One-token attention: scores against the cache slots before
     ``length`` plus the new token's own score, computed separately (the
-    cache is read only).  x [B,1,d]; layer_k/v [B,T,KVH,D]."""
+    cache is read only).  x [B,1,d]; layer_k/v [B,T,KVH,D].  ``sl``: the
+    rank's slice of T (``parallel.sharding.CacheSlice``): its slots are
+    scored at their global positions, the new token's score enters on
+    the rank that owns slot ``length``, and the softmax and the weighted
+    values are combined over T's axes (every q head on each rank where
+    "model" is one of them)."""
     b, t = x.shape[0], layer_k.shape[1]
-    hs = _Heads(cfg, all_kv=True)
+    hs = _Heads(cfg, all_kv=True, whole=sl is not None and sl.model)
     layer_k, layer_v = hs.select(layer_k), hs.select(layer_v)
     k_new, v_new = hs.select(k_new), hs.select(v_new)
     qg = _decode_query(p, cfg, x, length, theta, hs, layer_k.shape[2])
     s = _decode_scores(qg, layer_k)
-    kpos = torch.arange(t, device=x.device)
+    kpos = torch.arange(t, device=x.device) + (0 if sl is None
+                                               else sl.start)
     mask = kpos < length                       # strictly-past cache slots
     if window > 0:
         mask = mask & (kpos > length - window)
     s = s.masked_fill(~mask, NEG_INF)
-    sc = torch.cat([s, _decode_scores(qg, k_new)], dim=-1)  # [..., T+1]
-    wts = torch.softmax(sc, dim=-1)
-    out = (_decode_values(wts[..., :t], layer_v)
-           + _decode_values(wts[..., t:], v_new))
+    own = sl is None or sl.owns(length)
+    sc = torch.cat([s, _decode_scores(qg, k_new)], dim=-1) if own else s
+    if sl is None:
+        wts = torch.softmax(sc, dim=-1)            # [..., T+1]
+    else:
+        wts = _combine(sc, sl)
+    out = _decode_values(wts[..., :t], layer_v)
+    if own:
+        out = out + _decode_values(wts[..., t:], v_new)
+    if sl is not None:
+        out = sl.sum(out)
     out = out.reshape(b, 1, hs.nq * cfg.head_dim).to(x.dtype)
     return hs.out(p, out)
 
 
-def write_kv_stack(cache_k, cache_v, ks, vs, length: int):
+def _write_token(layer, kv, length: int, sl) -> None:
+    """kv [..., 1, KVH, D] into ``layer`` [..., T, KVH, D] at global
+    position ``length`` along dim -3, where this rank holds it."""
+    if sl is None or sl.owns(length):
+        i = length - (0 if sl is None else sl.start)
+        layer[..., i:i + 1, :, :] = kv.to(layer.dtype)
+
+
+def write_kv_stack(cache_k, cache_v, ks, vs, length: int, sl=None):
     """Write the per-layer k/v of one step [L,B,1,KVH,D] into the stacked
-    [L,B,T,KVH,D] cache at position ``length``, in place."""
-    cache_k[:, :, length:length + 1] = ks.to(cache_k.dtype)
-    cache_v[:, :, length:length + 1] = vs.to(cache_v.dtype)
+    [L,B,T,KVH,D] cache at position ``length``, in place (on the rank
+    that owns it, ``sl``)."""
+    _write_token(cache_k, ks, length, sl)
+    _write_token(cache_v, vs, length, sl)
     return cache_k, cache_v
 
 
 def append_kv(p: Attention, cfg, x, layer_k, layer_v, length: int, *,
-              theta=None):
+              theta=None, sl=None):
     """Project this step's k/v and write them into layer_k/v
-    [B,T,KVH,D] at ``length``, cast to the cache's dtype, in place;
-    returns (layer_k, layer_v).  With ``decode_attention`` this is the
-    SSM/hybrid and enc-dec families' decode (the transformer's is
-    ``project_kv_token`` + ``decode_attention_append``)."""
+    [B,T,KVH,D] at ``length`` (on the rank that owns it, ``sl``), cast
+    to the cache's dtype, in place; returns (layer_k, layer_v).  With
+    ``decode_attention`` this is the SSM/hybrid and enc-dec families'
+    decode (the transformer's is ``project_kv_token`` +
+    ``decode_attention_append``)."""
     k, v = project_kv_token(p, cfg, x, length, theta=theta)
-    layer_k[:, length:length + 1] = k.to(layer_k.dtype)
-    layer_v[:, length:length + 1] = v.to(layer_v.dtype)
+    _write_token(layer_k, k, length, sl)
+    _write_token(layer_v, v, length, sl)
     return layer_k, layer_v
 
 
 def decode_attention(p: Attention, cfg, x, layer_k, layer_v, length: int,
-                     *, theta=None):
+                     *, theta=None, sl=None):
     """One-token self-attention against the cache, which already holds
     this step's k/v at ``length`` (``append_kv``): the new token is scored
     from its cache copy, in the cache's dtype, as the JAX package scores
     it.  x [B,1,d]; layer_k/v [B,T,KVH,D]; returns [B,1,d].  No window:
-    no family that decodes through it has one."""
+    no family that decodes through it has one.  ``sl``: as in
+    ``decode_attention_append``."""
     b, t = x.shape[0], layer_k.shape[1]
-    hs = _Heads(cfg, all_kv=True)
+    hs = _Heads(cfg, all_kv=True, whole=sl is not None and sl.model)
     layer_k, layer_v = hs.select(layer_k), hs.select(layer_v)
     qg = _decode_query(p, cfg, x, length, theta, hs, layer_k.shape[2])
     s = _decode_scores(qg, layer_k)
-    kpos = torch.arange(t, device=x.device)
+    kpos = torch.arange(t, device=x.device) + (0 if sl is None
+                                               else sl.start)
     s = s.masked_fill(kpos > length, NEG_INF)
-    out = _decode_values(torch.softmax(s, dim=-1), layer_v)
+    if sl is None:
+        out = _decode_values(torch.softmax(s, dim=-1), layer_v)
+    else:
+        out = sl.sum(_decode_values(_combine(s, sl), layer_v))
     out = out.reshape(b, 1, hs.nq * cfg.head_dim).to(x.dtype)
     return hs.out(p, out)

@@ -15,17 +15,23 @@ With ``cfg.remat`` and grad enabled, each encoder and decoder block runs
 under its own non-reentrant ``torch.utils.checkpoint``.  Under FSDP over
 "data" (``parallel.fsdp``) each block gathers its weights as it runs
 (inside its checkpoint), the embedding and head around the stacks.
+Under sequence parallelism (``parallel.sequence_parallel``) the
+decoder's residual stream is the rank's positions of the target
+sequence (its self-attention, cross-attention and GLU gather it at
+entry); the encoder runs on the whole frames, which the JAX package
+annotates "seq".  The serve steps run on the rank's ``cache_specs``
+slice of the decoder's KV cache.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
-
 from repro_torch.models import attention, layers, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel import fsdp
+from repro_torch.parallel import sequence_parallel as seqp
+from repro_torch.parallel import sharding
 
 
 class DecBlock(nn.Module):
@@ -91,23 +97,22 @@ def encode(params: EncDecLM, cfg: ModelConfig, frames):
     remat = cfg.remat and torch.is_grad_enabled()
     for blk in params.enc_blocks:
         if remat:
-            x = checkpoint(fsdp.call, _enc_block, blk, cfg, x,
-                           use_reentrant=False)
+            x = seqp.checkpoint(fsdp.call, _enc_block, blk, cfg, x)
         else:
             x = fsdp.call(_enc_block, blk, cfg, x)
     return layers.rms_norm(x, params.enc_norm.scale, cfg.norm_eps)
 
 
 def _dec_block(p: DecBlock, cfg: ModelConfig, x, memory, return_kv=False):
-    h = layers.rms_norm(x, p.ln_attn.scale, cfg.norm_eps)
+    h = layers.rms_norm(x, seqp.replicated(p.ln_attn.scale), cfg.norm_eps)
     out = attention.self_attention(p.attn, cfg, h, causal=True,
                                    return_kv=return_kv)
     if return_kv:
         out, kk, vv = out
     x = x + out
-    h = layers.rms_norm(x, p.ln_cross.scale, cfg.norm_eps)
+    h = layers.rms_norm(x, seqp.replicated(p.ln_cross.scale), cfg.norm_eps)
     x = x + attention.cross_attention(p.xattn, cfg, h, memory)
-    h = layers.rms_norm(x, p.ln_mlp.scale, cfg.norm_eps)
+    h = layers.rms_norm(x, seqp.replicated(p.ln_mlp.scale), cfg.norm_eps)
     x = x + layers.glu_mlp(h, p.mlp, cfg.act)
     return (x, kk, vv) if return_kv else x
 
@@ -117,16 +122,17 @@ def forward(params: EncDecLM, cfg: ModelConfig, tokens, memory=None):
     d] stub frame embeddings, pre-encoder) -> (f32 logits [B, S, V], {})."""
     mem = encode(params, cfg, memory)
     emb, head = fsdp.ends(params)
-    x = layers.embed(tokens, emb, layers.dtype_of(cfg.dtype))
     remat = cfg.remat and torch.is_grad_enabled()
-    for blk in params.dec_blocks:
-        if remat:
-            x = checkpoint(fsdp.call, _dec_block, blk, cfg, x, mem,
-                           use_reentrant=False)
-        else:
-            x = fsdp.call(_dec_block, blk, cfg, x, mem)
-    x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    return layers.unembed(x, head), {}
+    with seqp.stream(seqp.split(tuple(tokens.shape) + (cfg.d_model,))):
+        x = layers.embed(tokens, emb, layers.dtype_of(cfg.dtype))
+        for blk in params.dec_blocks:
+            if remat:
+                x = seqp.checkpoint(fsdp.call, _dec_block, blk, cfg, x, mem)
+            else:
+                x = fsdp.call(_dec_block, blk, cfg, x, mem)
+        x = layers.rms_norm(x, seqp.replicated(params.final_norm.scale),
+                            cfg.norm_eps)
+        return layers.unembed(x, head), {}
 
 
 # --------------------------------------------------------------------------
@@ -136,31 +142,39 @@ def forward(params: EncDecLM, cfg: ModelConfig, tokens, memory=None):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None):
     """The decoder's stacked KV cache plus the encoded ``memory`` [B,
-    n_frontend_tokens, d], both in ``dtype``."""
+    n_frontend_tokens, d], both in ``dtype``; under a mesh context the
+    rank's slice (``attention.init_kv_cache``), the memory its rows."""
     cache = attention.init_kv_cache(cfg, batch, max_len, dtype=dtype,
                                     device=device)
-    cache["memory"] = torch.zeros((batch, cfg.n_frontend_tokens,
+    cache["memory"] = torch.zeros((cache["k"].shape[1], cfg.n_frontend_tokens,
                                    cfg.d_model), dtype=dtype, device=device)
+    if "shard" in cache:
+        cache["shard"]["memory"] = (cache["shard"]["k"][1], None, None)
     return cache
 
 
 def prefill(params: EncDecLM, cfg: ModelConfig, tokens, cache, memory=None):
     """Encode the source into the cache's ``memory``, then run the decoder
-    over the target prefix, writing its k/v into the cache at [0, S);
-    returns (logits [B, 1, V] of the last position, cache).  The prefix's
+    over the target prefix, writing its k/v into the cache at [0, S) (the
+    rank's positions of it where T splits); returns (logits [B, 1, V] of
+    the last position, cache).  The prefix's
     cross-attention reads the encoder's output, as the JAX package's
     does; decode reads the cache's copy."""
-    s = tokens.shape[1]
+    b, s = tokens.shape
     mem = encode(params, cfg, memory)
     cache["memory"] = mem.to(cache["memory"].dtype)
     emb, head = fsdp.ends(params)
-    x = layers.embed(tokens, emb, layers.dtype_of(cfg.dtype))
-    for i, blk in enumerate(params.dec_blocks):
-        x, kk, vv = fsdp.call(_dec_block, blk, cfg, x, mem, return_kv=True)
-        cache["k"][i, :, :s] = kk.to(cache["k"].dtype)
-        cache["v"][i, :, :s] = vv.to(cache["v"].dtype)
-    x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    logits = layers.unembed(x[:, -1:], head)
+    sl = sharding.cache_slice(cache)
+    with seqp.stream(seqp.split((b, s, cfg.d_model))):
+        x = layers.embed(tokens, emb, layers.dtype_of(cfg.dtype))
+        for i, blk in enumerate(params.dec_blocks):
+            x, kk, vv = fsdp.call(_dec_block, blk, cfg, x, mem,
+                                  return_kv=True)
+            attention.write_prefix(cache["k"][i], kk, sl)
+            attention.write_prefix(cache["v"][i], vv, sl)
+        x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
+        x = seqp.last_position(x)
+    logits = layers.unembed(x, head)
     cache["length"] = s
     return logits, cache
 
@@ -173,12 +187,14 @@ def decode_step(params: EncDecLM, cfg: ModelConfig, cache, tokens):
     x = layers.embed(tokens, emb, layers.dtype_of(cfg.dtype))
     length = cache["length"]
     mem = cache["memory"]
+    sl = sharding.cache_slice(cache)
     for i, p in enumerate(params.dec_blocks):
         p = fsdp.gathered(p)
         h = layers.rms_norm(x, p.ln_attn.scale, cfg.norm_eps)
         lk, lv = attention.append_kv(p.attn, cfg, h, cache["k"][i],
-                                     cache["v"][i], length)
-        x = x + attention.decode_attention(p.attn, cfg, h, lk, lv, length)
+                                     cache["v"][i], length, sl=sl)
+        x = x + attention.decode_attention(p.attn, cfg, h, lk, lv, length,
+                                           sl=sl)
         h = layers.rms_norm(x, p.ln_cross.scale, cfg.norm_eps)
         x = x + attention.cross_attention(p.xattn, cfg, h, mem)
         h = layers.rms_norm(x, p.ln_mlp.scale, cfg.norm_eps)

@@ -16,18 +16,24 @@ each SSM block and each shared call runs under its own non-reentrant
 and ``decode_attention``, as the JAX package does, and updates every
 cache in place.  Under FSDP over "data" (``parallel.fsdp``) each SSM
 block and each shared call gathers its weights as it runs (inside its
-checkpoint), the embedding and head around the stack.
+checkpoint), the embedding and head around the stack.  Under sequence
+parallelism (``parallel.sequence_parallel``) the residual stream is the
+rank's positions of the sequence between blocks: an SSM block gathers
+the sequence for its scan and keeps its positions of the output, the
+shared block is ``transformer.block_forward``'s.  The serve steps run on
+the rank's ``cache_specs`` slice of the shared block's KV cache; the SSM
+state and conv window stay whole.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
-
 from repro_torch.models import attention, layers, ssm, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel import fsdp
+from repro_torch.parallel import sequence_parallel as seqp
+from repro_torch.parallel import sharding
 
 
 class SSMBlock(nn.Module):
@@ -42,8 +48,9 @@ def init_ssm_block(gen: torch.Generator, cfg: ModelConfig) -> SSMBlock:
 
 
 def _ssm_block_forward(p: SSMBlock, cfg: ModelConfig, x):
-    h = layers.rms_norm(x, p.ln.scale, cfg.norm_eps)
-    return x + ssm.ssd_forward(h, p.ssm, cfg)
+    h = layers.rms_norm(x, seqp.replicated(p.ln.scale), cfg.norm_eps)
+    y = ssm.ssd_forward(seqp.enter_replicated(h), p.ssm, cfg)
+    return x + seqp.leave_replicated(y)
 
 
 class HybridLM(nn.Module):
@@ -97,24 +104,26 @@ def forward(params: HybridLM, cfg: ModelConfig, tokens, memory=None):
     del memory
     dt = layers.dtype_of(cfg.dtype)
     emb, head = fsdp.ends(params)
-    x = layers.embed(tokens, emb, dt)
     remat = cfg.remat and torch.is_grad_enabled()
 
     def run(fn, *args):
         # the block gathered over "data" inside its checkpoint
         if remat:
-            return checkpoint(fsdp.call, fn, *args, use_reentrant=False)
+            return seqp.checkpoint(fsdp.call, fn, *args)
         return fsdp.call(fn, *args)
 
     groups, tail = _groups(cfg)
-    for grp in groups:
-        for i in grp:
+    with seqp.stream(seqp.split(tuple(tokens.shape) + (cfg.d_model,))):
+        x = layers.embed(tokens, emb, dt)
+        for grp in groups:
+            for i in grp:
+                x = run(_ssm_block_forward, params.blocks[i], cfg, x)
+            x = run(_shared_forward, params.shared_block, cfg, x)
+        for i in tail:
             x = run(_ssm_block_forward, params.blocks[i], cfg, x)
-        x = run(_shared_forward, params.shared_block, cfg, x)
-    for i in tail:
-        x = run(_ssm_block_forward, params.blocks[i], cfg, x)
-    x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    return layers.unembed(x, head), {}
+        x = layers.rms_norm(x, seqp.replicated(params.final_norm.scale),
+                            cfg.norm_eps)
+        return layers.unembed(x, head), {}
 
 
 # --------------------------------------------------------------------------
@@ -124,14 +133,26 @@ def forward(params: HybridLM, cfg: ModelConfig, tokens, memory=None):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None):
     """The f32 SSM state and conv window of every layer, ``length``, and
-    for the hybrid a KV cache of one layer per shared call in ``dtype``."""
-    cache = ssm.init_ssm_cache(cfg, batch, cfg.n_layers, device=device)
+    for the hybrid a KV cache of one layer per shared call in ``dtype``.
+    Under a mesh context the rank's rows, the KV cache its slice
+    (``attention.init_kv_cache``); the state and conv window whole over
+    "model"."""
+    cache = ssm.init_ssm_cache(cfg, sharding.local_rows(batch),
+                               cfg.n_layers, device=device)
     cache["length"] = 0
     if cfg.is_hybrid:
         kv = attention.init_kv_cache(cfg, batch, max_len, dtype=dtype,
                                      device=device,
                                      n_layers=n_shared_calls(cfg))
         cache["k"], cache["v"] = kv["k"], kv["v"]
+        if "shard" in kv:
+            cache["shard"] = kv["shard"]
+    sizes = sharding.mesh_sizes()
+    if sizes is not None:
+        rows = sharding.one(sharding.batch_axes(batch, sizes))
+        shard = cache.setdefault("shard", {})
+        for k in ("state", "conv"):
+            shard[k] = (None, rows) + (None,) * (cache[k].dim() - 2)
     return cache
 
 
@@ -142,11 +163,11 @@ def _ssm_block_decode(p: SSMBlock, cfg, x, state, conv):
 
 
 def _shared_decode(p: transformer.Block, cfg, x, layer_k, layer_v,
-                   length: int):
+                   length: int, sl):
     h = layers.rms_norm(x, p.ln_attn.scale, cfg.norm_eps)
-    attention.append_kv(p.attn, cfg, h, layer_k, layer_v, length)
+    attention.append_kv(p.attn, cfg, h, layer_k, layer_v, length, sl=sl)
     x = x + attention.decode_attention(p.attn, cfg, h, layer_k, layer_v,
-                                       length)
+                                       length, sl=sl)
     h = layers.rms_norm(x, p.ln_mlp.scale, cfg.norm_eps)
     return x + layers.glu_mlp(h, p.mlp, cfg.act)
 
@@ -159,6 +180,7 @@ def decode_step(params: HybridLM, cfg: ModelConfig, cache, tokens):
     emb, head = fsdp.ends(params)
     x = layers.embed(tokens, emb, dt)
     length = cache["length"]
+    sl = sharding.cache_slice(cache)
     groups, tail = _groups(cfg)
 
     def run(idx, x):
@@ -170,7 +192,7 @@ def decode_step(params: HybridLM, cfg: ModelConfig, cache, tokens):
     for g, grp in enumerate(groups):
         x = run(grp, x)
         x = fsdp.call(_shared_decode, params.shared_block, cfg, x,
-                      cache["k"][g], cache["v"][g], length)
+                      cache["k"][g], cache["v"][g], length, sl)
     x = run(tail, x)
     x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
     logits = layers.unembed(x, head)
@@ -181,8 +203,9 @@ def decode_step(params: HybridLM, cfg: ModelConfig, cache, tokens):
 def prefill(params: HybridLM, cfg: ModelConfig, tokens, cache, memory=None):
     """Full-sequence prefill: the chunked SSD of every layer, its final
     state and conv window written into the cache, and for the hybrid the
-    shared calls' k/v written into the cache prefix [0, S); returns
-    (logits [B, 1, V] of the last position, cache).
+    shared calls' k/v written into the cache prefix [0, S) (the rank's
+    positions of it where T splits); returns (logits [B, 1, V] of the
+    last position, cache).
 
     A prompt shorter than ``ssm_conv - 1`` tokens raises ``ValueError``:
     its conv window would be shorter than the decode's, and the JAX
@@ -194,28 +217,32 @@ def prefill(params: HybridLM, cfg: ModelConfig, tokens, cache, memory=None):
                          f"than the conv window ({cfg.ssm_conv - 1})")
     dt = layers.dtype_of(cfg.dtype)
     emb, head = fsdp.ends(params)
-    x = layers.embed(tokens, emb, dt)
     groups, tail = _groups(cfg)
+    sl = sharding.cache_slice(cache)
 
     def run(idx, x):
         for i in idx:
             blk = fsdp.gathered(params.blocks[i])
             h = layers.rms_norm(x, blk.ln.scale, cfg.norm_eps)
-            y, st, cv = ssm.ssd_prefill(h, blk.ssm, cfg)
-            x = x + y
+            y, st, cv = ssm.ssd_prefill(seqp.enter_replicated(h), blk.ssm,
+                                        cfg)
+            x = x + seqp.leave_replicated(y)
             cache["state"][i] = st.to(cache["state"].dtype)
             cache["conv"][i] = cv.to(cache["conv"].dtype)
         return x
 
-    for g, grp in enumerate(groups):
-        x = run(grp, x)
-        x, _, (kk, vv) = fsdp.call(
-            transformer.block_forward, params.shared_block, cfg, x, None,
-            0, cfg.rope_theta, return_kv=True)
-        cache["k"][g, :, :s] = kk.to(cache["k"].dtype)
-        cache["v"][g, :, :s] = vv.to(cache["v"].dtype)
-    x = run(tail, x)
-    x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    logits = layers.unembed(x[:, -1:], head)
+    with seqp.stream(seqp.split((b, s, cfg.d_model))):
+        x = layers.embed(tokens, emb, dt)
+        for g, grp in enumerate(groups):
+            x = run(grp, x)
+            x, _, (kk, vv) = fsdp.call(
+                transformer.block_forward, params.shared_block, cfg, x,
+                None, 0, cfg.rope_theta, return_kv=True)
+            attention.write_prefix(cache["k"][g], kk, sl)
+            attention.write_prefix(cache["v"][g], vv, sl)
+        x = run(tail, x)
+        x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
+        x = seqp.last_position(x)
+    logits = layers.unembed(x, head)
     cache["length"] = s
     return logits, cache

@@ -16,7 +16,12 @@ in ``gate`` / ``up`` and row-parallel in ``down``, and ``embed`` /
 ``unembed`` are vocab-parallel (the logits come out vocab-sharded).
 ``GLUMLP.d_ff`` and ``Embed.vocab`` keep the whole sizes, so a module
 placed onto a rank (``launch.specs.place``) still knows them.
-Without such a context the ops are the meshless ones.  Init draws from
+Without such a context the ops are the meshless ones.  Under sequence
+parallelism (``parallel.sequence_parallel``) ``embed`` puts its output
+on this rank's positions of the sequence, ``glu_mlp`` and ``unembed``
+gather the sequence at entry, and a norm on the residual stream takes
+its scale through ``sequence_parallel.replicated`` (the caller's).
+Init draws from
 an explicit
 ``torch.Generator`` (the parameters land on its device) with the scales of
 the JAX package; the bits differ, so tests carry JAX's parameters across.
@@ -31,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.parallel import sequence_parallel as seqp
 from repro_torch.parallel import tensor_parallel as tpl
 
 
@@ -115,18 +121,21 @@ class GLUMLP(nn.Module):
 def glu_mlp(x: torch.Tensor, p: GLUMLP, act: str) -> torch.Tensor:
     """SwiGLU / GeGLU: act(x @ w_gate) * (x @ w_up) @ w_down.  Under
     tensor parallelism with the hidden split: this rank's hidden columns,
-    then one sum over "model"."""
+    then one sum over "model"; else replicated.  On a split residual
+    stream both gather the sequence at entry and leave on this rank's
+    positions."""
     tp = tpl.active()
     if tp is not None and tp.splits("mlp", p.d_ff):
-        x = tpl.to_model(x, tp.group)
+        x = seqp.enter(x, tp)
         g = tpl.col_parallel(x, p.gate.w, None, p.d_ff, tp)
         u = tpl.col_parallel(x, p.up.w, None, p.d_ff, tp)
         g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
-        return tpl.row_parallel(g * u, p.down.w, None, p.d_ff, tp)
+        return seqp.leave(tpl.row_parallel(g * u, p.down.w, p.d_ff, tp), tp)
+    x = seqp.enter_replicated(x)
     g = linear(x, p.gate.w)
     u = linear(x, p.up.w)
     g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
-    return linear(g * u, p.down.w)
+    return seqp.leave_replicated(linear(g * u, p.down.w))
 
 
 def init_glu_mlp(gen: torch.Generator, d_model: int, d_ff: int) -> GLUMLP:
@@ -148,21 +157,23 @@ class Embed(nn.Module):
 
 def embed(tokens: torch.Tensor, p: Embed, dtype: torch.dtype) -> torch.Tensor:
     """The rows of ``p``'s table at ``tokens``, in ``dtype``;
-    vocab-parallel under tensor parallelism."""
+    vocab-parallel under tensor parallelism.  On a split residual stream
+    this rank's positions of them (``tokens`` whole)."""
     tp = tpl.active()
     if tp is not None and tp.splits("vocab", p.vocab):
-        return tpl.embed(tokens, p.table, p.vocab, dtype, tp)
-    return p.table[tokens.long()].to(dtype)
+        return seqp.leave(tpl.embed(tokens, p.table, p.vocab, dtype, tp), tp)
+    return seqp.leave_replicated(p.table[tokens.long()].to(dtype))
 
 
 def unembed(x: torch.Tensor, p: Embed) -> torch.Tensor:
     """Logits against ``p``'s [vocab, d_model] table (tied or untied),
     f32; under tensor parallelism with the vocabulary split, this rank's
-    share of them [..., vocab / m]."""
+    share of them [..., vocab / m].  On a split residual stream the
+    logits of the whole sequence."""
     tp = tpl.active()
     if tp is not None and tp.splits("vocab", p.vocab):
-        return tpl.unembed(x, p.table, p.vocab, tp)
-    return x.float() @ p.table.float().T
+        return tpl.unembed(seqp.enter(x, tp), p.table, p.vocab, tp)
+    return seqp.enter_replicated(x).float() @ p.table.float().T
 
 
 def init_embed(gen: torch.Generator, vocab: int, d_model: int) -> Embed:

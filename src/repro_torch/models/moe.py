@@ -19,7 +19,12 @@ takes the expert-parallel dispatch, ``moe_mlp_sharded``: each rank
 routes its own rows of the batch axes, keeps the assignments of its
 ``n_experts / tp`` local experts, runs their FFNs, and one ``all_reduce``
 over "model" merges the combine (the JAX package's ``shard_map`` body,
-rank for rank).
+rank for rank).  On a split residual stream (``parallel.
+sequence_parallel``) ``moe_mlp_auto`` gathers the sequence first, as
+the JAX package's ``shard_map`` takes it whole (``P(batch, None,
+None)``): the router, the capacity and the aux values see every
+position of the rank's rows, and the output goes back on this rank's
+positions.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers
+from repro_torch.parallel import sequence_parallel as seqp
 from repro_torch.parallel import sharding
 from repro_torch.parallel.tensor_parallel import from_model, to_model
 
@@ -273,7 +279,20 @@ def moe_mlp_auto(x, p: MoE, cfg):
     did not split over the batch axes (``sharding.replicated_batch``;
     the JAX package then runs ``moe_mlp`` under GSPMD, which still
     partitions the experts over "model") every rank routes the whole
-    microbatch: the same values."""
+    microbatch: the same values.  On a split residual stream the MoE is
+    a replicated region: the sequence gathered at entry, this rank's
+    positions of the output returned."""
+    sp = seqp.current()
+    if sp is None:
+        return _dispatch(x, p, cfg)
+    x = seqp.gather(x, sp, summed=False)
+    with seqp.stream(None):
+        out, aux = _dispatch(x, p, cfg)
+    return seqp.scatter(out, sp), aux
+
+
+def _dispatch(x, p: MoE, cfg):
+    """``moe_mlp_sharded`` or ``moe_mlp``, as ``moe_mlp_auto`` chooses."""
     ctx = sharding.current_context()
     if (getattr(cfg, "moe_impl", "shard_map") == "shard_map"
             and ctx is not None and hasattr(ctx.mesh, "get_group")

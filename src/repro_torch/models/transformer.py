@@ -35,18 +35,29 @@ Under FSDP over "data" (``parallel.fsdp``) each block's weights are
 gathered just before it runs, inside its checkpoint, and the embedding
 and head around the stack; the serve steps gather a block at a time
 too.
+
+Under sequence parallelism (``parallel.sequence_parallel``: the rule
+``seq_res -> ("model",)``, S dividing "model") ``forward`` and
+``prefill`` hold the residual stream as this rank's positions of the
+sequence from the embedding to the final norm: each block's norms run
+on them, its attention, GLU or MoE (and a cross block's attention)
+gather the sequence at entry and leave on them, and the logits are the
+whole sequence's (``prefill``: the last position's, from the rank that
+holds it).  The serve steps run on the rank's ``cache_specs`` slice of
+the cache, its positions of T where T splits.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel import fsdp
+from repro_torch.parallel import sequence_parallel as seqp
+from repro_torch.parallel import sharding
 
 
 # --------------------------------------------------------------------------
@@ -107,14 +118,14 @@ def block_forward(p: Block, cfg: ModelConfig, x, positions, window, theta,
     which ``forward`` and ``prefill`` pass (no device check per layer).
     Returns (x, aux[, (k, v)]); aux is the MoE's, None for a dense
     block."""
-    h = layers.rms_norm(x, p.ln_attn.scale, cfg.norm_eps)
+    h = layers.rms_norm(x, seqp.replicated(p.ln_attn.scale), cfg.norm_eps)
     attn_out = attention.self_attention(p.attn, cfg, h, positions,
                                         causal=True, window=window,
                                         theta=theta, return_kv=return_kv)
     if return_kv:
         attn_out, kv_k, kv_v = attn_out
     x = x + attn_out
-    h = layers.rms_norm(x, p.ln_mlp.scale, cfg.norm_eps)
+    h = layers.rms_norm(x, seqp.replicated(p.ln_mlp.scale), cfg.norm_eps)
     out, aux = _ffn(p, cfg, h)
     x = x + out
     if return_kv:
@@ -134,7 +145,7 @@ def init_cross_block(gen: torch.Generator, cfg: ModelConfig) -> CrossBlock:
 
 
 def cross_block_forward(p: CrossBlock, cfg: ModelConfig, x, memory):
-    h = layers.rms_norm(x, p.ln.scale, cfg.norm_eps)
+    h = layers.rms_norm(x, seqp.replicated(p.ln.scale), cfg.norm_eps)
     return x + attention.cross_attention(p.xattn, cfg, h, memory)
 
 
@@ -194,8 +205,8 @@ def _run_blocks(blocks, cfg: ModelConfig, x, aux, windows, thetas,
     MoE aux summed into ``aux`` in layer order."""
     for blk, w, th in zip(blocks, windows, thetas):
         if remat:
-            x, a = checkpoint(fsdp.call, block_forward, blk, cfg, x, None,
-                              w, th, use_reentrant=False)
+            x, a = seqp.checkpoint(fsdp.call, block_forward, blk, cfg, x,
+                                   None, w, th)
         else:
             x, a = fsdp.call(block_forward, blk, cfg, x, None, w, th)
         if a is not None:
@@ -223,9 +234,8 @@ def _self_stack(params: TransformerLM, cfg: ModelConfig, x):
     # same groups and blocks, so the ranks' collectives stay matched
     for g0 in range(0, cfg.n_layers, gk):
         grp = slice(g0, g0 + gk)
-        x, aux = checkpoint(_run_blocks, params.blocks[grp], cfg, x, aux,
-                            windows[grp], thetas[grp], remat,
-                            use_reentrant=False)
+        x, aux = seqp.checkpoint(_run_blocks, params.blocks[grp], cfg, x,
+                                 aux, windows[grp], thetas[grp], remat)
     return x, aux
 
 
@@ -245,8 +255,8 @@ def _cross_stack(params: TransformerLM, cfg: ModelConfig, x, memory):
         x, _ = _run_blocks(params.blocks[grp], cfg, x, {}, windows[grp],
                            thetas[grp], remat)
         if remat:
-            x = checkpoint(fsdp.call, cross_block_forward, cb, cfg, x,
-                           memory, use_reentrant=False)
+            x = seqp.checkpoint(fsdp.call, cross_block_forward, cb, cfg,
+                                x, memory)
         else:
             x = fsdp.call(cross_block_forward, cb, cfg, x, memory)
     return x
@@ -258,13 +268,15 @@ def forward(params: TransformerLM, cfg: ModelConfig, tokens, memory=None):
     ``memory`` [B, T, d]: the VLM's modality embeddings."""
     dt = layers.dtype_of(cfg.dtype)
     emb, head = fsdp.ends(params)
-    x = layers.embed(tokens, emb, dt)
-    if cfg.cross_attn_every:
-        x, aux = _cross_stack(params, cfg, x, memory), {}
-    else:
-        x, aux = _self_stack(params, cfg, x)
-    x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    return layers.unembed(x, head), aux
+    with seqp.stream(seqp.split(tuple(tokens.shape) + (cfg.d_model,))):
+        x = layers.embed(tokens, emb, dt)
+        if cfg.cross_attn_every:
+            x, aux = _cross_stack(params, cfg, x, memory), {}
+        else:
+            x, aux = _self_stack(params, cfg, x)
+        x = layers.rms_norm(x, seqp.replicated(params.final_norm.scale),
+                            cfg.norm_eps)
+        return layers.unembed(x, head), aux
 
 
 # --------------------------------------------------------------------------
@@ -279,13 +291,17 @@ def takes_memory(cfg: ModelConfig) -> bool:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None):
-    """The stacked KV cache, plus the VLM's ``memory`` [B, T, d]."""
+    """The stacked KV cache, plus the VLM's ``memory`` [B, T, d]; under a
+    mesh context the rank's slice (``attention.init_kv_cache``), the
+    memory its rows."""
     cache = attention.init_kv_cache(cfg, batch, max_len, dtype=dtype,
                                     device=device)
     if takes_memory(cfg):
         cache["memory"] = torch.zeros(
-            (batch, cfg.n_frontend_tokens, cfg.d_model), dtype=dtype,
-            device=device)
+            (cache["k"].shape[1], cfg.n_frontend_tokens, cfg.d_model),
+            dtype=dtype, device=device)
+        if "shard" in cache:
+            cache["shard"]["memory"] = (cache["shard"]["k"][1], None, None)
     return cache
 
 
@@ -299,6 +315,7 @@ def decode_step(params: TransformerLM, cfg: ModelConfig, cache, tokens):
     x = layers.embed(tokens, emb, dt)
     length = cache["length"]
     memory = cache.get("memory")
+    sl = sharding.cache_slice(cache)
     windows, thetas = layer_schedule(cfg)
     ks, vs = [], []
     for i, (blk, w, th) in enumerate(zip(params.blocks, windows, thetas)):
@@ -308,7 +325,7 @@ def decode_step(params: TransformerLM, cfg: ModelConfig, cache, tokens):
                                                   theta=th)
         x = x + attention.decode_attention_append(
             blk.attn, cfg, h, cache["k"][i], cache["v"][i], k_new, v_new,
-            length, window=w, theta=th)
+            length, window=w, theta=th, sl=sl)
         h = layers.rms_norm(x, blk.ln_mlp.scale, cfg.norm_eps)
         x = x + _ffn(blk, cfg, h)[0]
         ks.append(k_new)
@@ -318,7 +335,7 @@ def decode_step(params: TransformerLM, cfg: ModelConfig, cache, tokens):
             x = fsdp.call(cross_block_forward, params.cross_blocks[c], cfg,
                           x, memory)
     attention.write_kv_stack(cache["k"], cache["v"], torch.stack(ks),
-                             torch.stack(vs), length)
+                             torch.stack(vs), length, sl)
     x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
     logits = layers.unembed(x, head)
     cache["length"] = length + 1
@@ -328,28 +345,33 @@ def decode_step(params: TransformerLM, cfg: ModelConfig, cache, tokens):
 def prefill(params: TransformerLM, cfg: ModelConfig, tokens, cache,
             memory=None):
     """The full-sequence forward, writing each layer's K/V into the cache
-    at positions [0, S) in place; returns (logits [B, 1, V] of the last
-    position, cache).  ``memory`` goes into the cache in its dtype (the
-    VLM's cross blocks read it there, here and in decode)."""
+    at positions [0, S) in place (the rank's positions of them where T
+    splits); returns (logits [B, 1, V] of the last position, cache).
+    ``memory`` goes into the cache in its dtype (the VLM's cross blocks
+    read it there, here and in decode)."""
     b, s = tokens.shape
     dt = layers.dtype_of(cfg.dtype)
     emb, head = fsdp.ends(params)
-    x = layers.embed(tokens, emb, dt)
     if memory is not None and "memory" in cache:
         cache["memory"] = memory.to(cache["memory"].dtype)
     mem = cache.get("memory")
+    sl = sharding.cache_slice(cache)
     windows, thetas = layer_schedule(cfg)
-    for i, (blk, w, th) in enumerate(zip(params.blocks, windows, thetas)):
-        x, _, (kk, vv) = fsdp.call(block_forward, blk, cfg, x,
-                                   positions=None, window=w, theta=th,
-                                   return_kv=True)
-        cache["k"][i, :, :s] = kk.to(cache["k"].dtype)
-        cache["v"][i, :, :s] = vv.to(cache["v"].dtype)
-        c = _cross_after(cfg, i)
-        if c is not None:
-            x = fsdp.call(cross_block_forward, params.cross_blocks[c], cfg,
-                          x, mem)
-    x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    logits = layers.unembed(x[:, -1:], head)
+    with seqp.stream(seqp.split((b, s, cfg.d_model))):
+        x = layers.embed(tokens, emb, dt)
+        for i, (blk, w, th) in enumerate(zip(params.blocks, windows,
+                                             thetas)):
+            x, _, (kk, vv) = fsdp.call(block_forward, blk, cfg, x,
+                                       positions=None, window=w, theta=th,
+                                       return_kv=True)
+            attention.write_prefix(cache["k"][i], kk, sl)
+            attention.write_prefix(cache["v"][i], vv, sl)
+            c = _cross_after(cfg, i)
+            if c is not None:
+                x = fsdp.call(cross_block_forward, params.cross_blocks[c],
+                              cfg, x, mem)
+        x = layers.rms_norm(x, params.final_norm.scale, cfg.norm_eps)
+        x = seqp.last_position(x)
+    logits = layers.unembed(x, head)
     cache["length"] = s
     return logits, cache

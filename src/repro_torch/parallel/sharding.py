@@ -24,14 +24,25 @@ the rest is computed replicated.  ``shard`` is therefore the identity
 on a plain tensor and redistributes a DTensor.
 ``replicated_batch`` marks the stretch where every rank holds the whole
 batch instead, because it does not divide the batch axes.
+
+The KV cache [L, B, T, KVH, D] is laid out as the JAX package's
+``cache_shardings`` lays it out (``kv_spec``): the batch over the batch
+axes, the KV heads over "model", and T over the axes of ("pod", "data",
+"model") those leave unused, each where it divides.  A cache built under
+a mesh context is the rank's slice of it (``cache_layout``) and carries
+``"shard"``, the spec of each entry; ``cache_slice`` gives the rank's
+positions of T and the process groups of T's axes, over which decode
+combines its softmax.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Mapping, Sequence
 
 import torch
+import torch.distributed as dist
 
 # logical axis -> mesh axes (tried in order; tuple entries shard together)
 DEFAULT_RULES: dict[str, tuple[str, ...]] = {
@@ -217,3 +228,137 @@ def shard(x: torch.Tensor, logical: Sequence[str | None]) -> torch.Tensor:
     mesh = x.device_mesh
     return x.redistribute(mesh, placements_for(
         spec_for(x.shape, logical, ctx), mesh))
+
+
+def axes_of(entry) -> tuple[str, ...]:
+    """The mesh axes of a spec entry (None, a name or a tuple)."""
+    return () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+
+
+# --------------------------------------------------------------------------
+# batch axes and the KV cache's layout: a rank's slice of T
+# --------------------------------------------------------------------------
+
+def div_axes(dim: int, candidates: tuple[str, ...], sizes: dict,
+           used: set) -> tuple[str, ...]:
+    """The unused mesh axes, in order, whose running product divides
+    ``dim`` (the JAX package's ``_div_axes``)."""
+    got: tuple[str, ...] = ()
+    acc = 1
+    for a in candidates:
+        if a not in sizes or a in used:
+            continue
+        if dim % (acc * sizes[a]) == 0:
+            acc *= sizes[a]
+            got = got + (a,)
+    return got
+
+
+def one(axes: tuple[str, ...]):
+    return None if not axes else (axes if len(axes) > 1 else axes[0])
+
+
+def batch_axes(batch: int, sizes: dict) -> tuple[str, ...]:
+    """The batch axes a batch of ``batch`` rows splits over."""
+    return div_axes(batch, BATCH_AXES, sizes, set())
+
+
+def kv_spec(shape, sizes: dict) -> tuple:
+    """The spec of a KV cache [L, B, T, KVH, D] on a mesh of ``sizes``:
+    the batch over the batch axes, KVH over "model", T over the axes of
+    ("pod", "data", "model") both leave unused, each where it divides."""
+    used: set = set()
+    b = batch_axes(shape[1], sizes)
+    used.update(b)
+    h = div_axes(shape[3], ("model",), sizes, used)
+    used.update(h)
+    t = div_axes(shape[2], ("pod", "data", "model"), sizes, used)
+    return (None, one(b), one(t), one(h), None)
+
+
+def local_shape(shape, spec, sizes: dict) -> tuple[int, ...]:
+    """``shape`` divided along each dim by its spec entry's axes."""
+    return tuple(n // math.prod(sizes[a] for a in axes_of(e))
+                 for n, e in zip(shape, spec))
+
+
+def _mesh_context():
+    """The current context where its mesh has process groups, else
+    None."""
+    ctx = current_context()
+    if ctx is None or not hasattr(ctx.mesh, "get_group"):
+        return None
+    return ctx
+
+
+def mesh_sizes() -> dict | None:
+    """Axis sizes of the current context's mesh (one with process
+    groups), or None."""
+    ctx = _mesh_context()
+    return None if ctx is None else ctx.shape
+
+
+def cache_layout(shape) -> tuple[tuple[int, ...], tuple | None]:
+    """(this rank's shape, ``kv_spec``) of a whole KV cache ``shape``
+    under the current mesh context; (``shape``, None) without one."""
+    ctx = _mesh_context()
+    if ctx is None:
+        return tuple(shape), None
+    spec = kv_spec(shape, ctx.shape)
+    return local_shape(shape, spec, ctx.shape), spec
+
+
+def local_rows(batch: int) -> int:
+    """This rank's rows of a batch of ``batch`` rows under the current
+    mesh context (all of them without one)."""
+    sizes = mesh_sizes()
+    if sizes is None:
+        return batch
+    return batch // math.prod(sizes[a] for a in batch_axes(batch, sizes))
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheSlice:
+    """The rank's positions [start, start + size) of a cache's T, the
+    process groups of the mesh axes that split T, in mesh order, and
+    whether "model" is one of them (then the KV heads are whole on every
+    model rank, and decode computes every q head on each: the ranks it
+    combines over must hold the same heads)."""
+    start: int
+    size: int
+    groups: tuple
+    model: bool = False
+
+    def owns(self, pos: int) -> bool:
+        return self.start <= pos < self.start + self.size
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        for g in self.groups:
+            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=g)
+        return x
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        for g in self.groups:
+            dist.all_reduce(x, group=g)
+        return x
+
+
+def cache_slice(cache: dict) -> CacheSlice | None:
+    """The rank's slice of T of a cache built under the current mesh
+    context (``"shard"``), or None where T is whole."""
+    spec = (cache.get("shard") or {}).get("k")
+    if spec is None or spec[2] is None:
+        return None
+    ctx = _mesh_context()
+    if ctx is None:
+        raise RuntimeError("the cache holds a slice of T: run the serve "
+                           "steps under the mesh's sharding context")
+    mesh = ctx.mesh
+    idx = 0
+    axes = axes_of(spec[2])
+    for a in axes:
+        idx = idx * ctx.shape[a] + mesh.get_local_rank(a)
+    n = cache["k"].shape[2]
+    return CacheSlice(idx * n, n, tuple(mesh.get_group(a) for a in axes),
+                      "model" in axes)

@@ -22,6 +22,14 @@ dtype: one rounding after the sum, as one GEMM's f32 accumulator gives.
 On gloo a CUDA tensor can be reduced but not gathered, so there a
 gather is the sum of zero-padded slices (exact: one operand of each sum
 is nonzero).
+
+A region's activation enters through ``to_model`` and its partial sums
+leave through ``from_model``'s all-reduce, or, where the residual stream
+is split along the sequence, through the sequence gather and
+reduce-scatter: ``parallel.sequence_parallel.enter`` / ``leave`` choose.
+So ``col_parallel`` and ``unembed`` take an input already entered, and
+``row_parallel`` and the vocab-parallel ``embed`` give the partial sums
+that ``leave`` merges.
 """
 
 from __future__ import annotations
@@ -249,15 +257,12 @@ def col_parallel(x, w, b, size: int, tp: TP):
     return y
 
 
-def row_parallel(x, w, b, size: int, tp: TP):
-    """``sum over "model" of x @ w[own, :]``, then ``+ b`` once: the
-    region's exit (in-dim whole ``size``)."""
+def row_parallel(x, w, size: int, tp: TP):
+    """This rank's partial sums ``x @ w[own, :]`` (in-dim whole
+    ``size``), the region's last product: its exit sums them over
+    "model"."""
     start, n = tp.chunk(size)
-    y = from_model(x @ part(w, 0, size, start, n, tp).to(x.dtype),
-                   tp.group)
-    if b is not None:
-        y = y + b.to(x.dtype)
-    return y
+    return x @ part(w, 0, size, start, n, tp).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -267,8 +272,9 @@ def row_parallel(x, w, b, size: int, tp: TP):
 def embed(tokens: torch.Tensor, table: torch.Tensor, vocab: int,
           dtype: torch.dtype, tp: TP) -> torch.Tensor:
     """The rows of this rank's vocabulary share looked up (zero for the
-    tokens outside it), then summed over "model"; the table's gradient
-    lands on the rank's rows only."""
+    tokens outside it): this rank's part of the sum over "model" that
+    the region's exit takes; the table's gradient lands on the rank's
+    rows only."""
     start, n = tp.chunk(vocab)
     rows = part(table, 0, vocab, start, n, tp)
     t = tokens.long() - start
@@ -276,15 +282,16 @@ def embed(tokens: torch.Tensor, table: torch.Tensor, vocab: int,
     out = rows[torch.where(mine, t, torch.zeros_like(t))].to(dtype)
     out = torch.where(mine[..., None], out, torch.zeros((), dtype=dtype,
                                                         device=out.device))
-    return from_model(out, tp.group)
+    return out
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor, vocab: int,
             tp: TP) -> torch.Tensor:
-    """f32 logits of this rank's vocabulary share [..., vocab / m]."""
+    """f32 logits of this rank's vocabulary share [..., vocab / m] of
+    ``x``, already inside the region."""
     start, n = tp.chunk(vocab)
     rows = part(table, 0, vocab, start, n, tp)
-    return to_model(x, tp.group).float() @ rows.float().T
+    return x.float() @ rows.float().T
 
 
 class _VocabLSE(torch.autograd.Function):

@@ -38,9 +38,23 @@ Tensor parallelism.  Where the mesh's "model" axis has size m > 1 the
 model computes each rank's heads, GLU columns and vocabulary rows
 (``parallel.tensor_parallel``).  The loss is then
 ``tensor_parallel.cross_entropy`` on the vocab-sharded logits.  A
-weight split over "model" has this rank's own gradient, a replicated
-one is already equal on every model rank: neither is reduced over
-"model".
+weight split over "model" has this rank's own gradient; a replicated
+one is summed over "model" inside the backward wherever a rank computes
+only its part of its gradient (a whole weight used on a rank's heads,
+``tensor_parallel.part``), so it leaves the backward equal on every
+model rank: neither is reduced over "model" here.
+
+Sequence parallelism.  Under the rule ``seq_res -> ("model",)``
+(``rules``; ``parallel.sequence_parallel``) the residual stream is each
+rank's positions of the sequence between the regions.  A norm's scale
+(and a bias added after the reduce-scatter) then sees only the rank's
+positions: its gradient is summed over "model" in the backward
+(``sequence_parallel.replicated``).  Every region leaves the stream so
+that its backward starts from the whole gradient on every rank, so a
+replicated region's weights get the same whole gradient as without the
+rule.  Every replicated gradient is therefore still equal on every
+model rank when the step reduces over the batch axes, and the
+gradient norm's groups are the placement's, as without the rule.
 
 FSDP.  Where "data" has size n > 1, a weight split over "data" is
 gathered a block at a time and its gradient reduce-scattered over
@@ -54,9 +68,12 @@ remaining reduction from its hook.  The gradient norm sums each split
 tensor's squares over the groups that split it
 (``optim.clip_by_global_norm``).  The serve steps run partitioned
 under a mesh context holding such axes, on placed parameters (gathered
-over "data" a block at a time each call) and a cache of the rank's KV
-heads, and return vocab-sharded logits (the greedy token is the global
-argmax).
+over "data" a block at a time each call) and a cache built under it:
+the rank's ``cache_specs`` slice (its rows, its KV heads where they
+split over "model", its positions of T where T splits; decode combines
+its softmax over T's axes).  They return vocab-sharded logits (the
+greedy token is the global argmax); a prefill whose prompt divides
+"model" under the rule runs on a split residual stream.
 """
 
 from __future__ import annotations
@@ -110,15 +127,17 @@ def _batch_axes(mesh) -> tuple[list, int, int]:
 
 class _MeshStep:
     """The sharding context of ``mesh`` (the caller's, when it already
-    holds this mesh) for the length of one step."""
+    holds this mesh and no ``rules`` are given) for the length of one
+    step."""
 
-    def __init__(self, mesh):
-        self.mesh = mesh
+    def __init__(self, mesh, rules=None):
+        self.mesh, self.rules = mesh, rules
 
     def __enter__(self):
         self.prev = sharding.current_context()
-        if self.prev is None or self.prev.mesh is not self.mesh:
-            sharding.set_context(self.mesh)
+        if (self.prev is None or self.prev.mesh is not self.mesh
+                or self.rules is not None):
+            sharding.set_context(self.mesh, self.rules)
 
     def __exit__(self, *exc):
         if self.prev is None:
@@ -131,7 +150,7 @@ class _MeshStep:
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
                     moe_aux_weight: float = 1e-2,
                     accum_steps: int | None = None, *, mesh=None,
-                    overlap: bool = False):
+                    overlap: bool = False, rules=None):
     """Returns train_step(state, batch) -> (state, metrics).
 
     ``accum_steps`` (default: the config's ``accum_steps``) splits the
@@ -141,7 +160,10 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     included), ``lr``, ``grad_norm`` (before clipping), and each aux value
     of the forward (the microbatches' mean).  ``mesh``: data-parallel
     over its batch axes, as the module docstring says; ``overlap``
-    reduces the gradients during the backward."""
+    reduces the gradients during the backward; ``rules``: the sharding
+    rules of the step's context (``parallel.sharding.DEFAULT_RULES``
+    with overrides, e.g. ``seq_res -> ("model",)``; the caller's
+    context, or the defaults, when None)."""
     accum = (accum_steps if accum_steps is not None
              else getattr(model.config, "accum_steps", 1) or 1)
     axes, n_shards, shard = (_batch_axes(mesh) if mesh is not None
@@ -229,7 +251,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
         if mesh is None:
             loss_sum, auxes = run(state, batch, params, mb, False, [])
         else:
-            with _MeshStep(mesh):
+            with _MeshStep(mesh, rules):
                 if split:
                     loss_sum, auxes = run(state, batch, params, mb, True,
                                           reduce_over)

@@ -26,8 +26,13 @@ cell builders, ``kernels/flash_attention.py``'s custom ops and
   split over "data", which are reduce-scattered there, + the loss and
   the gradient norm's partials), the HBM floor under the eager traffic
   (the train step writing its parameters and both AdamW moments once),
-  and no op of a flash cell returns a tensor of S x T scores;
-  ``seq_shard`` and ``seq_shard_rule`` raise.  A real
+  and no op of a flash cell returns a tensor of S x T scores.
+* ``seq_shard`` and ``seq_shard_rule`` (the rule ``seq_res ->
+  ("model",)``) at full width and one layer: flops and argument bytes
+  equal to the plain cell's, the peak no higher, the activations'
+  all-reduces over "model" turned into reduce-scatters of half their
+  ring bytes plus all-gathers.  A decode cell's cache bytes are the
+  reference's per-device shard of ``cache_shardings``.  A real
   CPU step at full width would hold
   gigabytes, so none runs here; full production cells belong to the CLI
   and ``chip_smoke.py``.
@@ -36,6 +41,7 @@ Tolerance: none (every comparison is exact).
 """
 
 import dataclasses
+import math
 import os
 import types
 
@@ -424,10 +430,13 @@ class TestFamilies:
         mem = est["memory"]
         if kind == "prefill":   # the prompt fills the whole cache
             assert floor["argument_written_bytes"] == mem["alias_bytes"]
-        # a decode step reads every argument byte, but of an untied
-        # embedding table (the MoE's, the VLM's, the enc-dec's) only the
-        # rows it gathers, of the MoE's experts only those routed to
-        reads_all = family in ("dense", "ssm", "hybrid")
+        # a decode step reads every argument byte (each weight's slice
+        # is gathered over "data", the rank's whole slice of the cache is
+        # scored: the MoE's and the VLM's caches, whose KV heads do not
+        # divide "model", split T over it, and each rank reads its slice
+        # with every q head), but the enc-dec's encoder weights, which
+        # decode does not run
+        reads_all = family != "encdec"
         if kind == "decode":
             assert (floor["argument_read_bytes"] == mem["argument_bytes"]) \
                 == reads_all
@@ -537,13 +546,72 @@ def test_tensor_parallel_cuts_the_state_by_its_split_weights():
     assert not dist.is_initialized()
 
 
-@pytest.mark.parametrize("over", [
-    {"seq_shard": True}, {"seq_shard_rule": "model"}])
-def test_overrides_without_meaning_raise(over):
-    """The JAX package's sequence-sharding overrides: the port's steps
-    shard no sequence (``serve_bf16`` runs: ``tests/test_torch_fsdp.py``)."""
-    with pytest.raises(ValueError, match="the port"):
-        dryrun.run_cell("qwen2-1.5b", "prefill_32k", False, overrides=over)
+# qwen2-1.5b with 16 q and KV heads: every region splits over a 16-way
+# "model" axis (its own 12 q heads would leave attention replicated)
+SEQ_OVER = {"n_layers": 1, "n_heads": 16, "n_kv_heads": 16}
+
+
+@pytest.mark.parametrize("shape,over", [
+    ("train_4k", {"seq_shard": True}),
+    ("prefill_32k", {"seq_shard_rule": "model"})])
+def test_seq_shard_cells_run(shape, over):
+    """The JAX package's sequence-sharding overrides add the rule
+    ``seq_res -> ("model",)``: the cell's flops and argument bytes are
+    the plain cell's, its peak no higher; over "model" each all-reduce
+    of an activation's partial sums (f32) becomes a reduce-scatter of
+    half its ring bytes, with the sequence all-gathered in the compute
+    dtype, and the rule adds only the all-reduces of the norms' scale
+    gradients (train: three norms a microbatch) or of the prefill's
+    last position (f32)."""
+    arts = [dryrun.run_cell("qwen2-1.5b", shape, False, overrides=o)
+            for o in ({**SEQ_OVER, **over}, SEQ_OVER)]
+    est, plain = arts
+    assert est["ran"]["sequence_parallel"]
+    assert not plain["ran"]["sequence_parallel"]
+    assert est["xla_cost"]["flops"] == plain["xla_cost"]["flops"]
+    assert est["memory"]["argument_bytes"] == \
+        plain["memory"]["argument_bytes"]
+    assert est["per_device_peak_bytes_est"] <= \
+        plain["per_device_peak_bytes_est"]
+    # rank 0's "model" group: ranks 0-15 of the (16, 16) mesh
+    got, want = ({k: v for g in a["collective_groups"]
+                  if g["first_ranks"] == [0, 1, 2, 3]
+                  for k, v in g["wire_by_kind"].items()} for a in arts)
+    assert set(want) == {"all-reduce"}
+    assert got["all-gather"] > 0
+    ring = 2.0 * 15 / 16
+    cell = specs.build_cell("qwen2-1.5b", shape, overrides=SEQ_OVER)
+    d = cell.cfg.d_model
+    extra = (3 * cell.cfg.accum_steps * ring * d * 4 if shape == "train_4k"
+             else ring * (cell.global_batch // 16) * d * 4)
+    assert 2 * got["reduce-scatter"] == \
+        want["all-reduce"] - got["all-reduce"] + extra
+    assert not dist.is_initialized()
+
+
+def test_decode_cache_bytes_are_the_reference_shard():
+    """yi-34b x decode_32k: its 8 KV heads do not divide "model", so the
+    cache's T splits over it; each rank's k / v bytes are the
+    reference's per-device shard of ``cache_shardings``
+    (``NamedSharding.shard_shape`` on a (16, 16) ``AbstractMesh``)."""
+    from jax.sharding import AbstractMesh
+    over = {"n_layers": 1}
+    jcell, jargs = jspecs.input_specs("yi-34b", "decode_32k", overrides=over)
+    jctx = jshd.MeshContext(AbstractMesh((16, 16), ("data", "model")),
+                            jshd.DEFAULT_RULES)
+    want = sum(
+        math.prod(sh.shard_shape(jargs[1][k].shape))
+        * jargs[1][k].dtype.itemsize
+        for k, sh in jspecs.cache_shardings(jargs[1], jctx).items()
+        if k in ("k", "v"))
+    cell = specs.build_cell("yi-34b", "decode_32k", overrides=over)
+    with dryrun.fake_world(256):
+        mesh = mesh_lib.make_production_mesh(device="cpu")
+        est, _ = dryrun.estimate(cell, mesh)
+    shapes = est["ran"]["inputs"]
+    assert shapes["1/shard"]["k"][2] == "model"
+    got = sum(math.prod(shapes[f"1/{k}"]) * 2 for k in ("k", "v"))
+    assert got == want
     assert not dist.is_initialized()
 
 

@@ -16,6 +16,16 @@ deployment, without the shared mesh launch.
   "model", both and neither is the whole tensors' (1e-6 relative).
   gemma3 runs under remat and scan_group 2, so the recompute gathers
   again inside the checkpoints.
+* The same two ranks on (1, 2), sequence parallelism over "model"
+  (the rule ``seq_res -> ("model",)``, the whole batch on each rank):
+  every gradient of the dense smoke config under remat (each region
+  split) and of ``torch_dist_cases.ODD`` (each replicated) is the
+  rank's slice of the meshless one within 1e-5 of the slice's largest
+  |value| (f32 sums in another order); a planted fault fails that check
+  by far: the sequence gather's backward as the rank's slice instead of
+  the reduce-scatter (the dense config), a replicated region's exit
+  keeping its own positions' gradient instead of the all-gather (ODD),
+  a norm's scale gradient left unsummed over "model" (both).
 * A width that 4 does not divide stays whole over "data"; an unplaced
   block is not copied.
 * The dry-run's qwen2-1.5b x train_4k at (16, 16), cut to 2 layers: its
@@ -204,6 +214,29 @@ def test_remat_gathers_again(two_ranks):
     gk, n_table = cases.CONFIGS["gemma3-1b"]["scan_group"], 1
     assert got["counts"]["all_gather"][0] == \
         (3 * gk - 1) * (got["split"] - n_table) // gk + n_table
+
+
+SEQ_TOL = 1e-5
+
+
+@pytest.mark.parametrize("arch", list(cases.SEQ_CONFIGS))
+def test_sequence_parallel_gradients_are_the_meshless_ones(two_ranks, arch):
+    for r in two_ranks:
+        assert r["seq"][arch]["none"] <= SEQ_TOL
+
+
+@pytest.mark.parametrize("plant,arch", [("seq_gather_slice", "qwen2-1.5b"),
+                                        ("seq_scatter_local", "odd"),
+                                        ("norm_unsummed", "qwen2-1.5b"),
+                                        ("norm_unsummed", "odd")])
+def test_planted_sequence_fault_fails_the_gradient_check(two_ranks, plant,
+                                                         arch):
+    """Each half of the convention (a split region's gather sums its
+    gradient, a replicated region's exit all-gathers its) and the norm
+    scales' sum over "model", held by a fault that the sound check
+    catches."""
+    for r in two_ranks:
+        assert r["seq"][arch][plant] > 1e3 * SEQ_TOL
 
 
 def test_global_norm_over_both_groups(two_ranks):

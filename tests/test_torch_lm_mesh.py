@@ -1,7 +1,8 @@
 """Port vs JAX package: the LM's mesh (``models/moe.py``'s
-``moe_mlp_sharded``, the meshed train step with FSDP over "data" and
-tensor parallelism over "model", ``launch/train.py``,
-``launch/mesh.py``, checkpoints and restoring onto placements).
+``moe_mlp_sharded``, the meshed train step with FSDP over "data",
+tensor parallelism and sequence parallelism over "model",
+``launch/train.py``, ``launch/mesh.py``, checkpoints and restoring
+onto placements, the rank's slice of the KV cache).
 
 The multi-rank cases run in the launches of ``tests/torch_dist_cases.py``
 (``lm_reference`` on 8 forced XLA devices, ``lm_port`` on the 8 gloo
@@ -45,9 +46,12 @@ ranks of the 4 x 2 launch), one launch a test session shared with
   bit for bit.  ``launch.train.train`` failing at step 1 under the mesh and
   resumed from its checkpoint ends with the parameters of an
   uninterrupted run, bit for bit.
-* Serving, FSDP and tensor-parallel: qwen2-1.5b's (its KV heads split)
-  and gemma3-1b's (one KV head, whole on every rank) smoke configs on
-  weights split over "data", prefill of 2 x 16 tokens and 4 greedy
+* Serving, FSDP and tensor-parallel: qwen2-1.5b's (its KV heads split),
+  gemma3-1b's (one KV head, whole on every rank), zamba2-1.2b's with
+  one KV head (``cases.HYBRID_KV1``: the hybrid's shared-block cache and
+  decode) and seamless-m4t-medium's (the encoder-decoder's cache and
+  decode; a seeded frontend memory) smoke configs on weights split
+  over "data", prefill of 2 x 16 tokens and 4 greedy
   decode steps, against the reference jitted with
   ``step_and_shardings``' in and out shardings on the mesh: every
   call's logits and the final f32 cache within 1e-5 relative and 1e-5
@@ -58,6 +62,32 @@ ranks of the 4 x 2 launch), one launch a test session shared with
   compute in f32 from the same bf16 weights.  One forward loss of the
   llama-3.2-vision, zamba2-1.2b and seamless-m4t-medium smoke configs
   within 1e-5 relative.
+
+* Sequence parallelism: the port under the rule ``seq_res ->
+  ("model",)``, the reference's plain runs (the rule moves GSPMD's
+  sums, not their values: the reference under it gave the same metrics
+  within 1.5e-7 and parameters within these tolerances, and runs of it
+  lengthened the shared launch, whose long pole the reference is).  Two
+  train steps of the dense smoke config (every region split over
+  "model") and of ``cases.ODD`` (every region replicated), 32 positions
+  (16 a "model" rank), within the train steps' tolerances above, each
+  rank's parameters and moments exactly its slice; the dense config's
+  residual stream entering each block after the first is [2 rows, 16
+  positions, d] on every rank and within 1e-5 of the meshless forward's
+  at this rank's positions (relative to their largest |value|); one
+  zamba2 forward loss (its SSM blocks gather the sequence for the scan)
+  within 1e-5 relative; the ``SERVE_ARCHS`` prefill (split over
+  "model": the dense blocks, the hybrid's SSM blocks and shared block,
+  the encoder-decoder's decoder) and decode within the serving
+  tolerances, the greedy tokens equal.  In every serving case, with and
+  without the rule, each rank's k / v cache is its ``cache_specs``
+  slice (gemma3's and the one-KV-head zamba2's leave T to ("data",
+  "model"), 8 ways of 3 positions, which gemma3's window of 16 crosses;
+  seamless's T over "data", its KV heads over "model") of the
+  reference's cache
+  within those tolerances, exactly the slice of the port's gathered
+  cache, and placing the gathered cache again gives it back bit for
+  bit.
 
 In-process on one gloo rank (its process group destroyed in teardown):
 the elastic restore of ``tests/test_system.py`` and the launcher on a
@@ -71,6 +101,8 @@ import pytest
 import torch
 import torch.distributed as dist
 import torch_dist_cases as cases
+
+from repro_torch import configs
 
 TOL = 1e-5
 ARCHS = list(cases.TRAIN_ARCHS)
@@ -332,6 +364,103 @@ def test_serve_bf16_matches_reference(lm):
 def test_tensor_parallel_forward_losses_match_reference(lm, arch):
     for meta in lm["meta"]:
         _close(meta[f"forward/{arch}"], lm["ref_meta"][f"forward/{arch}"])
+
+
+# --------------------------------------------------------------------------
+# sequence parallelism (the rule seq_res -> ("model",)) and the cache's T
+# --------------------------------------------------------------------------
+
+SERVE_TAGS = ([a for a in cases.SERVE_ARCHS] + [cases.SERVE_BF16_TAG]
+              + [f"seq/{a}" for a in cases.SERVE_ARCHS])
+
+
+@pytest.mark.parametrize("arch", list(cases.SEQ_TRAIN_ARCHS))
+def test_seq_train_steps_match_reference(lm, arch):
+    tag = f"seq/{arch}"
+    want = lm["ref_meta"][arch]
+    assert len(want) == cases.TRAIN_STEPS
+    for meta in lm["meta"]:
+        for got, ref in zip(meta[tag], want, strict=True):
+            for k in ("loss", "grad_norm", "lr"):
+                _close(got[k], ref[k], err_msg=k)
+        assert meta[f"{tag}/local_is_slice"]
+    keys = [k for k in lm["ref"] if k.startswith(f"train/{arch}/")]
+    assert len(keys) > 10
+    assert any("/opt/m/" in k for k in keys)
+    assert any("/opt/v/" in k for k in keys)
+    for key in keys:
+        got = key.replace(f"train/{arch}/", f"train/{tag}/")
+        for p in lm["port"]:
+            np.testing.assert_array_equal(p[got], lm["port"][0][got])
+        _close(lm["port"][0][got], lm["ref"][key], atol=1e-6, err_msg=got)
+
+
+def test_residual_stream_is_the_rank_slice(lm):
+    cfg = cases.smoke_cfg(cases.SEQ_TRAIN_ARCHS[0], configs)
+    rows = cases.TRAIN_BATCH // cases.ROWS
+    for meta in lm["meta"]:
+        got = meta["seq/residual"]
+        assert got["shapes"] == [[rows, cases.TRAIN_SEQ // cases.COLS,
+                                  cfg.d_model]]
+        assert got["blocks"] == cfg.n_layers - 1
+        assert got["max_rel"] <= TOL
+
+
+def test_seq_forward_loss_matches_reference(lm):
+    arch = cases.SEQ_FORWARD_ARCH
+    for meta in lm["meta"]:
+        _close(meta[f"seq/forward/{arch}"], lm["ref_meta"][f"forward/{arch}"])
+
+
+@pytest.mark.parametrize("arch", list(cases.SERVE_ARCHS))
+def test_seq_serving_matches_reference(lm, arch):
+    tag, ref = f"seq/{arch}", lm["ref"]
+    for p, meta in zip(lm["port"], lm["meta"]):
+        assert meta[f"serve/{tag}/prefill_split"]
+        _close(p[f"serve/{tag}/logits"], ref[f"serve/{arch}/logits"],
+               err_msg="logits")
+        for k in ("k", "v"):
+            _close(p[f"serve/{tag}/cache/{k}"], ref[f"serve/{arch}/cache/{k}"],
+                   err_msg=k)
+        np.testing.assert_array_equal(p[f"serve/{tag}/last"],
+                                      ref[f"serve/{arch}/last"])
+
+
+def _slice(whole, spec, rank):
+    """Rank ``rank``'s slice of ``whole`` under ``spec`` (lists of axis
+    names) on the (ROWS, COLS) mesh, the first axis of an entry major."""
+    sizes = {"data": cases.ROWS, "model": cases.COLS}
+    coords = {"data": rank // cases.COLS, "model": rank % cases.COLS}
+    for d, axes in enumerate(spec):
+        idx, n = 0, 1
+        for a in axes:
+            idx, n = idx * sizes[a] + coords[a], n * sizes[a]
+        whole = np.split(whole, n, axis=d)[idx]
+    return whole
+
+
+@pytest.mark.parametrize("tag", SERVE_TAGS)
+def test_cache_is_the_rank_slice(lm, tag):
+    ref, ref_tag = lm["ref"], tag.removeprefix("seq/")
+    specs = {tuple(map(tuple, m[f"serve/{tag}/cache_spec"]))
+             for m in lm["meta"]}
+    assert len(specs) == 1
+    spec = specs.pop()
+    if "gemma3-1b" in tag or "zamba2-kv1" in tag:
+        assert spec == ((), (), ("data", "model"), (), ())
+    if "seamless" in tag:
+        assert spec == ((), (), ("data",), ("model",), ())
+    assert any(spec[2]), spec          # T splits in every case
+    for rank, (p, meta) in enumerate(zip(lm["port"], lm["meta"])):
+        assert meta[f"serve/{tag}/cache_round_trip"]
+        for k in ("k", "v"):
+            local = p[f"serve/{tag}/cache_local/{k}"]
+            np.testing.assert_array_equal(
+                local, _slice(p[f"serve/{tag}/cache/{k}"], spec, rank))
+            want = ref[f"serve/{ref_tag}/cache/{k}"]
+            _close(local, _slice(want, spec, rank),
+                   atol=TOL * np.abs(want).max(),
+                   err_msg=f"{tag} {k} rank {rank}")
 
 
 # --------------------------------------------------------------------------

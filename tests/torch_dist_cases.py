@@ -29,8 +29,17 @@ four smoke configs (dense, MoE, gemma3's GQA with one KV head, and
 ``ODD``, which divides nothing; 2 microbatches), the port's ``overlap``
 path, a checkpoint gathered over "model" and restored onto ``Shard``
 placements and meshless, a failed and resumed ``launch.train`` run,
-prefill and decode steps (jitted with ``step_and_shardings``' shardings
-on the reference's side) and three families' forward losses.  Their
+prefill and decode steps of the dense, hybrid and encoder-decoder
+families (``SERVE_ARCHS``; jitted with ``step_and_shardings``'
+shardings on the reference's side; the port's cache each rank's
+``cache_specs`` slice) and three families' forward losses; and the port alone under
+the rule ``seq_res -> ("model",)`` (sequence parallelism, ``SEQ_*``):
+two train steps of the dense and ``ODD`` configs, one zamba2 forward
+loss and the serving cases again, held to the reference's plain runs
+(the rule moves GSPMD's sums, not their values: the reference under
+it gave the same metrics within 1.5e-7 and parameters within the train
+steps' tolerances, and its runs lengthened the shared launch, whose
+long pole the reference is).  Their
 inputs are numpy draws and the port's own seeded initialisation (the
 reference carries it across with ``convert``), written to
 ``lm_ref.npz`` / ``lm_ref.json`` and ``lm_port_<rank>.npz`` /
@@ -368,7 +377,14 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 16, 32, 2, 2
 TRAIN_OPT = dict(lr=1e-3, total_steps=20, warmup_steps=2, eps=1e-5)
 REPLICATED_MB = 3                  # rows of a microbatch that 4 cannot split
 INIT_SEED = 3
-SERVE_ARCHS = ("qwen2-1.5b", "gemma3-1b")
+# zamba2's smoke config with one KV head: its shared block's cache, as
+# gemma3's, leaves T to ("data", "model"), so decode scores every q head
+# on each rank; seamless's four KV heads split over "model" and T over
+# "data"
+HYBRID_KV1 = ("zamba2-1.2b", dict(n_kv_heads=1))
+VARIANTS = {"odd": ODD, "zamba2-kv1": HYBRID_KV1}
+SERVE_ARCHS = ("qwen2-1.5b", "gemma3-1b", "zamba2-kv1",
+               "seamless-m4t-medium")
 # served again as the serve_bf16 deployment: rules p_embed -> () (weights
 # whole over "data") and bf16 parameters, activations f32 as above
 SERVE_BF16_ARCH = "qwen2-1.5b"
@@ -378,6 +394,11 @@ FORWARD_ARCHS = ("llama-3.2-vision-11b", "zamba2-1.2b",
                  "seamless-m4t-medium")
 FORWARD_B, FORWARD_S = 8, 16
 RESTART = dict(steps=2, batch=8, seq=16, fail_at=1)
+# sequence parallelism, the port's side: the train configs (the dense one
+# splits every region over "model", ODD none: replicated regions) and
+# the forward it runs under the rule seq_res -> ("model",)
+SEQ_TRAIN_ARCHS = ("qwen2-1.5b", "odd")
+SEQ_FORWARD_ARCH = "zamba2-1.2b"
 
 
 def moe_inputs(cfg):
@@ -404,10 +425,11 @@ def replicated_batches(cfg):
 
 
 def smoke_cfg(arch, configs):
-    """``arch``'s smoke config in float32 (``"odd"``: ``ODD``'s;
-    ``REMAT_ARCH`` with remat on), from either package's ``configs``."""
+    """``arch``'s smoke config in float32 (a name of ``VARIANTS``: its
+    base's with its overrides; ``REMAT_ARCH`` with remat on), from
+    either package's ``configs``."""
     import dataclasses
-    base, over = ODD if arch == "odd" else (arch, {})
+    base, over = VARIANTS.get(arch, (arch, {}))
     if arch == REMAT_ARCH:
         over = {**over, "remat": True}
     return dataclasses.replace(configs.smoke(base), dtype="float32", **over)
@@ -433,6 +455,16 @@ def serve_tokens(cfg):
     rng = np.random.default_rng(23)
     return rng.integers(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT)).astype(
         np.int32)
+
+
+def serve_memory(cfg):
+    """The frontend's memory [SERVE_B, F, d] a prefill encodes, or None
+    (no frontend)."""
+    if not cfg.n_frontend_tokens:
+        return None
+    rng = np.random.default_rng(31)
+    return rng.normal(size=(SERVE_B, cfg.n_frontend_tokens,
+                            cfg.d_model)).astype(np.float32)
 
 
 def forward_batch(cfg):
@@ -577,8 +609,12 @@ def ref_local_shapes(params, mesh) -> dict:
     return out
 
 
-def serve_cases():
-    """(arch, tag, serve_bf16) of every serving case."""
+def serve_cases(seq: bool = False):
+    """(arch, tag, serve_bf16) of every serving case; with ``seq`` the
+    ``SERVE_ARCHS`` under the rule ``seq_res -> ("model",)``, tagged
+    ``seq/``."""
+    if seq:
+        return [(a, f"seq/{a}", False) for a in SERVE_ARCHS]
     return [(a, a, False) for a in SERVE_ARCHS] + [
         (SERVE_BF16_ARCH, SERVE_BF16_TAG, True)]
 
@@ -610,16 +646,18 @@ def ref_serve(mesh, arrays):
                 lambda a: a.astype(jnp.bfloat16)
                 if a.dtype == jnp.float32 else a, params)
         cache = model.init_cache(SERVE_B, SERVE_LEN, dtype=jnp.float32)
-        toks = jnp.asarray(serve_tokens(jcfg))
+        args = (params, jnp.asarray(serve_tokens(jcfg)), cache)
+        if jcfg.n_frontend_tokens:
+            args += (jnp.asarray(serve_memory(jcfg)),)
         mesh_lib.activate(mesh, {"p_embed": ()} if bf16 else None)
         ctx = jshd.current_context()
         try:
             cell = jspecs.Cell(arch, "prefill", jcfg, model, "prefill",
                                SERVE_PROMPT, SERVE_B)
             step, in_sh, out_sh, _ = jspecs.step_and_shardings(
-                cell, ctx, (params, toks, cache))
+                cell, ctx, args)
             logits, cache = jax.jit(step, in_shardings=in_sh,
-                                    out_shardings=out_sh)(params, toks, cache)
+                                    out_shardings=out_sh)(*args)
             got = [np.asarray(logits)]
             cell = dataclasses.replace(cell, kind="decode")
             nxt = jnp.argmax(logits[:, -1], axis=-1).astype(
@@ -705,8 +743,8 @@ def lm_port(mesh, rank, out: pathlib.Path):
     (``replicated_batches``), the dense run's checkpoint (gathered over
     both axes, written by rank 0) restored onto ``state_shardings``
     placements and meshless, a meshless checkpoint restored and placed,
-    the serve steps and forwards of ``lm_port_serving``, and
-    ``lm_port_restart``."""
+    the serve steps and forwards of ``lm_port_serving``,
+    ``lm_port_restart`` and ``lm_port_seq``."""
     import copy
 
     import torch
@@ -862,26 +900,38 @@ def lm_port(mesh, rank, out: pathlib.Path):
         "steps_replicated": [restored.step.full_tensor().item(),
                              restored.opt["step"].full_tensor().item()]}
     lm_port_serving(mesh, arrays, meta)
+    lm_port_seq(mesh, arrays, meta)
     meta["restart"] = lm_port_restart(mesh, out)
     meta["restart/odd"] = lm_port_restart(mesh, out, "odd")
     np.savez(out / f"lm_port_{rank}.npz", **arrays)
     (out / f"lm_port_{rank}.json").write_text(json.dumps(meta))
 
 
-def lm_port_serving(mesh, arrays, meta):
+def _np_spec(spec):
+    """A cache spec as JSON: each entry a list of axis names."""
+    return [[] if e is None else [e] if isinstance(e, str) else list(e)
+            for e in spec]
+
+
+def lm_port_serving(mesh, arrays, meta, seq: bool = False):
     """Serving and forwards under FSDP and tensor parallelism: the
     ``SERVE_ARCHS`` smoke configs' prefill and greedy decode steps on
-    placed parameters (gathered over "data" a block at a time) and a
-    cache of the rank's KV heads (logits and caches gathered over
-    "model"), the serve_bf16 case (rules ``p_embed -> ()``, bf16
-    parameters whole over "data"), and one forward loss of each
-    ``FORWARD_ARCHS`` config on the whole batch (every rank), under the
-    mesh's sharding context."""
+    placed parameters (gathered over "data" a block at a time) and the
+    rank's ``cache_specs`` slice of the cache (logits gathered over
+    "model"; the cache gathered whole, kept as the rank holds it with
+    its spec, and placed again from the whole), the serve_bf16 case
+    (rules ``p_embed -> ()``, bf16 parameters whole over "data"), and
+    one forward loss of each ``FORWARD_ARCHS`` config on the whole batch
+    (every rank), under the mesh's sharding context.  With ``seq``: the
+    ``SERVE_ARCHS`` cases and the ``SEQ_FORWARD_ARCH`` loss under the
+    rule ``seq_res -> ("model",)`` (``sequence_parallel.RULES``), tagged
+    ``seq/``."""
     import torch
 
     from repro_torch import convert
     from repro_torch.launch import specs
     from repro_torch.models import zoo
+    from repro_torch.parallel import sequence_parallel as seqp
     from repro_torch.parallel import sharding
     from repro_torch.parallel import tensor_parallel as tpl
     from repro_torch.train.steps import (cross_entropy_loss,
@@ -898,7 +948,7 @@ def lm_port_serving(mesh, arrays, meta):
             specs.serve_bf16_params(params)
         return cfg, zoo.build(cfg), specs.place(params, mesh, rules=rules)
 
-    for arch, tag, bf16 in serve_cases():
+    for arch, tag, bf16 in serve_cases(seq):
         rules = ({**sharding.DEFAULT_RULES, "p_embed": ()} if bf16
                  else None)
         cfg, model, params = placed(arch, rules)
@@ -906,14 +956,19 @@ def lm_port_serving(mesh, arrays, meta):
         meta[f"serve/{tag}/data_split"] = sum(d is not None for d in dims)
         meta[f"serve/{tag}/dtypes"] = sorted({str(p.dtype) for p in
                                               params.parameters()})
-        sharding.set_context(mesh, rules)
+        sharding.set_context(mesh, seqp.RULES if seq else rules)
         try:
             tp = tpl.active()
             cache = model.init_cache(SERVE_B, SERVE_LEN, dtype=torch.float32,
                                      device="cpu")
             meta[f"serve/{tag}/cache_heads"] = cache["k"].shape[3]
+            toks = torch.from_numpy(serve_tokens(cfg))
+            mem = serve_memory(cfg)
+            meta[f"serve/{tag}/prefill_split"] = seqp.split(
+                tuple(toks.shape) + (cfg.d_model,)) is not None
             logits, cache = make_prefill_step(model)(
-                params, torch.from_numpy(serve_tokens(cfg)), cache)
+                params, toks, cache,
+                None if mem is None else torch.from_numpy(mem))
             got = [logits]
             decode = make_decode_step(model)
             nxt = tpl.argmax(logits[:, -1], cfg.vocab_size, tp).to(
@@ -923,19 +978,23 @@ def lm_port_serving(mesh, arrays, meta):
                 got.append(logits)
             arrays[f"serve/{tag}/logits"] = torch.stack([
                 tpl.all_gather(lg, 2, tp) for lg in got]).numpy()
+            whole = specs.gather_cache(cache, mesh)
+            meta[f"serve/{tag}/cache_spec"] = _np_spec(cache["shard"]["k"])
             for k in ("k", "v"):
-                c = cache[k]
-                if c.shape[3] != cfg.n_kv_heads:
-                    c = tpl.all_gather(c, 3, tp)
-                arrays[f"serve/{tag}/cache/{k}"] = c.numpy()
+                arrays[f"serve/{tag}/cache/{k}"] = whole[k].numpy()
+                arrays[f"serve/{tag}/cache_local/{k}"] = cache[k].numpy()
+            again = specs.place_cache(whole, mesh)
+            meta[f"serve/{tag}/cache_round_trip"] = all(
+                torch.equal(again[k], cache[k]) for k in ("k", "v")) and \
+                again["shard"] == cache["shard"]
             arrays[f"serve/{tag}/last"] = nxt.numpy()
         finally:
             sharding.set_context(None)
-    sharding.set_context(mesh)
+    sharding.set_context(mesh, seqp.RULES if seq else None)
     try:
         tp = tpl.active()
         with torch.no_grad():
-            for arch in FORWARD_ARCHS:
+            for arch in (SEQ_FORWARD_ARCH,) if seq else FORWARD_ARCHS:
                 cfg, model, params = placed(arch)
                 batch = {k: torch.from_numpy(v)
                          for k, v in forward_batch(cfg).items()}
@@ -946,9 +1005,87 @@ def lm_port_serving(mesh, arrays, meta):
                                              cfg.vocab_size, tp)
                 else:
                     loss = cross_entropy_loss(logits, batch["targets"])
-                meta[f"forward/{arch}"] = float(loss)
+                meta[f"{'seq/' if seq else ''}forward/{arch}"] = float(loss)
     finally:
         sharding.set_context(None)
+
+
+def lm_port_seq(mesh, arrays, meta):
+    """Sequence parallelism (``sequence_parallel.RULES``): the
+    ``SEQ_TRAIN_ARCHS``
+    train steps as ``lm_port``'s (parameters and moments gathered whole,
+    tagged ``seq/``), the dense config's residual stream entering each
+    block after the first, in one forward of this rank's rows of the
+    first batch, against the meshless forward's (its shape, and its
+    largest difference from this rank's positions relative to their
+    largest |value|), then ``lm_port_serving(seq=True)``."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.launch import specs
+    from repro_torch.models import transformer, zoo
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import sequence_parallel as seqp
+    from repro_torch.parallel import sharding
+    from repro_torch.train import make_train_step
+    ctx = sharding.MeshContext(mesh, sharding.DEFAULT_RULES)
+    for arch in SEQ_TRAIN_ARCHS:
+        cfg, state = port_init(arch)
+        step = make_train_step(zoo.build(cfg), AdamWConfig(**TRAIN_OPT),
+                               accum_steps=TRAIN_ACCUM, mesh=mesh,
+                               rules=seqp.RULES)
+        recs = []
+        for batch in train_batches(cfg):
+            state, m = step(state, {k: torch.from_numpy(v)
+                                    for k, v in batch.items()})
+            recs.append({k: float(v) for k, v in m.items()})
+        tag = f"seq/{arch}"
+        meta[tag] = recs
+        whole = specs.gather_state(state, mesh)
+        meta[f"{tag}/local_is_slice"] = _local_is_slice(
+            state, whole, mesh, specs, ctx)
+        tree = convert.train_state_to_numpy(whole)
+        for k, v in _flat(tree["params"]).items():
+            arrays[f"train/{tag}/{k}"] = v
+        for mom in ("m", "v"):
+            for k, v in _flat(tree["opt"][mom]).items():
+                arrays[f"train/{tag}/opt/{mom}/{k}"] = v
+
+    cfg, state = port_init(SEQ_TRAIN_ARCHS[0])
+    model = zoo.build(cfg)
+    toks = torch.from_numpy(train_batches(cfg)[0]["inputs"])
+    each = toks.shape[0] // ROWS
+    row = mesh.get_local_rank("data")
+    toks = toks[row * each:(row + 1) * each]
+    seen, block = [], transformer.block_forward
+
+    def spy(p, cfg, x, *args, **kwargs):
+        seen.append(x.detach().clone())
+        return block(p, cfg, x, *args, **kwargs)
+
+    transformer.block_forward = spy
+    try:
+        with torch.no_grad():
+            model.forward(state.params, toks)
+            want, seen[:] = seen[1:], []
+            placed = specs.place(state.params, mesh)
+            sharding.set_context(mesh, seqp.RULES)
+            try:
+                model.forward(placed, toks)
+            finally:
+                sharding.set_context(None)
+    finally:
+        transformer.block_forward = block
+    got = seen[1:]
+    n = toks.shape[1] // COLS
+    col = mesh.get_local_rank("model")
+    meta["seq/residual"] = {
+        "shapes": sorted({tuple(g.shape) for g in got}),
+        "blocks": len(got),
+        "max_rel": max(float((g - w[:, col * n:(col + 1) * n]).abs().max()
+                             / w[:, col * n:(col + 1) * n].abs().max())
+                       for g, w in zip(got, want, strict=True))}
+    lm_port_serving(mesh, arrays, meta, seq=True)
 
 
 def lm_port_restart(mesh, out: pathlib.Path,

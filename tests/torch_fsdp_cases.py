@@ -17,6 +17,17 @@ each unsplit one the rank's own g_r (all bit for bit), the same under
 gradient, no sum), the gathers and reduce-scatters counted, and the
 global norm of tensors split over "data", "model", both and neither
 against the whole tensors' norm.
+
+On a (1, 2) mesh of the same two ranks, sequence parallelism over
+"model" (``SEQ_CONFIGS``, the rule ``seq_res -> ("model",)``): each
+rank runs the whole batch on its split residual stream, and each of its
+gradients is held against its slice of the meshless gradient (its
+largest difference relative to the slice's largest |value|), sound and
+with a planted fault (``SEQ_PLANTS``): the sequence gather's backward
+as this rank's slice instead of the reduce-scatter, a replicated
+region's exit keeping only its own positions' gradient instead of the
+all-gather, and a norm's scale used on the rank's positions with its
+gradient not summed over "model".
 """
 
 from __future__ import annotations
@@ -40,6 +51,11 @@ WORLD = 2
 CONFIGS = {"gemma3-1b": dict(remat=True, scan_group=2),
            "zamba2-1.2b": dict(remat=True)}
 BATCH, SEQ = 4, 16
+# the dense smoke config splits every region over "model" (under remat:
+# the recompute re-enters the split stream); torch_dist_cases.ODD none
+SEQ_CONFIGS = {"qwen2-1.5b": dict(remat=True), "odd": {}}
+SEQ_PLANTS = ("none", "seq_gather_slice", "seq_scatter_local",
+              "norm_unsummed")
 
 
 def _loss(model, params, toks):
@@ -127,6 +143,81 @@ def _norm_case(mesh, rank):
     return {"norm": float(gn), "whole_norm": float(want)}
 
 
+def _seq_plant(name):
+    """Install the fault ``name`` in this process; returns its undo."""
+    import torch
+
+    from repro_torch.parallel import sequence_parallel as seqp
+    if name == "none":
+        return lambda: None
+    if name == "norm_unsummed":
+        replicated = seqp.replicated
+        seqp.replicated = lambda w: w
+        return lambda: setattr(seqp, "replicated", replicated)
+    cls = seqp._Gather if name == "seq_gather_slice" else seqp._Scatter
+    orig = cls.__dict__["backward"]
+
+    def sliced(ctx, g):
+        return g.narrow(1, ctx.tp.rank * ctx.n, ctx.n), None, None
+
+    def local(ctx, g):
+        shape = list(g.shape)
+        shape[1] *= ctx.tp.size
+        full = torch.zeros(shape, dtype=g.dtype)
+        full.narrow(1, ctx.tp.rank * g.shape[1], g.shape[1]).copy_(g)
+        return full, None
+
+    cls.backward = staticmethod(sliced if name == "seq_gather_slice"
+                                else local)
+    return lambda: setattr(cls, "backward", orig)
+
+
+def _seq_case(arch, over, mesh):
+    import torch
+
+    import torch_dist_cases
+    from repro_torch import configs
+    from repro_torch.launch import specs
+    from repro_torch.models import zoo
+    from repro_torch.parallel import sequence_parallel as seqp
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel import tensor_parallel as tpl
+    from repro_torch.train.steps import cross_entropy_loss
+    base, shape = torch_dist_cases.ODD if arch == "odd" else (arch, {})
+    cfg = dataclasses.replace(configs.smoke(base), dtype="float32",
+                              **shape, **over)
+    model = zoo.build(cfg)
+    whole = model.init(torch.Generator().manual_seed(13))
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (BATCH, SEQ + 1)).astype(np.int32))
+    _, want = _grads(model, whole, toks)
+    spec = specs.param_specs(whole, sharding.MeshContext(
+        mesh, sharding.DEFAULT_RULES))
+    want = [specs.local_slice(w, sp, mesh) for w, sp in zip(want, spec)]
+    placed = specs.place(copy.deepcopy(whole), mesh)
+    out = {}
+    for plant in SEQ_PLANTS:
+        undo = _seq_plant(plant)
+        sharding.set_context(mesh, seqp.RULES)
+        try:
+            tp = tpl.active()
+            logits, _ = model.forward(placed, toks[:, :-1])
+            if tp.splits("vocab", cfg.vocab_size):
+                loss = tpl.cross_entropy(logits, toks[:, 1:],
+                                         cfg.vocab_size, tp)
+            else:
+                loss = cross_entropy_loss(logits, toks[:, 1:])
+            loss.backward()
+        finally:
+            sharding.set_context(None)
+            undo()
+        out[plant] = max(float((p.grad - w).abs().max() / w.abs().max())
+                         for p, w in zip(placed.parameters(), want))
+        for p in placed.parameters():
+            p.grad = None
+    return out
+
+
 def run(rank, store, out):
     import torch
     import torch.distributed as dist
@@ -140,6 +231,10 @@ def run(rank, store, out):
                                 mesh_dim_names=("data", "model"))
         res = {a: _arch_case(a, o, mesh, rank) for a, o in CONFIGS.items()}
         res["norm"] = _norm_case(mesh, rank)
+        model_mesh = init_device_mesh("cpu", (1, WORLD),
+                                      mesh_dim_names=("data", "model"))
+        res["seq"] = {a: _seq_case(a, o, model_mesh)
+                      for a, o in SEQ_CONFIGS.items()}
     finally:
         dist.destroy_process_group()
     path = out if rank == 0 else f"{out}.{rank}"

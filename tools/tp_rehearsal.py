@@ -3,10 +3,14 @@ sound and with a planted fault.
 
     PYTHONPATH=src python tools/tp_rehearsal.py [--arch qwen2-1.5b] \
         [--axis model|data] [--seeds 0 1 2] [--steps 2] [--batch 8] \
-        [--seq 128] [--plant none row_sum grad_sum gather_slice]
+        [--seq-len 128] [--plant none row_sum grad_sum gather_slice]
     python3 tools/tp_rehearsal.py --full [--plant none row_sum grad_sum]
     python3 tools/tp_rehearsal.py --full --axis data --layers 4 \
         [--plant none gather_slice]
+    PYTHONPATH=src python tools/tp_rehearsal.py --seq \
+        [--plant none seq_gather_slice norm_unsummed]
+    python3 tools/tp_rehearsal.py --full --seq --layers 4 \
+        [--plant none seq_gather_slice norm_unsummed]
 
 Two gloo ranks on a (1, 2) ("data", "model") mesh (``--axis data``: a
 (2, 1) mesh, FSDP over "data", each rank its rows of every microbatch)
@@ -23,6 +27,12 @@ small width, the base for ``chip_smoke.TP_TRAIN_TOL``.  Over "data"
 the weights are gathered exactly (f32) and each rank computes its rows:
 what differs is the rows' GEMMs at half the batch and the gradient's
 sum over the ranks, the base for ``chip_smoke.FSDP_TRAIN_TOL``.
+``--seq`` adds the rule ``seq_res -> ("model",)`` on the (1, 2) mesh
+(sequence parallelism: each rank's positions of the residual stream
+between the regions; the serve runs' prefill splits too): the sums
+over "model" are the same f32 sums as reduce-scatters in place of
+all-reduces, and the norms run on each rank's positions, the base for
+``chip_smoke.SP_TRAIN_TOL``.
 
 ``--full`` runs chip_smoke's T1 instead (the arch's full config, batch
 8 x 1,024, the seed of ``--seeds``; ``--layers`` cuts its depth, as
@@ -39,8 +49,13 @@ layer's GLU input into its rank-local region without the backward sum
 over "model" (the residual stream's and that layer's norm gradient keep
 only this rank's part); ``gather_slice`` (``--axis data``) makes the
 "data" gather's backward this rank's slice of its own gradient instead
-of the reduce-scatter (a sum over the ranks).  A fault's reading above
-the limit and the sound reading below it is what the limit must
+of the reduce-scatter (a sum over the ranks); ``seq_gather_slice``
+(``--seq``) makes the sequence gather's backward this rank's slice of
+its gradient instead of the reduce-scatter over "model" (each rank's
+part of the gathered input's gradient lost but its own);
+``norm_unsummed`` (``--seq``) leaves a norm scale's gradient unsummed
+over "model" (each rank's positions' part only).  A fault's reading
+above the limit and the sound reading below it is what the limit must
 separate.
 """
 
@@ -58,7 +73,9 @@ import tempfile
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-PLANTS = ("none", "row_sum", "grad_sum", "gather_slice")
+PLANTS = ("none", "row_sum", "grad_sum", "gather_slice", "seq_gather_slice",
+          "norm_unsummed")
+SEQ_PLANTS = ("seq_gather_slice", "norm_unsummed")
 T1 = dict(batch=8, seq=1024)                 # chip_smoke.TRAIN[0]'s shape
 
 
@@ -67,9 +84,21 @@ def _plant(name):
     from repro_torch.launch import specs
     from repro_torch.models import layers
     from repro_torch.parallel import fsdp
+    from repro_torch.parallel import sequence_parallel as seqp
     from repro_torch.parallel import tensor_parallel as tpl
     if name == "none":
         return lambda: None
+    if name == "seq_gather_slice":
+        gather = seqp._Gather.__dict__["backward"]
+
+        def seq_sliced(ctx, g):
+            return g.narrow(1, ctx.tp.rank * ctx.n, ctx.n), None, None
+        seqp._Gather.backward = staticmethod(seq_sliced)
+        return lambda: setattr(seqp._Gather, "backward", gather)
+    if name == "norm_unsummed":
+        replicated = seqp.replicated
+        seqp.replicated = lambda w: w
+        return lambda: setattr(seqp, "replicated", replicated)
     if name == "gather_slice":
         backward = fsdp._GatherData.backward
 
@@ -82,41 +111,33 @@ def _plant(name):
         def undo_slice():
             fsdp._GatherData.backward = staticmethod(backward)
         return undo_slice
+    if name not in ("row_sum", "grad_sum"):
+        raise ValueError(f"unknown fault {name!r}; one of {PLANTS}")
     last = {}
-    place, row, glu = specs.place, tpl.row_parallel, layers.glu_mlp
+    place, glu = specs.place, layers.glu_mlp
+    # the last layer's GLU: its exit's sum skipped, or its entry's
+    # backward sum
+    mod, fn = (seqp, "leave") if name == "row_sum" else (tpl, "to_model")
 
     def place_marked(obj, mesh, *args, **kwargs):
         out = place(obj, mesh, *args, **kwargs)
         last["mlp"] = getattr(obj, "params", obj).blocks[-1].mlp
         return out
 
-    def row_parallel(x, w, b, size, tp):
-        if "mlp" not in last or w is not last["mlp"].down.w:
-            return row(x, w, b, size, tp)
-        start, n = tp.chunk(size)
-        y = x @ tpl.part(w, 0, size, start, n, tp).to(x.dtype)
-        return y if b is None else y + b.to(x.dtype)
-
     def glu_mlp(x, p, act):
         if p is not last.get("mlp"):
             return glu(x, p, act)
-        to = tpl.to_model
-        tpl.to_model = lambda t, group: t
+        sound = getattr(mod, fn)
+        setattr(mod, fn, lambda t, _: t)
         try:
             return glu(x, p, act)
         finally:
-            tpl.to_model = to
+            setattr(mod, fn, sound)
 
-    specs.place = place_marked
-    if name == "row_sum":
-        tpl.row_parallel = row_parallel
-    elif name == "grad_sum":
-        layers.glu_mlp = glu_mlp
-    else:
-        raise ValueError(f"unknown fault {name!r}; one of {PLANTS}")
+    specs.place, layers.glu_mlp = place_marked, glu_mlp
 
     def undo():
-        specs.place, tpl.row_parallel, layers.glu_mlp = place, row, glu
+        specs.place, layers.glu_mlp = place, glu
     return undo
 
 
@@ -124,7 +145,7 @@ def _rel(got, want, key):
     return [abs(a[key] - b[key]) / abs(b[key]) for a, b in zip(got, want)]
 
 
-def _train_rows(model, mesh, kw, plants, device):
+def _train_rows(model, mesh, kw, plants, device, rules=None):
     """{plant: the partitioned run's records} and the meshless records
     (on rank 0 only; the other ranks wait)."""
     import torch
@@ -135,7 +156,8 @@ def _train_rows(model, mesh, kw, plants, device):
     for plant in plants:
         undo = _plant(plant)
         try:
-            tp[plant] = train(model, mesh=mesh, **kw)["records"]
+            tp[plant] = train(model, mesh=mesh, rules=rules,
+                              **kw)["records"]
         finally:
             undo()
         if device == "cuda":
@@ -146,7 +168,7 @@ def _train_rows(model, mesh, kw, plants, device):
     return tp, one
 
 
-def _serve_diff(model, cfg, mesh, seed, seq):
+def _serve_diff(model, cfg, mesh, seed, seq, rules=None):
     """The serve logits' max and mean |difference|, m = 2 against m = 1:
     a prefill of 2 x ``seq`` and 8 greedy steps, the partitioned run fed
     the meshless run's tokens (so a near tie that rounds the other way
@@ -165,7 +187,7 @@ def _serve_diff(model, cfg, mesh, seed, seq):
         p = model.init(torch.Generator().manual_seed(seed))
         if m is not None:
             specs.place(p, m)
-        sharding.set_context(m)
+        sharding.set_context(m, rules)
         try:
             t = tpl.active()
             cache = model.init_cache(2, seq + 8, device="cpu")
@@ -194,7 +216,9 @@ def _rank(rank, world, init, args, out):
 
     from repro_torch import configs
     from repro_torch.models import zoo
+    from repro_torch.parallel import sequence_parallel as seqp
     device = "cuda" if args.full else "cpu"
+    rules = seqp.RULES if args.seq else None
     if args.full:
         torch.cuda.set_device(0)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -214,15 +238,15 @@ def _rank(rank, world, init, args, out):
     else:
         cfg = dataclasses.replace(configs.smoke(args.arch), dtype="bfloat16",
                                   remat=True, accum_steps=4)
-        shape = dict(batch=args.batch, seq=args.seq)
+        shape = dict(batch=args.batch, seq=args.seq_len)
     model = zoo.build(cfg)
     rows = []
     for seed in args.seeds:
         kw = dict(steps=args.steps, seed=seed, device=device,
                   log=lambda _: None, **shape)
-        tp, one = _train_rows(model, mesh, kw, args.plant, device)
+        tp, one = _train_rows(model, mesh, kw, args.plant, device, rules)
         serve = {} if args.full else _serve_diff(model, cfg, mesh, seed,
-                                                 args.seq)
+                                                 args.seq_len, rules)
         if rank == 0:
             for plant, recs in tp.items():
                 rows.append({"seed": seed, "plant": plant,
@@ -253,7 +277,10 @@ def main(argv=None):
     ap.add_argument("--seeds", type=int, nargs="+", default=None)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--seq-len", type=int, default=128,
+                    help="the smoke runs' sequence length")
+    ap.add_argument("--seq", action="store_true",
+                    help="the rule seq_res -> (\"model\",) on --axis model")
     ap.add_argument("--full", action="store_true",
                     help="T1 on the card (training only)")
     ap.add_argument("--axis", choices=("model", "data"), default="model",
@@ -263,7 +290,10 @@ def main(argv=None):
     ap.add_argument("--plant", nargs="+", default=["none"], choices=PLANTS)
     args = ap.parse_args(argv)
     bad = [p for p in args.plant if p != "none"
-           and (p == "gather_slice") != (args.axis == "data")]
+           and ((p == "gather_slice") != (args.axis == "data")
+                or (p in SEQ_PLANTS) != args.seq)]
+    if args.seq and args.axis != "model":
+        ap.error("--seq splits the sequence over --axis model")
     if bad:
         ap.error(f"--plant {' '.join(bad)} does not apply to --axis "
                  f"{args.axis}")
