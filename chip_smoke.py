@@ -238,7 +238,17 @@ result line):
      wave's greedy tokens (the same prompts), every step's logits held
      to S2's ``SERVE_TOL`` against that wave's and its greedy choice
      the wave's token wherever the wave's top-2 margin exceeds twice
-     the logits' largest difference.
+     the logits' largest difference.  Then, in the same two processes,
+     SP3: T3 (qwen3-moe-30b-a3b at full width, its MoE a replicated
+     region on the gathered sequence, 64 of 128 experts a rank) and SP4:
+     T7 (seamless-m4t-medium, its encoder on the whole 4,096 frames, the
+     decoder's self and cross attention on the split stream), each cut
+     to 2 layers (SP4: 2 encoder + 2 decoder), ``SP_FAMILY_STEPS`` steps
+     from T3's / T7's seed and data: each step's loss and gradient norm
+     (SP3: and aux loss) against the meshless run of the same cut config
+     within ``SP_FAMILY_TOL``, the flash kernels' per-rank heads and
+     launches a step and the sequence's gathers and reduce-scatters
+     every step checked, their seconds printed.
      The seconds are gloo's through the host on one card, not a
      sequence-parallel speed;
  17. dryrun — the dry-run (``repro_torch.launch.dryrun``) on this
@@ -261,7 +271,7 @@ result line):
      ``kernel_ms_missing`` saying why); the join kernels' launches are
      the main path's (the stream deltas' are in the ``[stream]`` lines),
      the flash kernels' those of serving, training, L2, TP1 and TP2
-     (both ranks), FS1 (both ranks), FS2, and SP1 and SP2 (both ranks);
+     (both ranks), FS1 (both ranks), FS2, and SP1-SP4 (both ranks);
  19. the last line: ``{"ok": true, "device": {...}}``.
 
 Join sizes are cut from the paper's (Fig 4: N = 2e8
@@ -920,6 +930,15 @@ FLASH_CASES = [
     # layers' window of 512 and its global layers
     (4, 2048, 2048, 2, 1, 256, True, 512, "bfloat16"),
     (4, 2048, 2048, 2, 1, 256, True, 0, "bfloat16"),
+    # the per-rank heads of SP3 (qwen3-moe at m = 2: 16 q heads over 2 KV
+    # heads, T3's microbatch over the gathered sequence) and of SP4
+    # (seamless at m = 2: 8 heads, T7's microbatch: the encoder over the
+    # whole frames, the decoder's causal self-attention and its
+    # cross-attention over the frames)
+    (2, 1024, 1024, 16, 2, 128, True, 0, "bfloat16"),
+    (2, 4096, 4096, 8, 8, 64, False, 0, "bfloat16"),
+    (2, 512, 512, 8, 8, 64, True, 0, "bfloat16"),
+    (2, 512, 4096, 8, 8, 64, False, 0, "bfloat16"),
 ]
 # Tolerance (atol, rtol) of the flash forward against its plain versions
 # (inputs ~N(0, 1)), |got - want| <= atol + rtol |want| on o, by case name
@@ -1014,6 +1033,11 @@ FLASH_BWD_CASES = [
     (4, 1024, 1024, 32, 32, 64, True, 0, "bfloat16", False),
     # TP1's per-rank heads (qwen2-1.5b at m = 2: 6 q heads a KV head)
     (2, 1024, 1024, 6, 1, 128, True, 0, "bfloat16", False),
+    # SP3's and SP4's per-rank heads, as in FLASH_CASES
+    (2, 1024, 1024, 16, 2, 128, True, 0, "bfloat16", False),
+    (2, 4096, 4096, 8, 8, 64, False, 0, "bfloat16", False),
+    (2, 512, 512, 8, 8, 64, True, 0, "bfloat16", False),
+    (2, 512, 4096, 8, 8, 64, False, 0, "bfloat16", False),
 ]
 # Tolerance (a, rtol) of the flash backward's dq, dk, dv (inputs and do
 # ~N(0, 1)): |got - want| <= a max(max|want|, 1) + rtol |want| per tensor,
@@ -4315,10 +4339,11 @@ def _sp_residual(transformer):
     return seen, lambda: setattr(transformer, "block_forward", block)
 
 
-def _sp_train(torch, rank, seed, mesh):
+def _sp_train(torch, rank, seed, mesh, heads):
     """SP1 on this rank (see the phase); rank 0 also the meshless run of
     the same config after it, and every rank one step of it under
-    tensor parallelism alone for the peak without the rule."""
+    tensor parallelism alone for the peak without the rule.  ``heads``:
+    ``_tp_heads``' record of the flash kernels' heads."""
     import dataclasses
 
     import torch.distributed as dist
@@ -4335,7 +4360,6 @@ def _sp_train(torch, rank, seed, mesh):
                 for k, v in train_flash_passes(cfg).items()}
     kw = dict(batch=batch, seq=seq, seed=seed, device="cuda", log_every=1)
     colls = _tp_collectives(dist)
-    heads = _tp_heads(cuda)
     snaps = []
     torch.cuda.reset_peak_memory_stats()
     cuda.reset_launch_counts()
@@ -4490,14 +4514,166 @@ def _sp_serve(torch, rank, seed, mesh):
     return out
 
 
+# SP3 and SP4: the families whose regions the rule treats apart, in SP1's
+# two processes after SP2, each against its meshless run: SP3 the
+# MoE (T3's widths: a replicated region on the gathered sequence, its
+# experts split over "model"), SP4 the encoder-decoder (T7's widths and
+# f32 frame memory: the encoder on the whole frames, the decoder's self
+# and cross attention and GLU on the split stream), each (label, its
+# TRAIN row, the depth it is cut to: the encoder cut with the decoder).
+SP_FAMILIES = [("SP3", "T3", 2), ("SP4", "T7", 2)]
+SP_FAMILY_STEPS = 2
+# Each step's loss, gradient norm (and SP3's aux loss) against the
+# meshless run of the same cut config, relative.  tools/tp_rehearsal.py
+# --full --seq --layers 2 (NVIDIA H100 80GB HBM3, 700.00 W) read SP3's
+# sound run at 7.24e-5 (loss), 5.38e-4 (gradient norm) and 8.66e-4 (aux
+# loss: routing flips at near-ties, and the f32 index_add's order), the
+# MoE's sequence gather planted to sum its backward at 1.33 on the norm
+# (6.07e-5 on the loss); SP4's sound run at 3.11e-5 and 5.91e-5, the
+# cross attention's memory let in unsummed at 1.42e-2 and the encoder
+# output's gradient summed twice at 8.14e-2 on the norm.  The limits:
+# about 5x each sound reading (no planted fault moves a loss), the
+# gradient norm's ~440x (SP3) and ~47x (SP4) below the nearest fault.
+SP_FAMILY_TOL = {"SP3": {"loss_rel": 4e-4, "grad_norm_rel": 3e-3,
+                         "aux_loss_rel": 4e-3},
+                 "SP4": {"loss_rel": 1.5e-4, "grad_norm_rel": 3e-4}}
+
+
+def _sp_family_cfg(configs, row, layers):
+    """The full config of TRAIN row ``row`` with its overrides, cut to
+    ``layers`` (an encoder-decoder's encoder too)."""
+    import dataclasses
+    cfg = dataclasses.replace(configs.get(row[1]), **row[5])
+    return dataclasses.replace(cfg, n_layers=layers, **(
+        {"n_enc_layers": layers} if cfg.n_enc_layers else {}))
+
+
+def _sp_family_train(torch, rank, seed, mesh, label, row, layers, heads):
+    """SP3 or SP4 on this rank (see the phase); rank 0 also the meshless
+    run of the same config after it."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import zoo
+    from repro_torch.parallel import sequence_parallel as seqp
+    cfg = _sp_family_cfg(configs, row, layers)
+    model = zoo.build(cfg)
+    per_step = {k: v * cfg.accum_steps
+                for k, v in train_flash_passes(cfg).items()}
+    kw = dict(batch=row[2], seq=row[3], seed=seed, device="cuda",
+              log_every=1)
+    snaps = []
+    for seen in heads.values():
+        seen.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launch_counts()
+    seqp.reset_counts()
+    run = train_lib.train(
+        model, steps=SP_FAMILY_STEPS, mesh=mesh, rules=seqp.RULES,
+        log=lambda m: log(f"[sp] {label} rank {rank} {m}"),
+        metrics_cb=lambda *_: snaps.append(
+            {**{k: cuda.LAUNCHES[k] for k in per_step},
+             **{f"{k}_calls": v[0] for k, v in seqp.COUNTS.items()}}),
+        **kw)
+    keys = list(snaps[0])
+    zero = dict.fromkeys(keys, 0)
+    metrics = [k for k in ("loss", "grad_norm", "aux_loss", "dropped")
+               if k in run["records"][0]]
+    out = {**{k: [r[k] for r in run["records"]] for k in metrics},
+           "step_s": [r["step_s"] for r in run["records"]],
+           "per_step": [{k: b[k] - a[k] for k in keys}
+                        for a, b in zip([zero] + snaps, snaps)],
+           "flash_per_step": per_step,
+           "flash_launches": {k: cuda.LAUNCHES[k] for k in per_step},
+           "flash_heads": {k: sorted(v) for k, v in heads.items()},
+           "want_heads": [cfg.n_heads // SP_WORLD,
+                          cfg.n_kv_heads // SP_WORLD],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del run
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        one = train_lib.train(model, steps=SP_FAMILY_STEPS,
+                              log=lambda _: None, **kw)
+        out["meshless"] = {
+            **{k: [r[k] for r in one["records"]] for k in metrics},
+            "step_s": [r["step_s"] for r in one["records"]]}
+        del one
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _sp_family_rows(outs):
+    """SP3's and SP4's rows from both ranks' outputs, and their checks.
+    Returns the rows and the flash launches of both ranks."""
+    from repro_torch import configs
+    rows, launches = [], {"flash_fwd": 0, "flash_bwd": 0}
+    for label, train_label, layers in SP_FAMILIES:
+        row = next(t for t in TRAIN if t[0] == train_label)
+        cfg = _sp_family_cfg(configs, row, layers)
+        one = outs[0][label]["meshless"]
+        tol = SP_FAMILY_TOL[label]
+        for out in outs:
+            a = out[label]
+            diffs = {f"{k}_rel": max(abs(x - w) / abs(w) for x, w in
+                                     zip(a[k], one[k]))
+                     for k in ("loss", "grad_norm", "aux_loss") if k in a}
+            rec = {"sp": label, "rank": out["rank"], "train": train_label,
+                   "arch": row[1], "layers": layers,
+                   **({"enc_layers": cfg.n_enc_layers}
+                      if cfg.n_enc_layers else {}),
+                   "batch": row[2], "seq": row[3],
+                   "mesh": {"data": 1, "model": SP_WORLD},
+                   "rules": {"seq_res": ["model"]},
+                   "steps": SP_FAMILY_STEPS,
+                   **{k: a[k] for k in ("loss", "grad_norm", "aux_loss",
+                                        "dropped") if k in a},
+                   **{f"meshless_{k}": v for k, v in one.items()},
+                   "max_rel_diff": diffs, "tol": tol,
+                   "step_s": a["step_s"], "per_step": a["per_step"],
+                   "flash_heads": a["flash_heads"],
+                   "flash_launches_per_step": a["flash_per_step"],
+                   "flash_launches": a["flash_launches"],
+                   "peak_gib": a["peak_gib"], "note": SP_NOTE}
+            log(f"[sp] {json.dumps(rec)}")
+            rows.append(rec)
+            got = [{k: s[k] for k in a["flash_per_step"]}
+                   for s in a["per_step"]]
+            if got != [a["flash_per_step"]] * SP_FAMILY_STEPS:
+                fail(f"{label} rank {out['rank']}: flash launches per step "
+                     f"{got}, expected {a['flash_per_step']}")
+            for k, seen in a["flash_heads"].items():
+                if seen != [a["want_heads"]]:
+                    fail(f"{label} rank {out['rank']}: {k} ran at (q, KV) "
+                         f"heads {seen}, expected {a['want_heads']}")
+            if not all(s["all_gather_calls"] and s["reduce_scatter_calls"]
+                       for s in a["per_step"]):
+                fail(f"{label} rank {out['rank']}: a step without the "
+                     f"sequence's gathers or reduce-scatters: "
+                     f"{a['per_step']}")
+            if any(diffs[k] > tol[k] for k in diffs):
+                fail(f"{label} rank {out['rank']}: the sequence-parallel "
+                     f"steps differ from the meshless run's: "
+                     f"{json.dumps(diffs)}")
+            for k in launches:
+                launches[k] += a["flash_launches"][k]
+    return rows, launches
+
+
 def sp_rank(rank, port, seed):
-    """One rank of the (1, 2) mesh under ``seq_res -> ("model",)``: SP1
-    and SP2 (see the phase)."""
+    """One rank of the (1, 2) mesh under ``seq_res -> ("model",)``: SP1,
+    SP2, then SP3 and SP4 (see the phase)."""
     import datetime
 
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels import cuda
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group(
@@ -4507,8 +4683,15 @@ def sp_rank(rank, port, seed):
     try:
         mesh = init_device_mesh("cuda", (1, SP_WORLD),
                                 mesh_dim_names=("data", "model"))
-        out = {"rank": rank, "sp1": _sp_train(torch, rank, seed, mesh),
+        heads = _tp_heads(cuda)
+        out = {"rank": rank, "sp1": _sp_train(torch, rank, seed, mesh, heads),
                "sp2": _sp_serve(torch, rank, seed, mesh)}
+        t0 = time.perf_counter()
+        for label, train_label, layers in SP_FAMILIES:
+            row = next(t for t in TRAIN if t[0] == train_label)
+            out[label] = _sp_family_train(torch, rank, seed, mesh, label,
+                                          row, layers, heads)
+        out["families_s"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
     return out
@@ -4520,7 +4703,7 @@ def _sp_worker(rank, port, seed, out_dir):
 
 
 def sp_phase(torch, seed, tp_rows):
-    """SP1 and SP2 (phase 16) in two spawned processes on card 0; their
+    """SP1-SP4 (phase 16) in two spawned processes on card 0; their
     checks.  Returns the rows and the flash launches of both ranks."""
     import tempfile
 
@@ -4612,8 +4795,12 @@ def sp_phase(torch, seed, tp_rows):
     if not s2["greedy_sure_agree"]:
         fail("SP2: a greedy token differs from the meshless wave's where "
              "its top-2 margin exceeds twice the logits' difference")
-    log(f"[sp] phase took {time.perf_counter() - t0:.1f}s")
-    return rows, launches
+    f_rows, f_launches = _sp_family_rows(outs)
+    for k in launches:
+        launches[k] += f_launches[k]
+    log(f"[sp] phase took {time.perf_counter() - t0:.1f}s, SP3 and SP4 "
+        f"{outs[0]['families_s']:.1f}s of it")
+    return rows + f_rows, launches
 
 
 # --------------------------------------------------------------------------

@@ -30,7 +30,8 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.analysis.errors import PlanPerRError
-from repro_torch.core import cyclic3, engine, linear3, plan_ir, star3
+from repro_torch.core import (binary_join, cyclic3, engine, linear3, plan_ir,
+                              star3)
 from repro_torch.core.cost_model import (  # noqa: F401  (traffic layer)
     PlanChoice, cascaded_binary_tuples, choose_cyclic_strategy,
     choose_linear_strategy, cyclic3_tuples, linear3_tuples)
@@ -599,3 +600,7 @@ def plan_query(query: Query, cards=None, *, m_budget: int | None = None,
         label = "cascade"
     return plan_ir.QueryPlan(steps=tuple(steps), n_relations=n, kind=kind,
                              strategy=label, **cfg)
+
+
+# re-export for callers that sized intermediates via the old helper name
+exact_join_count = binary_join.exact_join_count

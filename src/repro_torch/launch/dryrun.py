@@ -4,7 +4,7 @@ flops, traffic, collectives, memory and roofline terms.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-1.5b \\
         --shape train_4k [--multi-pod] [--out artifacts/dryrun_torch] \\
-        [--set n_layers=4 remat=0 ...] [--tag TAG]
+        [--set n_layers=4 remat=0 ...] [--tag TAG] [--save-hlo PATH]
 
 The counterpart of the JAX package's ``launch/dryrun.py``, which forces
 512 host devices, lowers and compiles each cell and reads XLA's memory
@@ -79,6 +79,12 @@ Writes one JSON artifact per cell, the JAX package's keys:
 ``lower_s`` times the world, mesh, cell and inputs, ``compile_s`` the
 step's one run; ``hbm_floor`` splits the floor (``step_stats``);
 ``collective_groups`` says which groups span nodes.
+
+``--save-hlo PATH`` (``run_cell(..., save_hlo=)``) writes what the port
+has in the optimized HLO's place: the step's recorded op trace
+(``estimate(trace=True)``, ``step_stats.trace_lines``), one line an op
+with its output shapes, flops and traffic and, for a ``c10d`` op, its
+group and bytes.
 """
 
 from __future__ import annotations
@@ -307,7 +313,7 @@ def estimate(cell, mesh=None, *, trace: bool = False, seed: int = 0,
 
 
 def run_cell(arch: str, shape: str, multi_pod: bool,
-             overrides: dict | None = None):
+             overrides: dict | None = None, save_hlo: str | None = None):
     from repro_torch.launch import mesh as mesh_lib
 
     t0 = time.monotonic()
@@ -323,8 +329,11 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
         mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod,
                                              device="cpu")
         cell = specs.build_cell(arch, shape, overrides=overrides or None)
-        est, _ = estimate(cell, mesh, serve_bf16=serve_bf16,
-                          seq_shard=seq_shard)
+        est, stats = estimate(cell, mesh, trace=bool(save_hlo),
+                              serve_bf16=serve_bf16, seq_shard=seq_shard)
+    if save_hlo:
+        pathlib.Path(save_hlo).write_text(
+            "\n".join(step_stats.trace_lines(stats)) + "\n")
     run_s = est.pop("run_s")
     art = {
         "arch": arch, "shape": shape, "kind": cell.kind,
@@ -371,6 +380,9 @@ def main(argv=None):
                     "(e.g. n_layers=4 remat=0)")
     ap.add_argument("--tag", default="", help="artifact filename suffix "
                     "(perf-iteration id)")
+    ap.add_argument("--save-hlo", default=None,
+                    help="also write the step's op trace (the port's "
+                    "stand-in for the optimized HLO text) to this path")
     args = ap.parse_args(argv)
 
     overrides = _parse_overrides(args.overrides)
@@ -383,7 +395,7 @@ def main(argv=None):
 
     try:
         art = run_cell(args.arch, args.shape, args.multi_pod,
-                       overrides=overrides)
+                       overrides=overrides, save_hlo=args.save_hlo)
     except Exception as e:  # record failures as artifacts too
         art = {"arch": args.arch, "shape": args.shape,
                "mesh": "pod2x16x16" if args.multi_pod else "16x16",

@@ -42,7 +42,9 @@ call of the step, on fake CPU tensors in the dry-run
 No loop is counted once: the step runs every layer and microbatch, so
 nothing is multiplied by a trip count.  ``analyze()`` returns the keys
 of ``hlo_stats.analyze``; ``trace_contributors`` lists the largest ops
-by aten name and the port module that issued them.
+by aten name and the port module that issued them, and ``trace_lines``
+writes a traced call out op by op (what the dry-run's ``--save-hlo``
+saves in the HLO's place).
 """
 
 from __future__ import annotations
@@ -203,6 +205,7 @@ class _Recorder(TorchDispatchMode):
         before = s._flops_now()
         out = func(*args, **kwargs)
         flops = s._flops_now() - before
+        s.last_collective = None
         traffic = s._op(func, args, kwargs, out)
         name = f"{func.namespace}.{func._overloadpacket.__name__}"
         s.flops_by_op[name] += flops
@@ -210,7 +213,8 @@ class _Recorder(TorchDispatchMode):
         if s.trace:
             shapes = [tuple(t.shape) for t in tree_leaves(out)
                       if isinstance(t, torch.Tensor)]
-            s.rows.append((flops, traffic, name, _issuer(), shapes))
+            s.rows.append((flops, traffic, name, _issuer(), shapes,
+                           s.last_collective))
         return out
 
 
@@ -218,7 +222,9 @@ class StepStats:
     """Records one call of a step: ``with StepStats(args) as st: out =
     step(*args)``, then ``st.outputs(out)``.  ``args`` are the step's
     arguments (their storages count as argument bytes); ``trace`` keeps
-    one row per op for ``trace_contributors`` and ``output_shapes``."""
+    one row per op for ``trace_contributors``, ``output_shapes`` and
+    ``trace_lines``: (flops, traffic, aten op, issuer, output shapes, and
+    for a ``c10d`` op its kind, group and bytes, else None)."""
 
     def __init__(self, args, *, trace: bool = False):
         self.trace = trace
@@ -236,6 +242,7 @@ class StepStats:
         self.arg_written: dict = defaultdict(set)  # ... written in place
         self.arg_gathered: dict = {}  # storage -> most rows one gather took
         self.rows: list = []
+        self.last_collective: dict | None = None
         self._live: dict = {}         # storage key -> bytes, new storages
         self._cur = self.peak = 0
         self._out: dict = {}
@@ -356,6 +363,9 @@ class StepStats:
         g["wire_bytes"] += w
         g["wire_by_kind"][kind] += w
         g["ops"] += 1
+        self.last_collective = {"kind": kind, "group_size": n,
+                                "first_ranks": list(ranks[:4]),
+                                "bytes": res, "wire_bytes": w}
         return float(sum(_nbytes(t) for t in ts) + res)
 
     # -- after the call --------------------------------------------------
@@ -422,7 +432,7 @@ def trace_contributors(stats: StepStats, top: int | None = 25) -> list:
     issuing port function): rows of (traffic bytes, flops, calls, aten
     op, issuer), the largest traffic first."""
     acc: dict = {}
-    for flops, traffic, name, issuer, _ in stats.rows:
+    for flops, traffic, name, issuer, *_ in stats.rows:
         row = acc.setdefault((name, issuer), [0.0, 0.0, 0])
         row[0] += traffic
         row[1] += flops
@@ -431,3 +441,20 @@ def trace_contributors(stats: StepStats, top: int | None = 25) -> list:
                   for (name, issuer), (t, f, c) in acc.items()),
                  reverse=True)
     return out if top is None else out[:top]
+
+
+def trace_lines(stats: StepStats):
+    """One line a recorded op of a traced call, in the order they ran:
+    the aten op, the port function that issued it, its output shapes,
+    flops and traffic bytes, and for a ``c10d`` op its kind, group (size
+    and first ranks) and result and wire bytes."""
+    for i, (flops, traffic, name, issuer, shapes, coll) in enumerate(
+            stats.rows):
+        line = (f"{i} {name} {issuer} shapes={shapes} flops={flops:.0f} "
+                f"traffic={traffic:.0f}")
+        if coll is not None:
+            line += (f" {coll['kind']} group_size={coll['group_size']} "
+                     f"first_ranks={coll['first_ranks']} "
+                     f"bytes={coll['bytes']} "
+                     f"wire_bytes={coll['wire_bytes']:.0f}")
+        yield line

@@ -7,7 +7,8 @@ array for array and against the invariants of
 ``tests/test_hash_partition.py``; ``sketches.merge`` as in
 ``tests/test_cost_sketches.py`` (the union of two sketches equals the
 sketch of the union); ``binary_join.host_join_count``, the re-exported
-oracle.  Tolerance: none (integers and flags).
+oracle, and ``planner.exact_join_count``, the planner's alias of
+``binary_join.exact_join_count``.  Tolerance: none (integers and flags).
 """
 
 import jax.numpy as jnp
@@ -16,11 +17,12 @@ import pytest
 import torch
 
 from repro.core import binary_join as jbinary
+from repro.core import planner as jplanner
 from repro.core import partition as jpartition
 from repro.core import sketches as jsketches
 from repro.core.relation import Relation as JRelation
 from repro_torch.convert import relation_from_numpy
-from repro_torch.core import binary_join, hashing, partition, sketches
+from repro_torch.core import binary_join, hashing, partition, planner, sketches
 
 # (rows, one-level buckets, outer x inner buckets, key range, hot share,
 # dead share, seed)
@@ -137,5 +139,18 @@ def test_host_join_count_reexport(seed, hot):
     jb, b = _both(b_cols, b_valid)
     got = binary_join.host_join_count(a, "k", b, "v")
     assert got == int(jbinary.host_join_count(ja, "k", jb, "v"))
+    ka, kb = a_cols["k"][a_valid], b_cols["v"][b_valid]
+    assert got == int((ka[:, None] == kb[None, :]).sum())
+
+
+@pytest.mark.parametrize("seed,hot", [(7, 0.0), (8, 0.7)])
+def test_planner_exact_join_count_alias(seed, hot):
+    assert planner.exact_join_count is binary_join.exact_join_count
+    a_cols, a_valid = _layout(210, 25, hot, 0.2, seed)
+    b_cols, b_valid = _layout(190, 25, hot, 0.15, seed + 100)
+    ja, a = _both(a_cols, a_valid)
+    jb, b = _both(b_cols, b_valid)
+    got = planner.exact_join_count(a, "k", b, "v")
+    assert got == jplanner.exact_join_count(ja, "k", jb, "v")
     ka, kb = a_cols["k"][a_valid], b_cols["v"][b_valid]
     assert got == int((ka[:, None] == kb[None, :]).sum())

@@ -666,3 +666,32 @@ def test_run_cell_artifact(jdryrun):
     assert set(art["roofline"]) == set(jha.Roofline(1, 1, 1, 1).to_json())
     assert art["ok"] and art["n_chips"] == 256 and art["mesh"] == "16x16"
     assert art["overrides"] == {"n_layers": 2}
+
+
+def test_run_cell_save_hlo(jdryrun, tmp_path):
+    """``run_cell(..., save_hlo=)`` (the reference's ``--save-hlo``) writes
+    the step's op trace, one line an op: its ``c10d`` lines are the
+    artifact's collectives, their wire bytes its wire, and the flops of
+    every line its flops; ``--save-hlo`` is the CLI's flag for it."""
+    import inspect
+    assert "save_hlo" in inspect.signature(jdryrun.run_cell).parameters
+    path = tmp_path / "trace.txt"
+    art = dryrun.run_cell("gemma3-1b", "decode_32k", False,
+                          overrides={"n_layers": 2}, save_hlo=str(path))
+    assert not dist.is_initialized()
+    lines = path.read_text().splitlines()
+    assert lines and all(ln.split()[0] == str(i)
+                         for i, ln in enumerate(lines))
+    coll = [ln for ln in lines if " group_size=" in ln]
+    assert len(coll) == art["hlo_stats"]["n_collectives"] > 0
+    assert all(ln.split()[1].startswith("c10d.") for ln in coll)
+    wire = sum(float(ln.rsplit("wire_bytes=", 1)[1]) for ln in coll)
+    assert wire == pytest.approx(art["hlo_stats"]["collective_wire_bytes"],
+                                 rel=1e-9)
+    flops = sum(float(ln.split(" flops=", 1)[1].split()[0]) for ln in lines)
+    assert flops == art["xla_cost"]["flops"]
+    out = tmp_path / "out"
+    dryrun.main(["--arch", "gemma3-1b", "--shape", "decode_32k", "--set",
+                 "n_layers=2", "--out", str(out), "--save-hlo",
+                 str(tmp_path / "cli.txt")])
+    assert (tmp_path / "cli.txt").read_text().splitlines() == lines

@@ -33,6 +33,19 @@ ranks of the 4 x 2 launch), one launch a test session shared with
   shards (``spec_for``'s "data" and "model" entries), and each rank's
   parameters and moments are bit for bit ``local_slice`` of the
   gathered whole tensors.
+* The same two steps, tolerances and slices for the families those
+  leave out (``cases.FAMILY_TRAIN_ARCHS``): llama-3.2-vision (a cross
+  block after every second self block, on a seeded memory whose rows
+  split over "data" as the tokens'), zamba2 (its SSD blocks FSDP over
+  "data" and replicated over "model", its shared attention block
+  called twice a pass; mamba2's SSD block is zamba2's, so this covers
+  it) and seamless (its encoder over a seeded frame memory, the
+  decoder's cross attention).  The reference side of these is
+  ``repro``'s plain one-device step jitted without the mesh, not its
+  GSPMD step (the long pole of the shared launch): the same sums,
+  unpartitioned.  Each family's cross blocks, shared block, encoder
+  and cross attention split over both axes, the SSD projections over
+  "data" only.
 * ``overlap`` gives the same parameters, bit for bit.  A step whose
   microbatch does not divide "data" (replicated over the batch axes,
   still partitioned over "model"; every data rank takes its slice of
@@ -49,8 +62,10 @@ ranks of the 4 x 2 launch), one launch a test session shared with
 * Serving, FSDP and tensor-parallel: qwen2-1.5b's (its KV heads split),
   gemma3-1b's (one KV head, whole on every rank), zamba2-1.2b's with
   one KV head (``cases.HYBRID_KV1``: the hybrid's shared-block cache and
-  decode) and seamless-m4t-medium's (the encoder-decoder's cache and
-  decode; a seeded frontend memory) smoke configs on weights split
+  decode), seamless-m4t-medium's (the encoder-decoder's cache and
+  decode; a seeded frontend memory), qwen3-moe's (expert-parallel in
+  prefill and decode) and llama-3.2-vision's (its cross blocks over a
+  seeded memory held in the cache) smoke configs on weights split
   over "data", prefill of 2 x 16 tokens and 4 greedy
   decode steps, against the reference jitted with
   ``step_and_shardings``' in and out shardings on the mesh: every
@@ -69,9 +84,16 @@ ranks of the 4 x 2 launch), one launch a test session shared with
   within 1.5e-7 and parameters within these tolerances, and runs of it
   lengthened the shared launch, whose long pole the reference is).  Two
   train steps of the dense smoke config (every region split over
-  "model") and of ``cases.ODD`` (every region replicated), 32 positions
-  (16 a "model" rank), within the train steps' tolerances above, each
-  rank's parameters and moments exactly its slice; the dense config's
+  "model"), of ``cases.ODD`` (every region replicated), of qwen3-moe
+  (its MoE one replicated region on the gathered sequence, the aux loss
+  in the objective at the train step's weight; against the GSPMD run),
+  of llama-3.2-vision (its cross blocks on the split stream) and of
+  seamless (its encoder on the whole frames, its decoder on the split
+  stream, the memory's gradient summed over "model" once), 32 positions
+  (16 a "model" rank), within the train steps' tolerances above (the
+  MoE's aux loss and dropped share as in the meshed steps), each rank's
+  parameters and moments exactly its slice, the sequence gathered in
+  every one; the dense config's
   residual stream entering each block after the first is [2 rows, 16
   positions, d] on every rank and within 1e-5 of the meshless forward's
   at this rank's positions (relative to their largest |value|); one
@@ -184,7 +206,7 @@ def test_moe_sharded_grads_are_the_unsharded_ones(lm, grad):
     assert lm["ref"]["moe/8.0/noaux/dropped"] == 0
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + list(cases.FAMILY_TRAIN_ARCHS))
 def test_meshed_train_steps_match_reference(lm, arch):
     want = lm["ref_meta"][arch]
     assert len(want) == cases.TRAIN_STEPS
@@ -250,6 +272,36 @@ def test_fsdp_splits_what_the_reference_splits(lm):
         for k in data[a]:
             assert meta[f"{a}/local_shapes"][k] != \
                 list(lm["ref"][f"train/{a}/{k}"].shape)
+
+
+# per family, tensors the (4, 2) placement splits over both axes, and over
+# "data" alone (the SSD block is replicated over "model", as GSPMD
+# leaves it: no logical axis of its weights maps there)
+FAMILY_SPLITS = {
+    "llama-3.2-vision-11b": ({"cross_layers/xattn/wq/w",
+                              "cross_layers/xattn/wk/w",
+                              "cross_layers/xattn/wo/w"}, set()),
+    "zamba2-1.2b": ({"shared_block/attn/wq/w", "shared_block/mlp/down/w"},
+                    {"layers/ssm/in_proj/w", "layers/ssm/out_proj/w"}),
+    "seamless-m4t-medium": ({"enc_layers/attn/wq/w", "enc_layers/mlp/up/w",
+                             "dec_layers/xattn/wk/w",
+                             "dec_layers/xattn/wo/w"}, set())}
+
+
+@pytest.mark.parametrize("arch", list(cases.FAMILY_TRAIN_ARCHS))
+def test_family_placements_split_both_axes(lm, arch):
+    """The families' train states on the (4, 2) mesh: the VLM's cross
+    blocks, the hybrid's shared block and the encoder-decoder's encoder
+    and cross attention split over "data" and "model", the SSD block's
+    projections over "data" only, norm scales whole."""
+    both, data_only = FAMILY_SPLITS[arch]
+    for meta in lm["meta"]:
+        split = meta[f"{arch}/split_axes"]
+        for k in both:
+            assert split[k] == ["data", "model"], k
+        for k in data_only:
+            assert split[k] == ["data"], k
+        assert all(not v for k, v in split.items() if k.endswith("scale"))
 
 
 def test_overlap_gives_the_same_parameters(lm):
@@ -383,7 +435,13 @@ def test_seq_train_steps_match_reference(lm, arch):
         for got, ref in zip(meta[tag], want, strict=True):
             for k in ("loss", "grad_norm", "lr"):
                 _close(got[k], ref[k], err_msg=k)
+            if "dropped" in ref:
+                _close(got["aux_loss"], ref["aux_loss"])
+                assert got["dropped"] == pytest.approx(ref["dropped"],
+                                                       abs=1e-7)
         assert meta[f"{tag}/local_is_slice"]
+        # the stream split: the regions gathered the sequence
+        assert meta[f"{tag}/seq_collectives"]["all_gather"] > 0
     keys = [k for k in lm["ref"] if k.startswith(f"train/{arch}/")]
     assert len(keys) > 10
     assert any("/opt/m/" in k for k in keys)

@@ -26,20 +26,25 @@ The parity launches also run the LM's mesh cases (``lm_reference`` /
 GSPMD and the port tensor-parallel over "model": the expert-parallel
 MoE FFN at two capacity factors with its gradients, two train steps of
 four smoke configs (dense, MoE, gemma3's GQA with one KV head, and
-``ODD``, which divides nothing; 2 microbatches), the port's ``overlap``
-path, a checkpoint gathered over "model" and restored onto ``Shard``
-placements and meshless, a failed and resumed ``launch.train`` run,
-prefill and decode steps of the dense, hybrid and encoder-decoder
-families (``SERVE_ARCHS``; jitted with ``step_and_shardings``'
-shardings on the reference's side; the port's cache each rank's
-``cache_specs`` slice) and three families' forward losses; and the port alone under
-the rule ``seq_res -> ("model",)`` (sequence parallelism, ``SEQ_*``):
-two train steps of the dense and ``ODD`` configs, one zamba2 forward
-loss and the serving cases again, held to the reference's plain runs
-(the rule moves GSPMD's sums, not their values: the reference under
-it gave the same metrics within 1.5e-7 and parameters within the train
-steps' tolerances, and its runs lengthened the shared launch, whose
-long pole the reference is).  Their
+``ODD``, which divides nothing; 2 microbatches) and of the VLM, hybrid
+and encoder-decoder configs (``FAMILY_TRAIN_ARCHS``, with a seeded
+memory where the config has a frontend; the reference's plain
+one-device step, not GSPMD, whose compiles are the shared launch's long
+pole: the same computation, its sums partitioned),
+the port's ``overlap`` path, a checkpoint gathered over "model" and
+restored onto ``Shard`` placements and meshless, a failed and resumed
+``launch.train`` run, prefill and decode steps of the dense, MoE, VLM,
+hybrid and encoder-decoder families (``SERVE_ARCHS``; jitted with
+``step_and_shardings``' shardings on the reference's side; the port's
+cache each rank's ``cache_specs`` slice) and three families' forward
+losses; and the port alone under the rule ``seq_res -> ("model",)``
+(sequence parallelism, ``SEQ_*``): two train steps of the dense,
+``ODD``, MoE, VLM and encoder-decoder configs, one zamba2 forward loss
+and the serving cases again, held to the reference's runs without the
+rule (the rule moves GSPMD's sums, not their values: the reference
+under it gave the same metrics within 1.5e-7 and parameters within the
+train steps' tolerances, and its runs lengthened the shared launch,
+whose long pole the reference is).  Their
 inputs are numpy draws and the port's own seeded initialisation (the
 reference carries it across with ``convert``), written to
 ``lm_ref.npz`` / ``lm_ref.json`` and ``lm_port_<rank>.npz`` /
@@ -366,6 +371,13 @@ MOE_X = (8, 64)                    # global [B, S]: 2 x 64 tokens a shard
 MOE_CFS = (8.0, 1.25)              # nothing dropped at 8.0 (>= E/k)
 MOE_AUX_W = 0.37                   # the aux loss's weight in the objective
 TRAIN_ARCHS = ("qwen2-1.5b", "qwen3-moe-30b-a3b", "gemma3-1b", "odd")
+# the families the train steps above leave out, trained the same way but
+# held to the reference's plain one-device step (below): the VLM's cross
+# blocks on a seeded memory, the hybrid's SSD blocks and its shared
+# block called more than once (mamba2's SSD block is zamba2's), the
+# encoder-decoder's encoder and cross attention on a seeded frame memory
+FAMILY_TRAIN_ARCHS = ("llama-3.2-vision-11b", "zamba2-1.2b",
+                      "seamless-m4t-medium")
 # a config none of whose heads, GLU hidden or vocabulary divides m = 2
 # (its wq / wk / wv / wo still divide: stored split, gathered for use),
 # and whose d_model does not divide the 4 "data" ranks (every weight
@@ -384,7 +396,8 @@ INIT_SEED = 3
 HYBRID_KV1 = ("zamba2-1.2b", dict(n_kv_heads=1))
 VARIANTS = {"odd": ODD, "zamba2-kv1": HYBRID_KV1}
 SERVE_ARCHS = ("qwen2-1.5b", "gemma3-1b", "zamba2-kv1",
-               "seamless-m4t-medium")
+               "seamless-m4t-medium", "qwen3-moe-30b-a3b",
+               "llama-3.2-vision-11b")
 # served again as the serve_bf16 deployment: rules p_embed -> () (weights
 # whole over "data") and bf16 parameters, activations f32 as above
 SERVE_BF16_ARCH = "qwen2-1.5b"
@@ -395,9 +408,13 @@ FORWARD_ARCHS = ("llama-3.2-vision-11b", "zamba2-1.2b",
 FORWARD_B, FORWARD_S = 8, 16
 RESTART = dict(steps=2, batch=8, seq=16, fail_at=1)
 # sequence parallelism, the port's side: the train configs (the dense one
-# splits every region over "model", ODD none: replicated regions) and
-# the forward it runs under the rule seq_res -> ("model",)
-SEQ_TRAIN_ARCHS = ("qwen2-1.5b", "odd")
+# splits every region over "model", ODD none: replicated regions; the
+# MoE a replicated region on the gathered sequence, the VLM's cross
+# blocks and seamless's decoder cross attention on a split stream, its
+# encoder on the whole frames) and the forward it runs under the rule
+# seq_res -> ("model",)
+SEQ_TRAIN_ARCHS = ("qwen2-1.5b", "odd", "qwen3-moe-30b-a3b",
+                   "llama-3.2-vision-11b", "seamless-m4t-medium")
 SEQ_FORWARD_ARCH = "zamba2-1.2b"
 
 
@@ -409,12 +426,19 @@ def moe_inputs(cfg):
 
 
 def train_batches(cfg):
+    """TRAIN_STEPS batches of inputs and targets [TRAIN_BATCH, TRAIN_SEQ]
+    and, for a config with a frontend, its memory [TRAIN_BATCH, F, d]
+    (its rows split over "data" as the tokens' do)."""
     rng = np.random.default_rng(17)
     out = []
     for _ in range(TRAIN_STEPS):
         toks = rng.integers(0, cfg.vocab_size,
                             (TRAIN_BATCH, TRAIN_SEQ + 1)).astype(np.int32)
         out.append({"inputs": toks[:, :-1], "targets": toks[:, 1:]})
+        if cfg.n_frontend_tokens:
+            out[-1]["memory"] = rng.normal(size=(
+                TRAIN_BATCH, cfg.n_frontend_tokens, cfg.d_model)).astype(
+                    np.float32)
     return out
 
 
@@ -493,8 +517,9 @@ def lm_reference(out: pathlib.Path):
     forced devices: ``moe_mlp_sharded`` (output, aux, gradients of
     ``sum(out * ct) / 4 + MOE_AUX_W * aux_loss``; also ``moe_mlp``'s
     gradients of the aux-free objective), and ``make_train_step`` jitted
-    under the mesh context for TRAIN_STEPS steps, and for one step of the
-    MoE config on ``replicated_batches``."""
+    under the mesh context for TRAIN_STEPS steps (``FAMILY_TRAIN_ARCHS``
+    jitted without it, on one device), and for one step of the MoE
+    config on ``replicated_batches``."""
     import dataclasses
 
     import jax
@@ -543,7 +568,7 @@ def lm_reference(out: pathlib.Path):
             for k, v in _flat(jax.tree.map(np.asarray, gp)).items():
                 arrays[f"{tag}/grad/{k}"] = v
 
-    def train(arch, tag, batches, accum):
+    def train(arch, tag, batches, accum, gspmd=True):
         cfg, state = port_init(arch)
         tree = convert.train_state_to_numpy(state)
         jstate = jsteps.TrainState(
@@ -552,7 +577,8 @@ def lm_reference(out: pathlib.Path):
         step = jsteps.make_train_step(
             jzoo.build(smoke_cfg(arch, jconfigs)), AdamWConfig(**TRAIN_OPT),
             accum_steps=accum)
-        mesh_lib.activate(mesh)
+        if gspmd:
+            mesh_lib.activate(mesh)
         try:
             step = jax.jit(step)
             recs = []
@@ -571,8 +597,9 @@ def lm_reference(out: pathlib.Path):
                 arrays[f"train/{tag}/opt/{mom}/{k}"] = v
         return tree
 
-    for arch in TRAIN_ARCHS:
-        tree = train(arch, arch, train_batches, TRAIN_ACCUM)
+    for arch in TRAIN_ARCHS + FAMILY_TRAIN_ARCHS:
+        tree = train(arch, arch, train_batches, TRAIN_ACCUM,
+                     gspmd=arch in TRAIN_ARCHS)
         meta[f"{arch}/local_shapes"] = ref_local_shapes(
             jax.tree.map(np.asarray, tree["params"]), mesh)
     # microbatches of REPLICATED_MB rows, which the 4 "data" ranks cannot
@@ -735,8 +762,9 @@ def _local_is_slice(state, whole, mesh, specs, ctx) -> bool:
 def lm_port(mesh, rank, out: pathlib.Path):
     """One rank of the port on the (4, 2) ("data", "model") mesh: its rows
     of the MoE input through ``moe_mlp_sharded`` (and its gradients, the
-    parameters' averaged over "data"), the train steps on the global
-    batches (FSDP over "data" and tensor-parallel over "model": each
+    parameters' averaged over "data"), the train steps of
+    ``TRAIN_ARCHS`` and ``FAMILY_TRAIN_ARCHS`` on the global batches
+    (FSDP over "data" and tensor-parallel over "model": each
     rank's parameters and moments are its ``param_specs`` slices,
     gathered for the comparison), the same dense run with ``overlap``,
     an MoE step whose microbatch does not divide "data"
@@ -794,7 +822,7 @@ def lm_port(mesh, rank, out: pathlib.Path):
                 arrays[f"{tag}/grad/{k}"] = g.numpy()
 
     ctx = sharding.MeshContext(mesh, sharding.DEFAULT_RULES)
-    for arch in TRAIN_ARCHS + ("overlap",):
+    for arch in TRAIN_ARCHS + FAMILY_TRAIN_ARCHS + ("overlap",):
         cfg, state = port_init(TRAIN_ARCHS[0] if arch == "overlap"
                                else arch)
         step = make_train_step(zoo.build(cfg), AdamWConfig(**TRAIN_OPT),
@@ -1012,9 +1040,9 @@ def lm_port_serving(mesh, arrays, meta, seq: bool = False):
 
 def lm_port_seq(mesh, arrays, meta):
     """Sequence parallelism (``sequence_parallel.RULES``): the
-    ``SEQ_TRAIN_ARCHS``
-    train steps as ``lm_port``'s (parameters and moments gathered whole,
-    tagged ``seq/``), the dense config's residual stream entering each
+    ``SEQ_TRAIN_ARCHS`` train steps as ``lm_port``'s (parameters and
+    moments gathered whole, the sequence's gathers and reduce-scatters
+    counted, tagged ``seq/``), the dense config's residual stream entering each
     block after the first, in one forward of this rank's rows of the
     first batch, against the meshless forward's (its shape, and its
     largest difference from this rank's positions relative to their
@@ -1035,12 +1063,15 @@ def lm_port_seq(mesh, arrays, meta):
                                accum_steps=TRAIN_ACCUM, mesh=mesh,
                                rules=seqp.RULES)
         recs = []
+        seqp.reset_counts()
         for batch in train_batches(cfg):
             state, m = step(state, {k: torch.from_numpy(v)
                                     for k, v in batch.items()})
             recs.append({k: float(v) for k, v in m.items()})
         tag = f"seq/{arch}"
         meta[tag] = recs
+        meta[f"{tag}/seq_collectives"] = {k: v[0] for k, v in
+                                          seqp.COUNTS.items()}
         whole = specs.gather_state(state, mesh)
         meta[f"{tag}/local_is_slice"] = _local_is_slice(
             state, whole, mesh, specs, ctx)

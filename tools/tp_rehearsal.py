@@ -11,6 +11,10 @@ sound and with a planted fault.
         [--plant none seq_gather_slice norm_unsummed]
     python3 tools/tp_rehearsal.py --full --seq --layers 4 \
         [--plant none seq_gather_slice norm_unsummed]
+    python3 tools/tp_rehearsal.py --full --seq --arch qwen3-moe-30b-a3b \
+        --layers 2 [--plant none moe_gather_summed]
+    python3 tools/tp_rehearsal.py --full --seq --arch seamless-m4t-medium \
+        --layers 2 [--plant none memory_unsummed encoder_twice]
 
 Two gloo ranks on a (1, 2) ("data", "model") mesh (``--axis data``: a
 (2, 1) mesh, FSDP over "data", each rank its rows of every microbatch)
@@ -19,8 +23,8 @@ as T1) through
 ``launch.train.train`` beside the meshless run of the same seed, and
 prefill + greedily decode it beside the meshless serve steps (fed the
 meshless run's tokens).  Printed: each step's relative loss and
-gradient-norm difference, the largest over the seeds, and the serve
-logits' largest |difference|.  In bf16 a
+gradient-norm difference (and the MoE's aux loss's), the largest over
+the seeds, and the serve logits' largest |difference|.  In bf16 a
 row-parallel product is rounded to bf16 on each rank before the f32 sum
 over "model", where one GEMM rounds once: this is that difference at a
 small width, the base for ``chip_smoke.TP_TRAIN_TOL``.  Over "data"
@@ -34,11 +38,13 @@ over "model" are the same f32 sums as reduce-scatters in place of
 all-reduces, and the norms run on each rank's positions, the base for
 ``chip_smoke.SP_TRAIN_TOL``.
 
-``--full`` runs chip_smoke's T1 instead (the arch's full config, batch
-8 x 1,024, the seed of ``--seeds``; ``--layers`` cuts its depth, as
-chip_smoke's FS1 does) on the card: both ranks on card 0 over gloo, as
-chip_smoke's "tp" and "fsdp" phases, the meshless run on rank 0 after
-them; training only.
+``--full`` runs the arch's row of chip_smoke's ``TRAIN`` instead (T1
+for qwen2-1.5b: the arch's full config with the row's overrides, batch
+and sequence length, the seed of ``--seeds``; ``--layers`` cuts its
+depth, an encoder-decoder's encoder too, as chip_smoke's FS1, SP3 and
+SP4 do) on the card: both ranks on card 0 over gloo, as chip_smoke's
+"tp", "fsdp" and "sp" phases, the meshless run on rank 0 after them;
+training only.
 
 ``--plant`` names the runs, each a fault installed in the ranks'
 processes for the partitioned run only (the sources are untouched):
@@ -54,8 +60,14 @@ of the reduce-scatter (a sum over the ranks); ``seq_gather_slice``
 its gradient instead of the reduce-scatter over "model" (each rank's
 part of the gathered input's gradient lost but its own);
 ``norm_unsummed`` (``--seq``) leaves a norm scale's gradient unsummed
-over "model" (each rank's positions' part only).  A fault's reading
-above the limit and the sound reading below it is what the limit must
+over "model" (each rank's positions' part only); ``moe_gather_summed``
+(``--seq``, an MoE arch) makes the MoE's sequence gather sum its
+backward over "model" (the gradient every rank holds whole summed
+again); ``memory_unsummed`` (a cross-attending arch) lets the memory
+into a cross attention's rank-local region without the backward sum
+over "model"; ``encoder_twice`` (an encoder-decoder) sums the encoder
+output's gradient over "model" a second time.  A fault's reading above
+the limit and the sound reading below it is what the limit must
 separate.
 """
 
@@ -74,9 +86,21 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 PLANTS = ("none", "row_sum", "grad_sum", "gather_slice", "seq_gather_slice",
-          "norm_unsummed")
-SEQ_PLANTS = ("seq_gather_slice", "norm_unsummed")
-T1 = dict(batch=8, seq=1024)                 # chip_smoke.TRAIN[0]'s shape
+          "norm_unsummed", "moe_gather_summed", "memory_unsummed",
+          "encoder_twice")
+SEQ_PLANTS = ("seq_gather_slice", "norm_unsummed", "moe_gather_summed")
+TP_PLANTS = ("row_sum", "grad_sum")          # without --seq only
+
+
+def _train_row(arch):
+    """(label, arch, batch, seq, steps, overrides) of ``arch`` in
+    chip_smoke's TRAIN table."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return next(r for r in smoke.TRAIN if r[1] == arch)
 
 
 def _plant(name):
@@ -88,6 +112,35 @@ def _plant(name):
     from repro_torch.parallel import tensor_parallel as tpl
     if name == "none":
         return lambda: None
+    if name == "moe_gather_summed":
+        from repro_torch.models import moe
+        auto = moe.moe_mlp_auto
+
+        def summed(x, p, cfg):
+            sp = seqp.current()
+            if sp is None:
+                return moe._dispatch(x, p, cfg)
+            x = seqp.gather(x, sp, summed=True)
+            with seqp.stream(None):
+                out, aux = moe._dispatch(x, p, cfg)
+            return seqp.scatter(out, sp), aux
+        moe.moe_mlp_auto = summed
+        return lambda: setattr(moe, "moe_mlp_auto", auto)
+    if name == "memory_unsummed":
+        from repro_torch.models import attention
+        enter = attention._Heads.enter_memory
+        attention._Heads.enter_memory = lambda self, m: m
+        return lambda: setattr(attention._Heads, "enter_memory", enter)
+    if name == "encoder_twice":
+        from repro_torch.models import encdec
+        encode = encdec.encode
+
+        def twice(params, cfg, frames):
+            mem = encode(params, cfg, frames)
+            tp = tpl.active()
+            return mem if tp is None else tpl.to_model(mem, tp.group)
+        encdec.encode = twice
+        return lambda: setattr(encdec, "encode", encode)
     if name == "seq_gather_slice":
         gather = seqp._Gather.__dict__["backward"]
 
@@ -180,8 +233,13 @@ def _serve_diff(model, cfg, mesh, seed, seq, rules=None):
     from repro_torch.parallel import sharding
     from repro_torch.parallel import tensor_parallel as tpl
     from repro_torch.train.steps import make_decode_step, make_prefill_step
-    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (2, seq)).astype(np.int32))
+    # the VLM's or the enc-dec's frontend memory, as the prefill takes it
+    mem = (torch.from_numpy(rng.normal(size=(
+        2, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32))
+        if cfg.n_frontend_tokens else None)
     logits, fed = {}, []
     for tag, m in (("one", None), ("tp", mesh)):
         p = model.init(torch.Generator().manual_seed(seed))
@@ -191,7 +249,7 @@ def _serve_diff(model, cfg, mesh, seed, seq, rules=None):
         try:
             t = tpl.active()
             cache = model.init_cache(2, seq + 8, device="cpu")
-            lg, cache = make_prefill_step(model)(p, toks, cache)
+            lg, cache = make_prefill_step(model)(p, toks, cache, mem)
             got = [lg]
             for i in range(8):
                 if t is None:
@@ -231,10 +289,12 @@ def _rank(rank, world, init, args, out):
                             else (world, 1),
                             mesh_dim_names=("data", "model"))
     if args.full:
-        cfg = configs.get(args.arch)
+        _, _, batch, seq, _, over = _train_row(args.arch)
+        cfg = dataclasses.replace(configs.get(args.arch), **over)
         if args.layers:
-            cfg = dataclasses.replace(cfg, n_layers=args.layers)
-        shape = T1
+            cfg = dataclasses.replace(cfg, n_layers=args.layers, **(
+                {"n_enc_layers": args.layers} if cfg.n_enc_layers else {}))
+        shape = dict(batch=batch, seq=seq)
     else:
         cfg = dataclasses.replace(configs.smoke(args.arch), dtype="bfloat16",
                                   remat=True, accum_steps=4)
@@ -252,6 +312,8 @@ def _rank(rank, world, init, args, out):
                 rows.append({"seed": seed, "plant": plant,
                              "loss_rel": _rel(recs, one, "loss"),
                              "grad_norm_rel": _rel(recs, one, "grad_norm"),
+                             **({"aux_loss_rel": _rel(recs, one, "aux_loss")}
+                                if "aux_loss" in recs[0] else {}),
                              "loss": [r["loss"] for r in recs],
                              "grad_norm": [r["grad_norm"] for r in recs],
                              "meshless_loss": [r["loss"] for r in one],
@@ -282,7 +344,8 @@ def main(argv=None):
     ap.add_argument("--seq", action="store_true",
                     help="the rule seq_res -> (\"model\",) on --axis model")
     ap.add_argument("--full", action="store_true",
-                    help="T1 on the card (training only)")
+                    help="the arch's chip_smoke TRAIN row on the card "
+                    "(training only)")
     ap.add_argument("--axis", choices=("model", "data"), default="model",
                     help="the axis of the two ranks")
     ap.add_argument("--layers", type=int, default=0,
@@ -291,7 +354,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     bad = [p for p in args.plant if p != "none"
            and ((p == "gather_slice") != (args.axis == "data")
-                or (p in SEQ_PLANTS) != args.seq)]
+                or (p in SEQ_PLANTS and not args.seq)
+                or (p in TP_PLANTS and args.seq))]
     if args.seq and args.axis != "model":
         ap.error("--seq splits the sequence over --axis model")
     if bad:
@@ -317,7 +381,7 @@ def main(argv=None):
         rows = json.loads(pathlib.Path(out).read_text())
     for r in rows:
         print(json.dumps(r))
-    keys = ["loss_rel", "grad_norm_rel"] + (
+    keys = ["loss_rel", "grad_norm_rel", "aux_loss_rel"] + (
         [] if args.full else ["serve_logits_max_abs_diff",
                               "serve_logits_mean_abs_diff"])
     for plant in args.plant:
