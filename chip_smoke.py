@@ -112,7 +112,7 @@ result line):
      sketch of Example 1, never materializing the join) at Q6's data as
      R(a, b), S(b, c), T(c, d) under ``linear3.default_plan(n, n, n,
      m_budget=16384)``, grown as the whole-query retry drivers grow it
-     while a bucket overflows (the tries printed), at 32 and 64
+     while a bucket overflows (the tries printed), at 32, 48 and 64
      registers: each call's registers equal an oracle independent of the
      FM path (the distinct (a, d) pairs as the non-zeros of a float64
      A·A·A on the card, folded with ``sketches.add`` on the CPU), never
@@ -2788,7 +2788,7 @@ def mesh_phase(torch, data, results, want, seed):
 # phase 10: analytics — the FM DISTINCT sketch at Q6's data, the examples
 # --------------------------------------------------------------------------
 
-FM_REGISTERS = (32, 64)
+FM_REGISTERS = (32, 48, 64)
 FM_WARM = 3
 FM_MAX_RETRIES = 4
 FM_PEAK_GIB = 16.0
@@ -2861,7 +2861,7 @@ def fm_plan(torch, rels):
 
 def fm_phase(torch, F, d):
     """A1: ``linear3_fm_distinct`` on the card at Q6's data as R(a, b),
-    S(b, c), T(c, d) under ``fm_plan``'s plan, at 32 and 64 registers:
+    S(b, c), T(c, d) under ``fm_plan``'s plan, at 32, 48 and 64 registers:
     equal to ``fm_oracle``, never overflowed, its peak above the phase's
     start under ``FM_PEAK_GIB``."""
     from repro_torch.core import linear3, sketches

@@ -9,32 +9,36 @@ Estimate = 2^(mean_k R_k) / φ with R_k = index of the lowest ZERO bit of
 bitmap k and φ ≈ 0.77351 (Flajolet–Martin 1985).
 
 Registers are int32 bitmaps, bit-identical to the JAX package's.  The
-estimate is the reference's float32 value: the mean of K register indexes,
-K a power of two up to 64, is k/64 for an integer k, so it is read from
-the table of the 2,049 float32 estimates the reference computes
-(``_fm_table``).  Other register counts raise: the reference's XLA exp2
-and torch's differ in the last bit for some means, and no caller uses
-such a count.  The planner's estimates, and with them the plans, depend
-on both.
+estimate is the reference's float32 value, ``exp2(mean(R)) / PHI`` as its
+eager ops compute it on the CPU, for any register count K.  The same
+float32 steps are computed here, in the reference's order: XLA turns the
+mean's division by K into a product with the float32 ``1/K``, lowers
+``exp2(x)`` to ``exp(x * f32(ln 2))``, and evaluates the float32 ``exp``
+by the Cephes range reduction and polynomial with fused multiply-adds
+(``_xla_exp``); the division by PHI is rounded once.  Each step is a
+float32 operation on a tensor, a fused one emulated through float64
+(``_fma32``), so the estimate is the reference's bit for bit.  The
+planner's estimates, and with them the plans, depend on it.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-import struct
 
 import torch
 
 from repro_torch.core import hashing
-from repro_torch.core._fm_table import FM_ESTIMATE_BITS
 
 PHI = 0.77351
 N_REGISTERS = 32
-# register counts whose mean index the table holds exactly (k / 64)
-FM_REGISTER_COUNTS = (1, 2, 4, 8, 16, 32, 64)
-_FM_ESTIMATES = struct.unpack(f"<{len(FM_ESTIMATE_BITS)}f",
-                              struct.pack(f"<{len(FM_ESTIMATE_BITS)}I",
-                                          *FM_ESTIMATE_BITS))
+# XLA's float32 exp on the CPU (its Cephes constants): the input's clamp,
+# log2(e), ln 2 in two parts, the polynomial's coefficients
+_EXP_LO, _EXP_HI = -87.8, 88.8
+_LOG2E = 1.44269504088896341
+_LN2_HI, _LN2_LO = 0.693359375, -2.12194440e-4
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+             4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
 
 
 def card_bucket(n: int, *, per_octave: int = 1) -> int:
@@ -109,14 +113,64 @@ def _lowest_zero_index(x: torch.Tensor) -> torch.Tensor:
     return torch.where(y == 0, torch.full_like(idx, 32), idx)
 
 
+def _f32(x: float) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32)
+
+
+def _fma32(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add: the
+    product of two float32 values is exact in float64, and the float64
+    sum is rounded to odd (its error from a TwoSum moves an even result
+    one step toward the exact value), which the cast to float32 then
+    rounds as the fused operation does."""
+    a, b, c = (torch.as_tensor(x, dtype=torch.float32).double()
+               for x in (a, b, c))
+    p = a * b
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    step = torch.nextafter(s, torch.copysign(torch.full_like(s, math.inf),
+                                             err))
+    return torch.where((err != 0) & even, step, s).float()
+
+
+def _xla_exp(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``exp`` on the CPU, step by step: ``n = floor(x log2 e
+    + 1/2)`` clamped to [-127, 127], ``a = x - n ln 2`` in two parts, a
+    degree-7 polynomial of ``a`` in Horner form, times ``2^n``; every
+    multiply-add fused, as the CPU compiler contracts them."""
+    x = x.clamp(_f32(_EXP_LO), _f32(_EXP_HI))
+    n = torch.floor(_fma32(x, _LOG2E, 0.5)).clamp(-127.0, 127.0)
+    a = _fma32(-_LN2_HI, n, x)
+    a = _fma32(-_LN2_LO, n, a)
+    z = _fma32(a, _EXP_POLY[0], _EXP_POLY[1])
+    for coef in _EXP_POLY[2:]:
+        z = _fma32(z, a, coef)
+    z = _f32(1.0) + _fma32(z, a * a, a)
+    return z * ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def _estimates(totals: torch.Tensor, n_registers: int) -> torch.Tensor:
+    """float32 FM estimates of ``n_registers`` registers whose lowest-zero
+    indexes sum to each of ``totals`` (integers below 2^24), in the
+    reference's float32 steps.  On the CPU."""
+    totals = torch.as_tensor(totals, dtype=torch.int64).cpu()
+    mean = totals.float() * (_f32(1.0) / n_registers)
+    return _xla_exp(mean * _f32(math.log(2))) / _f32(PHI)
+
+
+@functools.lru_cache(maxsize=1024)
+def _estimate(total: int, n_registers: int) -> float:
+    """``_estimates`` of one sum, remembered: the planner asks again for
+    the columns it has sketched."""
+    return float(_estimates(torch.tensor([total]), n_registers)[0])
+
+
 def fm_estimate(registers: torch.Tensor) -> float:
     """Distinct-count estimate ``2^mean(R) / PHI`` from register bitmaps,
     the mean over all of them (a ``[B, K]`` array averages its B * K
-    registers, as the reference does), as the reference's float32 value."""
-    n = registers.numel()
-    if n not in FM_REGISTER_COUNTS:
-        raise ValueError(
-            f"fm_estimate takes {', '.join(map(str, FM_REGISTER_COUNTS))} "
-            f"registers, got {n} (shape {tuple(registers.shape)})")
+    registers, as the reference does), as the reference's float32 value
+    (``_estimates``)."""
     total = int(_lowest_zero_index(registers).sum())
-    return _FM_ESTIMATES[total * (64 // n)]
+    return _estimate(total, registers.numel())

@@ -76,8 +76,11 @@ class Attention(nn.Module):
         self.q_norm, self.k_norm = q_norm, k_norm
 
 
-def init_attention(gen: torch.Generator, cfg) -> Attention:
-    d, hd, nq, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+def init_attention(gen: torch.Generator, cfg, d_model=None) -> Attention:
+    """q/k/v/o projections from and to ``d_model`` (default the
+    config's)."""
+    d = d_model or cfg.d_model
+    hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     wq = layers.init_linear(gen, d, nq * hd, bias=cfg.qkv_bias)
     wk = layers.init_linear(gen, d, nkv * hd, bias=cfg.qkv_bias)
     wv = layers.init_linear(gen, d, nkv * hd, bias=cfg.qkv_bias)
@@ -263,10 +266,11 @@ def self_attention(p: Attention, cfg, x, positions=None, *, causal=True,
     return out
 
 
-def cross_attention(p: Attention, cfg, x, memory):
+def cross_attention(p: Attention, cfg, x, memory, positions=None):
     """Text -> memory cross-attention sub-layer: q from x [B,S,d], k/v
     from memory [B,T,d], no rope, QK-norm when set, no mask.  Without a
-    causal or window mask positions change nothing, so the flash kernel
+    causal or window mask positions change nothing: ``positions`` (the
+    JAX package's argument) is accepted and unused, and the flash kernel
     takes its own ``0..S-1`` / ``0..T-1``.
 
     k/v take the memory's dtype (``linear`` casts the weights to its
@@ -463,12 +467,14 @@ def append_kv(p: Attention, cfg, x, layer_k, layer_v, length: int, *,
 
 
 def decode_attention(p: Attention, cfg, x, layer_k, layer_v, length: int,
-                     *, theta=None, sl=None):
+                     *, window=0, theta=None, sl=None):
     """One-token self-attention against the cache, which already holds
     this step's k/v at ``length`` (``append_kv``): the new token is scored
     from its cache copy, in the cache's dtype, as the JAX package scores
-    it.  x [B,1,d]; layer_k/v [B,T,KVH,D]; returns [B,1,d].  No window:
-    no family that decodes through it has one.  ``sl``: as in
+    it.  x [B,1,d]; layer_k/v [B,T,KVH,D]; returns [B,1,d].  The keys at
+    positions ``kpos <= length`` are read, and with ``window > 0`` only
+    those with ``kpos > length - window`` (the positions are global, so a
+    rank's slice of T masks the same keys).  ``sl``: as in
     ``decode_attention_append``."""
     b, t = x.shape[0], layer_k.shape[1]
     hs = _Heads(cfg, all_kv=True, whole=sl is not None and sl.model)
@@ -477,7 +483,10 @@ def decode_attention(p: Attention, cfg, x, layer_k, layer_v, length: int,
     s = _decode_scores(qg, layer_k)
     kpos = torch.arange(t, device=x.device) + (0 if sl is None
                                                else sl.start)
-    s = s.masked_fill(kpos > length, NEG_INF)
+    mask = kpos <= length
+    if window > 0:
+        mask = mask & (kpos > length - window)
+    s = s.masked_fill(~mask, NEG_INF)
     if sl is None:
         out = _decode_values(torch.softmax(s, dim=-1), layer_v)
     else:

@@ -64,10 +64,11 @@ from repro_torch.parallel import sharding
 # per-layer schedule (window / rope theta per layer)
 # --------------------------------------------------------------------------
 
-def layer_schedule(cfg: ModelConfig):
-    """Returns (windows [L] ints, thetas [L] floats)."""
+def layer_schedule(cfg: ModelConfig, n_layers=None):
+    """Returns (windows [L] ints, thetas [L] floats); L is ``n_layers``
+    when given, else the config's layers."""
     windows, thetas = [], []
-    for i in range(cfg.n_layers):
+    for i in range(n_layers or cfg.n_layers):
         if cfg.local_pattern and (i % (cfg.local_pattern + 1)
                                   != cfg.local_pattern):
             windows.append(cfg.sliding_window)
@@ -144,7 +145,10 @@ def init_cross_block(gen: torch.Generator, cfg: ModelConfig) -> CrossBlock:
                       attention.init_attention(gen, cfg))
 
 
-def cross_block_forward(p: CrossBlock, cfg: ModelConfig, x, memory):
+def cross_block_forward(p: CrossBlock, cfg: ModelConfig, x, memory,
+                        positions=None):
+    """x plus the cross attention to ``memory`` of its normed self;
+    ``positions`` is accepted and unused (``attention.cross_attention``)."""
     h = layers.rms_norm(x, seqp.replicated(p.ln.scale), cfg.norm_eps)
     return x + attention.cross_attention(p.xattn, cfg, h, memory)
 

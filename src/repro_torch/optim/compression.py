@@ -48,8 +48,10 @@ def compress_grads(grads: list, residual: list):
     return qs, scales, errs
 
 
-def decompress_grads(qs: list, scales: list) -> list:
-    return [_dq8(q, s) for q, s in zip(qs, scales)]
+def decompress_grads(q_tree: list, s_tree: list) -> list:
+    """The f32 gradients of ``compress_grads``' int8 tensors and their
+    scales (the JAX package's pytrees are lists here)."""
+    return [_dq8(q, s) for q, s in zip(q_tree, s_tree)]
 
 
 def simulate_roundtrip(grads: list, residual: list):

@@ -285,8 +285,10 @@ def make_prefill_step(model: Model):
     return prefill_step
 
 
-def make_decode_step(model: Model):
-    """serve_step: one greedy token for every sequence in the batch."""
+def make_decode_step(model: Model, sample_greedy: bool = True):
+    """serve_step: one token for every sequence in the batch, the greedy
+    one, or with ``sample_greedy=False`` the input's last token fed back
+    (teacher forcing)."""
 
     vocab = model.config.vocab_size
 
@@ -294,7 +296,9 @@ def make_decode_step(model: Model):
     def decode_step(params, cache, tokens):
         logits, cache = model.decode_step(params, cache, tokens)
         tp = tpl.active()
-        if tp is not None and tp.splits("vocab", vocab):
+        if not sample_greedy:
+            nxt = tokens[:, -1]
+        elif tp is not None and tp.splits("vocab", vocab):
             nxt = tpl.argmax(logits[:, -1], vocab, tp).to(torch.int32)
         else:
             nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
